@@ -1,0 +1,21 @@
+"""scintools_tpu_torch — the PyTorch/CUDA port of scintools_tpu.
+
+The θ-θ curvature search runs end to end on a CUDA card: windowed,
+padded secondary spectrum → per-chunk mean-padded conjugate spectra →
+θ-θ gather over the η grid → dominant eigenvalue per (chunk, η) by a
+hand-written Hopper kernel (``csrc/eig_warmstart.cu``) → closed-form
+parabola peak fit with a per-chunk health mask → weighted global
+η ∝ f⁻² fit. Entry points take ``device=None``, meaning the card; pass
+``device="cpu"`` to run the plain PyTorch versions on the CPU.
+
+The package imports torch, numpy and scipy only: it shares no code
+with the JAX package ``scintools_tpu``, whose layout and function
+names it keeps.
+"""
+
+from .dynspec import BasicDyn, Dynspec
+from .ops.sspec import secondary_spectrum
+from .thth.search import multi_chunk_search
+
+__all__ = ["BasicDyn", "Dynspec", "multi_chunk_search",
+           "secondary_spectrum"]

@@ -1,0 +1,265 @@
+"""Dynspec façade of the port: secondary spectrum and θ-θ curvature fit.
+
+Counterpart of ``scintools_tpu/dynspec.py``: ``BasicDyn`` (:2148),
+``Dynspec.__init__`` (:73), ``load_dyn_obj`` (:105), ``calc_sspec``
+(:462, without ``lamsteps``/``velocity``/``trap``), ``prep_thetatheta``
+(:1240), ``_chunk`` (:1341) and ``fit_thetatheta`` (:1416, the batched
+row branch :1443-1489 and the weighted global η ∝ f⁻² fit
+:1538-1581). State accretes on the instance as in the JAX package
+(``self.sspec``, ``self.eta_evo``, ``self.ththeta``, …) as numpy
+arrays; the computation runs on ``self.device``.
+
+Not in this slice: file loading and processing (``process=True``), the
+Hough seed of ``prep_thetatheta`` (it needs ``fit_arc``, so both
+``eta_min`` and ``eta_max`` must be given), and the thin-screen
+search.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .backend import resolve_device
+from .ops import sspec as sspec_ops
+from .robust.guards import BAD_CS, BAD_INPUT
+from .thth import core as thth_core
+from .thth import search as thth_search
+
+_STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
+               "nct_fit", "npad", "fw", "fref", "eta_min", "eta_max", "neta",
+               "edges", "thth_tau_mask", "thetatheta_proc")
+
+
+class Dynspec:
+    """Dynamic spectrum analysis object on a torch device."""
+
+    def __init__(self, filename=None, dyn=None, verbose=True, process=False,
+                 device=None):
+        self.device = resolve_device(device)
+        if filename:
+            raise NotImplementedError("file loading is not ported yet; "
+                                      "pass dyn=BasicDyn(...)")
+        if dyn is None:
+            raise ValueError("No dynamic spectrum file or object")
+        self.load_dyn_obj(dyn, verbose=verbose, process=process)
+
+    @classmethod
+    def from_reference_state(cls, state, device=None):
+        """A Dynspec holding exactly the θ-θ state ``state`` — a dict of
+        plain numpy/float values named as the JAX ``Dynspec`` holds them
+        after ``prep_thetatheta`` (``dyn, times, freqs, dt, df, cwf,
+        cwt, ncf_fit, nct_fit, npad, fw, fref, eta_min, eta_max, neta,
+        edges, thth_tau_mask, thetatheta_proc``) — ready for
+        :meth:`fit_thetatheta`."""
+        missing = [k for k in _STATE_KEYS if k not in state]
+        if missing:
+            raise KeyError(f"reference state lacks {missing}")
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        for k in _STATE_KEYS:
+            v = state[k]
+            setattr(self, k, np.array(v, dtype=float)
+                    if isinstance(v, (np.ndarray, list)) else v)
+        if self.thetatheta_proc == "thin":
+            raise NotImplementedError("the thin-screen search is not "
+                                      "ported yet")
+        self.name = state.get("name", "reference")
+        return self
+
+    def load_dyn_obj(self, dyn, verbose=True, process=False):
+        """Load from an adapter object such as :class:`BasicDyn`."""
+        if process:
+            raise NotImplementedError("default processing is not ported "
+                                      "yet; pass process=False")
+        self.name = dyn.name
+        self.header = list(getattr(dyn, "header", []))
+        self.times = np.asarray(dyn.times, dtype=float)
+        self.freqs = np.asarray(dyn.freqs, dtype=float)
+        self.nchan = dyn.nchan
+        self.nsub = dyn.nsub
+        self.bw = dyn.bw
+        self.df = dyn.df
+        self.freq = dyn.freq
+        self.dt = dyn.dt
+        self.tobs = (dyn.tobs if dyn.tobs is not None
+                     else np.ptp(self.times) + self.dt)
+        self.mjd = dyn.mjd if dyn.mjd is not None else 60000.0
+        self.dyn = np.array(dyn.dyn, dtype=float)
+        if verbose:
+            print(f"LOADED DYNSPEC OBJECT {dyn.name}")
+
+    def calc_sspec(self, prewhite=False, halve=True, window="hanning",
+                   window_frac=0.1):
+        """Secondary spectrum in dB (``self.sspec``, ``self.fdop``,
+        ``self.tdel``), computed on ``self.device``."""
+        self.fdop, self.tdel, sec = sspec_ops.secondary_spectrum(
+            self.dyn, self.dt, self.df, window=window,
+            window_frac=window_frac, prewhite=prewhite, halve=halve,
+            device=self.device)
+        self.sspec = sec.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # θ-θ pipeline
+    # ------------------------------------------------------------------
+    def prep_thetatheta(self, fw=.1, npad=3, verbose=False,
+                        fitting_proc="standard", **kwargs):
+        """Chunk geometry + η range + edges for θ-θ (η in s³, edges
+        mHz). Needs both ``eta_min`` and ``eta_max``: the Hough seed
+        that would supply them is not ported yet."""
+        procs = ["standard", "thin", "incoherent"]
+        if fitting_proc not in procs:
+            raise ValueError(f"fitting_proc must be one of {procs}")
+        if fitting_proc == "thin":
+            raise NotImplementedError("the thin-screen search is not "
+                                      "ported yet")
+        if not ("eta_min" in kwargs and "eta_max" in kwargs):
+            raise NotImplementedError(
+                "prep_thetatheta needs both eta_min and eta_max: the "
+                "Hough seed (fit_arc) is not ported yet")
+        self.thetatheta_proc = fitting_proc
+        self.npad = npad
+        self.fw = fw
+        if "cwf" in kwargs:
+            self.cwf = 2 * (kwargs["cwf"] // 2)
+            self.ncf_fit = self.dyn.shape[0] // self.cwf
+        else:
+            self.cwf = self.dyn.shape[0]
+            self.ncf_fit = 1
+        if "cwt" in kwargs:
+            self.cwt = 2 * (kwargs["cwt"] // 2)
+            self.nct_fit = self.dyn.shape[1] // self.cwt
+        else:
+            self.cwt = self.dyn.shape[1]
+            self.nct_fit = 1
+
+        tau_lim = kwargs.get("tau_lim")
+        self.fref = kwargs.get("fref", float(self.freqs.mean()))
+
+        fd = thth_core.fft_axis(self.times[:self.cwt], scale=1e3)
+        tau = thth_core.fft_axis(self.freqs[:self.cwf], scale=1.0)
+
+        self.eta_min = 4 * (tau[1] - tau[0]) / fd.max() ** 2
+        self.eta_max = tau.max() / (fd[1] - fd[0]) ** 2
+        self.eta_min *= (self.freqs.max() / self.fref) ** 2
+        self.eta_max *= (self.freqs.min() / self.fref) ** 2
+        self.eta_min = max(kwargs["eta_min"], self.eta_min)
+        self.eta_max = min(kwargs["eta_max"], self.eta_max)
+
+        l0, l1 = np.log10(self.eta_min), np.log10(self.eta_max)
+        self.neta = int(1 + (l1 - l0) / np.log10(1 + self.fw / 10))
+        if "neta" in kwargs:
+            self.neta = int(kwargs["neta"])
+
+        fd_cut = (fd.max() / 2) * (self.fref / self.freqs.max())
+        edges_lim = min(kwargs.get("edges_lim", fd_cut), fd_cut)
+        if tau_lim is not None:
+            edges_lim = min(edges_lim, np.sqrt(tau_lim / self.eta_max))
+
+        if "nedge" in kwargs:
+            if kwargs["nedge"] % 2 != 0:
+                raise ValueError("nedge must be even!")
+            self.edges = np.linspace(-edges_lim, edges_lim, kwargs["nedge"])
+        else:
+            self.edges = thth_core.min_edges(
+                edges_lim, fd, tau,
+                self.eta_max * (self.fref / self.freqs.min()),
+                2) * (self.freqs.min() / self.fref)
+        self.thth_tau_mask = kwargs.get("tau_mask", 0.0)
+
+        if verbose:
+            print(f"Chunks: {self.ncf_fit}x{self.nct_fit} of "
+                  f"{self.cwf}x{self.cwt}; eta {self.eta_min} to "
+                  f"{self.eta_max} s^3 with {self.neta} points; "
+                  f"{self.edges.shape[0]} edges out to {self.edges[-1]} mHz")
+
+    def _chunk(self, cf, ct):
+        """Mean-subtracted fitting chunk (chunks tile the plane)."""
+        fs = slice(cf * self.cwf, (cf + 1) * self.cwf)
+        ts = slice(ct * self.cwt, (ct + 1) * self.cwt)
+        dspec2 = np.array(self.dyn[fs, ts])
+        dspec2 -= np.nanmean(dspec2)
+        return np.nan_to_num(dspec2), self.freqs[fs], self.times[ts]
+
+    def fit_thetatheta(self, verbose=False):
+        """Per-chunk η(f, t) searches, one fused batched search per
+        frequency row → weighted global η ∝ f⁻² fit (``self.ththeta``,
+        ``self.ththetaerr``; per-chunk ``eta_evo``, ``eta_evo_err`` and
+        the health bitmask ``eta_evo_ok``)."""
+        if not hasattr(self, "cwf"):
+            raise RuntimeError("call prep_thetatheta first")
+        self.eta_evo = np.zeros((self.ncf_fit, self.nct_fit))
+        self.eta_evo_err = np.zeros((self.ncf_fit, self.nct_fit))
+        self.eta_evo_ok = np.zeros((self.ncf_fit, self.nct_fit), dtype=int)
+        self.f0s = np.zeros(self.ncf_fit)
+        self.t0s = np.zeros(self.nct_fit)
+        for cf in range(self.ncf_fit):
+            chunks, tlist, freq2 = [], [], None
+            for ct in range(self.nct_fit):
+                dspec2, freq2, time2 = self._chunk(cf, ct)
+                chunks.append(dspec2)
+                tlist.append(time2)
+            etas = np.logspace(np.log10(self.eta_min),
+                               np.log10(self.eta_max), self.neta) \
+                * (self.fref / freq2.mean()) ** 2
+            edges = self.edges * (freq2.mean() / self.fref)
+            results = thth_search.multi_chunk_search(
+                chunks, freq2, tlist, etas, edges, fw=self.fw,
+                npad=self.npad, coher=(self.thetatheta_proc != "incoherent"),
+                tau_mask=self.thth_tau_mask, device=self.device)
+            for ct, res in enumerate(results):
+                self.eta_evo[cf, ct] = res.eta
+                self.eta_evo_err[cf, ct] = res.eta_sig
+                self.eta_evo_ok[cf, ct] = res.ok
+                self.f0s[cf] = res.freq_mean
+                self.t0s[ct] = res.time_mean
+            if verbose:
+                ok = np.isfinite(self.eta_evo[cf])
+                print(f"Chunk row {cf + 1}/{self.ncf_fit} "
+                      f"(f={self.f0s[cf]:.1f} MHz): "
+                      f"{int(ok.sum())}/{self.nct_fit} fits")
+
+        n_quar = int(np.sum((self.eta_evo_ok & (BAD_INPUT | BAD_CS)) != 0))
+        if verbose and n_quar:
+            print(f"fit_thetatheta: {n_quar} chunk(s) quarantined "
+                  "(non-finite input/CS power; see eta_evo_ok)")
+
+        f0s = self.f0s[:, None]
+        # zero per-chunk errors get infinite weight, as in the reference
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tofit = np.isfinite(self.eta_evo) & np.isfinite(self.eta_evo_err)
+            A = (np.sum(self.eta_evo[tofit]
+                        / (f0s * self.eta_evo_err)[tofit] ** 2)
+                 / np.sum(1 / ((f0s ** 2) * self.eta_evo_err)[tofit] ** 2))
+            A_err = np.sqrt(1 / np.sum(
+                2 / ((f0s ** 2) * self.eta_evo_err)[tofit] ** 2))
+        self.ththeta = A / self.fref ** 2
+        self.ththetaerr = A_err / self.fref ** 2
+
+
+class BasicDyn:
+    """Raw-array adapter."""
+
+    def __init__(self, dyn, name="BasicDyn", header=("BasicDyn",),
+                 times=None, freqs=None, nchan=None, nsub=None, bw=None,
+                 df=None, freq=None, tobs=None, dt=None, mjd=60000):
+        times = np.asarray([] if times is None else times, dtype=float)
+        freqs = np.asarray([] if freqs is None else freqs, dtype=float)
+        if times.size == 0 or freqs.size == 0:
+            raise ValueError("must input array of times and frequencies")
+        self.name = name
+        self.header = list(header)
+        self.times = times
+        self.freqs = freqs
+        self.nchan = nchan if nchan is not None else len(freqs)
+        self.nsub = nsub if nsub is not None else len(times)
+        self.bw = bw if bw is not None else float(np.ptp(freqs))
+        self.df = (df if df is not None
+                   else float(np.mean(np.abs(np.diff(freqs)))))
+        self.freq = (freq if freq is not None
+                     else float(np.mean(np.unique(freqs))))
+        self.dt = (dt if dt is not None
+                   else float(np.mean(np.abs(np.diff(times)))))
+        self.tobs = (tobs if tobs is not None
+                     else float(np.ptp(times)) + self.dt)
+        self.mjd = mjd
+        self.dyn = dyn

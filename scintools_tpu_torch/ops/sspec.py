@@ -1,0 +1,137 @@
+"""Secondary spectrum and chunk conjugate spectra in PyTorch.
+
+Counterpart of ``scintools_tpu/ops/sspec.py``: ``fft_shapes`` (:34),
+``sspec_axes`` (:41), ``_prewhite_diff`` (:52),
+``secondary_spectrum_power`` (:74, without ``zoom=``),
+``pad_chunk_batch`` (:150), ``chunk_conjugate_spectrum_batch`` (:175)
+and ``secondary_spectrum`` (:235). Mean-subtract → edge-taper window →
+zero-pad to next-pow2 ×2 → fft2 → power → fftshift → keep positive
+delays → optional prewhiten / post-darken → 10·log10. Works in
+float32 / complex64 on the caller's device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..backend import REAL, as_tensor, resolve_device
+from . import xfft
+from .windows import apply_window, get_window
+
+
+def fft_shapes(nf, nt):
+    """FFT lengths used by the reference: next power of two, doubled."""
+    nrfft = int(2 ** (np.ceil(np.log2(nf)) + 1))
+    ncfft = int(2 ** (np.ceil(np.log2(nt)) + 1))
+    return nrfft, ncfft
+
+
+def sspec_axes(nf, nt, dt, df, halve=True, dlam=None):
+    """(fdop [mHz], tdel [us], beta [m^-1] or None) axes for the sspec."""
+    nrfft, ncfft = fft_shapes(nf, nt)
+    td = np.arange(nrfft // 2 if halve else nrfft)
+    fd = np.arange(-ncfft // 2, ncfft // 2)
+    fdop = fd * 1e3 / (ncfft * dt)
+    tdel = td / (nrfft * df)
+    beta = td / (nrfft * dlam) if dlam is not None else None
+    return fdop, tdel, beta
+
+
+def _prewhite_diff(dyn):
+    """2-D first-difference prewhitening: 'valid' convolution with
+    [[1,-1],[-1,1]]."""
+    return (dyn[..., 1:, 1:] - dyn[..., 1:, :-1] - dyn[..., :-1, 1:]
+            + dyn[..., :-1, :-1])
+
+
+def secondary_spectrum_power(dyn, window_arrays=None, prewhite=False,
+                             halve=True, variant="half"):
+    """Linear-power secondary spectrum of the tensor ``dyn[..., nf, nt]``
+    → ``(..., nrfft//2 if halve else nrfft, ncfft)``.
+
+    ``variant='half'`` folds the ``halve`` row crop into the transform
+    (:func:`xfft.halfrow_power`); ``'dense'`` is the full complex-fft2
+    oracle. The full frame (``halve=False``) always takes dense."""
+    if variant not in ("half", "dense"):
+        raise ValueError(f"unknown variant {variant!r} "
+                         "(want 'half' or 'dense')")
+    nf, nt = dyn.shape[-2:]
+    nrfft, ncfft = fft_shapes(nf, nt)
+
+    dyn = dyn - dyn.mean(dim=(-2, -1), keepdim=True)
+    if window_arrays is not None:
+        dyn = apply_window(dyn, window_arrays[0], window_arrays[1])
+    dyn = dyn - dyn.mean(dim=(-2, -1), keepdim=True)
+
+    if prewhite:
+        if not halve:
+            raise RuntimeError("Cannot apply prewhite to full frame")
+        dyn = _prewhite_diff(dyn)
+
+    if halve and variant == "half":
+        sec = xfft.halfrow_power(dyn, (nrfft, ncfft))
+    else:
+        sec = xfft.dense_power(dyn, (nrfft, ncfft), halve)
+
+    if prewhite:  # post-darken
+        fd = np.arange(-ncfft // 2, ncfft // 2)
+        td = np.arange(nrfft // 2)
+        postdark = np.outer(np.sin(np.pi / nrfft * td) ** 2,
+                            np.sin(np.pi / ncfft * fd) ** 2)
+        postdark[:, ncfft // 2] = 1
+        postdark[0, :] = 1
+        sec = sec / torch.as_tensor(postdark, dtype=sec.dtype,
+                                    device=sec.device)
+    return sec
+
+
+def pad_chunk_batch(dspecs, npad):
+    """Mean-pad a batch of θ-θ chunks: ``(B, nf, nt) →
+    (B, (1+npad)·nf, (1+npad)·nt)``, each chunk padded with its own
+    mean (zero-pad the mean-subtracted chunk and add the mean back)."""
+    _, nf, nt = dspecs.shape
+    mu = dspecs.mean(dim=(1, 2), keepdim=True)
+    return torch.nn.functional.pad(dspecs - mu,
+                                   (0, npad * nt, 0, npad * nf)) + mu
+
+
+def chunk_conjugate_spectrum_batch(dspecs, npad=3, tau_keep=None,
+                                   method="rfft"):
+    """Per-chunk mean pad → fft2 → fftshift of a same-geometry chunk
+    stack: ``dspecs[B, nf, nt]`` real → ``CS[B, (1+npad)nf,
+    (1+npad)nt]`` complex. ``tau_keep`` is an optional host bool mask
+    over the (shifted) delay axis; rows outside it are zeroed.
+    ``method='rfft'`` takes the half spectrum plus the Hermitian
+    completion, ``'fft2'`` the dense complex transform."""
+    padded = pad_chunk_batch(dspecs, npad)
+    CS = torch.fft.fftshift(xfft.fft2_full(padded, variant=method),
+                            dim=(-2, -1))
+    if tau_keep is not None:
+        keep = torch.as_tensor(np.asarray(tau_keep), device=CS.device)
+        CS = CS.masked_fill(~keep[None, :, None], 0)
+    return CS
+
+
+def secondary_spectrum(dyn, dt, df, window="hanning", window_frac=0.1,
+                       prewhite=False, halve=True, dlam=None, db=True,
+                       variant="half", device=None):
+    """Full sspec pipeline → (fdop [mHz], yaxis, sec) with ``sec`` a
+    float32 tensor on ``device`` (dB when ``db``). yaxis is beta
+    [m^-1] when ``dlam`` is given, else tdel [us]."""
+    dev = resolve_device(device)
+    if isinstance(dyn, torch.Tensor):
+        dyn = dyn.to(device=dev, dtype=REAL)
+    else:
+        dyn = as_tensor(np.asarray(dyn), dev)
+    nf, nt = dyn.shape
+    wins = None
+    if window is not None:
+        wins = get_window(nt, nf, window=window, frac=window_frac)
+    sec = secondary_spectrum_power(dyn, window_arrays=wins,
+                                   prewhite=prewhite, halve=halve,
+                                   variant=variant)
+    if db:
+        sec = 10 * torch.log10(sec)
+    fdop, tdel, beta = sspec_axes(nf, nt, dt, df, halve=halve, dlam=dlam)
+    return fdop, (beta if dlam is not None else tdel), sec

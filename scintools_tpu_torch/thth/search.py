@@ -1,0 +1,184 @@
+"""Chunked θ-θ curvature search: the fused route in PyTorch.
+
+Counterpart of ``scintools_tpu/thth/search.py``: ``chi_par``/``err_calc``
+(:33-48), ``ChunkSearchResult`` (:50), ``chunk_geometry`` (:93),
+``fit_eig_peak`` (:130, the scipy host oracle), ``_jitted_fused_eval``
+(:234, here a plain dict of built search functions keyed on the
+geometry bytes), ``_fused_results`` (:273) and ``multi_chunk_search``
+(:304). Every call, a single chunk included (B=1), runs the fused
+search of thth/batch.py; the JAX package's staged and single-chunk
+routes are not part of this port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+from scipy.optimize import curve_fit
+
+from ..backend import as_tensor, resolve_device
+from .core import fft_axis, unit_checks
+
+
+def chi_par(x, A, x0, C):
+    """Parabola for peak fitting."""
+    return A * (x - x0) ** 2 + C
+
+
+def err_calc(etas, eigs, fit_pars):
+    """Peak-position error of the parabola fit from the residual
+    scatter."""
+    etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
+    eigs = np.asarray(eigs, dtype=float)
+    M = chi_par(etas, *fit_pars)
+    sig_estimate = np.std(eigs - M)
+    A, x0 = fit_pars[0], fit_pars[1]
+    denom = np.sum(4 * A * (2 * A * (x0 - etas) ** 2 + M - eigs))
+    return np.sqrt(2 / denom) * sig_estimate
+
+
+@dataclass
+class ChunkSearchResult:
+    eta: float          # fitted curvature (s³ ≡ us/mHz²)
+    eta_sig: float      # fit error
+    freq_mean: float    # mean frequency of chunk (MHz)
+    time_mean: float    # mean time of chunk (s)
+    eigs: np.ndarray    # eigenvalue-vs-η curve (NaN entries stripped)
+    etas: np.ndarray    # η grid matching ``eigs``
+    popt: np.ndarray = None  # parabola-fit coefficients (A, x0, C)
+    ok: int = 0         # health bitmask (robust/guards.py; 0=healthy)
+
+    @property
+    def healthy(self):
+        return int(self.ok) == 0
+
+    @property
+    def health(self):
+        from ..robust.guards import describe_health
+
+        return describe_health(self.ok)
+
+
+def chunk_geometry(nf=64, nt=64, npad=3, dt=2.0, df=0.05, f0=1400.0,
+                   eta_max=4e-3, n_edges=64):
+    """Static axes for one θ-θ chunk: (freqs MHz, times s, tau µs,
+    fd mHz, edges mHz), with the θ edges sized so the reduced θ-θ
+    stays inside the conjugate spectrum at the largest curvature."""
+    freqs = f0 + np.arange(nf) * df
+    times = np.arange(nt) * dt
+    fd = fft_axis(times, pad=npad, scale=1e3)
+    tau = fft_axis(freqs, pad=npad, scale=1.0)
+    th_lim = 0.95 * min(np.sqrt(tau.max() / eta_max), fd.max() / 2)
+    edges = np.linspace(-th_lim, th_lim, n_edges)
+    return freqs, times, tau, fd, edges
+
+
+def fit_eig_peak(etas, eigs, fw=0.1, full=False):
+    """Parabola fit around the eigenvalue peak with scipy (the host
+    oracle of thth/peakfit.py). With ``full=True`` also returns
+    (popt, etas_clean, eigs_clean) with NaN eigenvalues stripped."""
+    etas = np.asarray(etas, dtype=float)
+    eigs = np.asarray(eigs, dtype=float)
+    ok = np.isfinite(eigs)
+    etas, eigs = etas[ok], eigs[ok]
+
+    def out(eta_fit, eta_sig, popt):
+        if full:
+            return eta_fit, eta_sig, popt, etas, eigs
+        return eta_fit, eta_sig
+
+    if len(etas) < 3:
+        return out(np.nan, np.nan, None)
+    e_pk = etas[eigs == eigs.max()][0]
+    sel = np.abs(etas - e_pk) < fw * e_pk
+    etas_fit, eigs_fit = etas[sel], eigs[sel]
+    if len(etas_fit) < 3:
+        return out(np.nan, np.nan, None)
+    C = eigs_fit.max()
+    x0 = etas_fit[eigs_fit == C][0]
+    if x0 == etas_fit[0]:
+        A = (eigs_fit[-1] - C) / ((etas_fit[-1] - x0) ** 2)
+    else:
+        A = (eigs_fit[0] - C) / ((etas_fit[0] - x0) ** 2)
+    try:
+        popt, _ = curve_fit(chi_par, etas_fit, eigs_fit,
+                            p0=np.array([A, x0, C]))
+    except Exception:
+        return out(np.nan, np.nan, None)
+    eta_fit = popt[1]
+    eta_sig = np.sqrt((eigs_fit - chi_par(etas_fit, *popt)).std()
+                      / np.abs(popt[0]))
+    return out(eta_fit, eta_sig, popt)
+
+
+_FUSED_CACHE = {}
+_CACHE_SIZE = 16
+
+
+def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, device):
+    """The fused search function for one geometry, built once and kept
+    in a FIFO-bounded dict keyed on the geometry's bytes."""
+    from .batch import make_fused_search_fn
+
+    nf, nt = shape
+    key = (tau.tobytes(), fd.tobytes(), edges.tobytes(), (int(nf), int(nt)),
+           int(npad), bool(coher), float(tau_mask), float(fw), str(device))
+    fn = _FUSED_CACHE.get(key)
+    if fn is None:
+        if len(_FUSED_CACHE) >= _CACHE_SIZE:
+            _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
+        fn = _FUSED_CACHE[key] = make_fused_search_fn(
+            tau, fd, edges, nf, nt, npad=npad, coher=coher,
+            tau_mask=tau_mask, fw=fw, device=device)
+    return fn
+
+
+def _fused_results(fn, stack, etas, freq, times):
+    """Run a fused search and unpack its outputs into per-chunk
+    :class:`ChunkSearchResult` (NaN strip and popt gating on host)."""
+    eigs, eta, sig, popt, ok = fn(stack, etas)
+    eigs, eta, sig, popt, ok = (t.cpu().numpy()
+                                for t in (eigs, eta, sig, popt, ok))
+    freq_m = float(np.asarray(unit_checks(freq, "freq"),
+                              dtype=float).mean())
+    etas = np.asarray(etas, dtype=float)
+    out = []
+    for b, t in enumerate(times):
+        fin = np.isfinite(eigs[b])
+        t_a = np.asarray(unit_checks(t, "time"), dtype=float)
+        out.append(ChunkSearchResult(
+            eta=float(eta[b]), eta_sig=float(sig[b]),
+            freq_mean=freq_m, time_mean=float(t_a.mean()),
+            eigs=eigs[b][fin].astype(float), etas=etas[fin],
+            popt=(popt[b].astype(float) if np.isfinite(eta[b]) else None),
+            ok=int(ok[b])))
+    return out
+
+
+def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
+                       coher=True, tau_mask=0.0, device=None):
+    """Curvature search on a batch of same-geometry chunks (e.g. all
+    time-chunks of one frequency row) in one fused pass on ``device``:
+    mean-pad → conjugate spectrum → masked θ-θ gather → warm-start
+    eigen curve → closed-form parabola peak fit.
+
+    dspecs : list of (nf, nt) chunk arrays; times : list of per-chunk
+    time axes (same spacing). Returns a list of ChunkSearchResult."""
+    dev = resolve_device(device)
+    etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
+    stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
+                      for d in dspecs])
+    _, nf, nt = stack.shape
+    time0 = np.asarray(unit_checks(times[0], "time"), dtype=float)
+    freq_a = np.asarray(unit_checks(freq, "freq"), dtype=float)
+    fd = fft_axis(time0, pad=npad, scale=1e3)
+    tau = fft_axis(freq_a, pad=npad, scale=1.0)
+    edges_a = np.asarray(unit_checks(edges, "edges"), dtype=float)
+    fn = _fused_eval(tau, fd, edges_a, (nf, nt), npad, coher,
+                     float(unit_checks(tau_mask) or 0.0), fw, dev)
+    return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
+
+
+__all__ = ["ChunkSearchResult", "chi_par", "chunk_geometry", "err_calc",
+           "fit_eig_peak", "multi_chunk_search"]

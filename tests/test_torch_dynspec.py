@@ -1,0 +1,174 @@
+"""The port's ``Dynspec`` façade and north-star workload
+(scintools_tpu_torch/dynspec.py, workloads.py) against the JAX package
+on the CPU: the slice end to end.
+
+The JAX side prepares the θ-θ geometry; the port is handed exactly the
+same state through ``Dynspec.from_reference_state``. The JAX side's CPU
+route is its XLA η-scan and the port's the warm-start squaring
+algorithm in float32, so the fitted curvature is compared at rel 1e-2
+(the JAX package's own warm-vs-staged gate).
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from test_thth import make_arc_wavefield  # noqa: E402
+
+from scintools_tpu import dynspec as jdyn  # noqa: E402
+from scintools_tpu_torch import dynspec as tdyn  # noqa: E402
+from scintools_tpu_torch import workloads as tw  # noqa: E402
+from scintools_tpu_torch.thth import batch as tbatch  # noqa: E402
+
+_PREP = dict(cwf=128, cwt=128, eta_min=0.1, eta_max=0.9, nedge=64,
+             edges_lim=2.6, npad=1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def arc():
+    """The tests/test_thth_batch.py:83-106 arc wavefield, 128×256."""
+    E, times, freqs = make_arc_wavefield(nt=256, nf=128)
+    return np.abs(E) ** 2, times, freqs
+
+
+@pytest.fixture(scope="module")
+def jax_fit(arc):
+    dyn, times, freqs = arc
+    bd = jdyn.BasicDyn(dyn, name="arcsim", times=times, freqs=freqs)
+    d = jdyn.Dynspec(dyn=bd, verbose=False, process=False, backend="jax")
+    d.prep_thetatheta(**_PREP)
+    d.fit_thetatheta()
+    return d
+
+
+def _state(d):
+    return {k: getattr(d, k) for k in tdyn._STATE_KEYS}
+
+
+class TestFacadeVsJax:
+    def test_fit_thetatheta_from_reference_state(self, jax_fit):
+        ds = tdyn.Dynspec.from_reference_state(_state(jax_fit),
+                                               device="cpu")
+        ds.fit_thetatheta()
+        assert ds.eta_evo.shape == jax_fit.eta_evo.shape == (1, 2)
+        np.testing.assert_array_equal(np.isfinite(ds.eta_evo),
+                                      np.isfinite(jax_fit.eta_evo))
+        np.testing.assert_array_equal(ds.eta_evo_ok, jax_fit.eta_evo_ok)
+        np.testing.assert_array_equal(ds.f0s, jax_fit.f0s)
+        np.testing.assert_array_equal(ds.t0s, jax_fit.t0s)
+        assert np.isfinite(ds.ththeta)
+        assert ds.ththeta == pytest.approx(jax_fit.ththeta, rel=1e-2)
+
+    def test_own_prep_matches_jax_geometry(self, arc, jax_fit):
+        dyn, times, freqs = arc
+        bd = tdyn.BasicDyn(dyn, name="arcsim", times=times, freqs=freqs)
+        ds = tdyn.Dynspec(dyn=bd, verbose=False, process=False,
+                          device="cpu")
+        ds.prep_thetatheta(**_PREP)
+        for k in tdyn._STATE_KEYS:
+            if k == "dyn":
+                continue
+            np.testing.assert_array_equal(getattr(ds, k),
+                                          getattr(jax_fit, k), err_msg=k)
+        ds.fit_thetatheta()
+        assert ds.ththeta == pytest.approx(jax_fit.ththeta, rel=1e-2)
+
+    def test_calc_sspec_matches_jax(self, arc):
+        dyn, times, freqs = arc
+        kw = dict(name="arcsim", times=times, freqs=freqs)
+        dj = jdyn.Dynspec(dyn=jdyn.BasicDyn(dyn, **kw), verbose=False,
+                          process=False, backend="jax")
+        dj.calc_sspec()
+        dt_ = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, **kw), verbose=False,
+                           process=False, device="cpu")
+        dt_.calc_sspec()
+        np.testing.assert_array_equal(dt_.fdop, dj.fdop)
+        np.testing.assert_array_equal(dt_.tdel, dj.tdel)
+        # linear power within 1e-5 of the peak (float32 FFT)
+        lin_t, lin_j = 10 ** (dt_.sspec / 10), 10 ** (dj.sspec / 10)
+        np.testing.assert_allclose(lin_t, lin_j, rtol=0,
+                                   atol=1e-5 * lin_j.max())
+
+
+class TestRejectedInputs:
+    def test_device_none_raises_without_a_card(self, arc):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA card is present")
+        from scintools_tpu_torch import multi_chunk_search, secondary_spectrum
+
+        dyn, times, freqs = arc
+        bd = tdyn.BasicDyn(dyn, times=times, freqs=freqs)
+        with pytest.raises(RuntimeError):
+            tdyn.Dynspec(dyn=bd, verbose=False)
+        with pytest.raises(RuntimeError):
+            secondary_spectrum(dyn, 30.0, 0.2)
+        with pytest.raises(RuntimeError):
+            multi_chunk_search([dyn[:, :128]], freqs, [times[:128]],
+                               [0.3], np.linspace(-1, 1, 8))
+        with pytest.raises(RuntimeError):
+            tw.make_north_star_pipeline(64, 64, 64, 64, 1, None, None,
+                                        None, None, 1)
+        with pytest.raises(RuntimeError):
+            tbatch.make_multi_eval_fn(None, None, None)
+        with pytest.raises(RuntimeError):
+            tbatch.make_fused_search_fn(None, None, None, 64, 64)
+        with pytest.raises(RuntimeError):
+            tdyn.Dynspec.from_reference_state(
+                {k: 0 for k in tdyn._STATE_KEYS})
+
+    def test_unported_options_raise(self, arc):
+        dyn, times, freqs = arc
+        bd = tdyn.BasicDyn(dyn, times=times, freqs=freqs)
+        with pytest.raises(NotImplementedError):
+            tdyn.Dynspec(dyn=bd, process=True, verbose=False, device="cpu")
+        with pytest.raises(NotImplementedError):
+            tdyn.Dynspec(filename="x.dynspec", device="cpu")
+        ds = tdyn.Dynspec(dyn=bd, verbose=False, device="cpu")
+        with pytest.raises(NotImplementedError):
+            ds.prep_thetatheta(cwf=128, cwt=128)           # Hough seed
+        with pytest.raises(NotImplementedError):
+            ds.prep_thetatheta(fitting_proc="thin", eta_min=0.1,
+                               eta_max=0.9)
+        with pytest.raises(ValueError):
+            ds.prep_thetatheta(fitting_proc="bogus")
+        with pytest.raises(ValueError):
+            tdyn.BasicDyn(dyn)
+        with pytest.raises(KeyError):
+            tdyn.Dynspec.from_reference_state({"dyn": dyn}, device="cpu")
+
+
+class TestNorthStarWorkload:
+    def test_problem_builders_are_copies(self):
+        from bench import make_arc_dynspec
+
+        a = tw.make_arc_dynspec(64, 48, 2.0, 0.05, 1400.0, 5e-4, 8, seed=3)
+        b = make_arc_dynspec(64, 48, 2.0, 0.05, 1400.0, 5e-4, 8, seed=3)
+        np.testing.assert_array_equal(a, b)
+
+    def test_pipeline_recovers_curvature(self):
+        """One 256² chunk (N = 256, 200 η) on the CPU: the stages run
+        in order and the fitted η lands within 2% of the truth."""
+        nf = nt = 256
+        p = tw.make_north_star_problem(nf, nt, n_variants=1)
+        args = (nf, nt, p["cf"], p["ct"], p["npad"], p["wins"], p["tau"],
+                p["fd"], p["edges"], 1)
+        marks = []
+        sec, eigs, peak = tw.make_north_star_pipeline(
+            *args, fw=0.2, device="cpu")(p["dyns"][0], p["etas"],
+                                         mark=marks.append)
+        assert sec.shape == (256, 512) and eigs.shape == (1, 200)
+        assert marks == ["sspec", "cs", "gather", "eig", "peakfit"]
+        assert abs(float(peak[0, 0]) - p["eta_true"]) < 0.02 * p["eta_true"]
