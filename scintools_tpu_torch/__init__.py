@@ -5,8 +5,12 @@ padded secondary spectrum → per-chunk mean-padded conjugate spectra →
 θ-θ gather over the η grid → dominant eigenvalue per (chunk, η) by a
 hand-written Hopper kernel (``csrc/eig_warmstart.cu``) → closed-form
 parabola peak fit with a per-chunk health mask → weighted global
-η ∝ f⁻² fit. Entry points take ``device=None``, meaning the card; pass
-``device="cpu"`` to run the plain PyTorch versions on the CPU.
+η ∝ f⁻² fit. The wavefield is then retrieved on the card: per-chunk
+θ-θ of a half-overlap chunk grid → dominant eigenpair by a second entry
+of the same kernel, warm-started along chains of chunks → inverse map
+and cropped ifft2 → device mosaic → Gerchberg–Saxton. Entry points take
+``device=None``, meaning the card; pass ``device="cpu"`` to run the
+plain PyTorch versions on the CPU.
 
 The package imports torch, numpy and scipy only: it shares no code
 with the JAX package ``scintools_tpu``, whose layout and function
@@ -15,7 +19,10 @@ names it keeps.
 
 from .dynspec import BasicDyn, Dynspec
 from .ops.sspec import secondary_spectrum
+from .thth.retrieval import (campaign_retrieval_batch, gerchberg_saxton,
+                             grid_retrieval_batch, mosaic_device)
 from .thth.search import multi_chunk_search
 
-__all__ = ["BasicDyn", "Dynspec", "multi_chunk_search",
-           "secondary_spectrum"]
+__all__ = ["BasicDyn", "Dynspec", "campaign_retrieval_batch",
+           "gerchberg_saxton", "grid_retrieval_batch", "mosaic_device",
+           "multi_chunk_search", "secondary_spectrum"]

@@ -1,29 +1,43 @@
-// Warm-started dominant eigenvalue of a batch of hermitian θ-θ matrices,
-// walking the η axis in order within each chunk.
+// Warm-started dominant eigenvalue (and eigenvector) of a batch of
+// hermitian θ-θ matrices, walking each chain of matrices in order.
 //
-// Replaces scintools_tpu/thth/pallas_eig.py:_make_warm_kernel (entry
-// batched_eig_warmstart). It computes what that kernel computes — the
-// cold two-phase squaring start (_eig_body) at the first η and after
-// every stale warm step, otherwise 24 shifted power steps from the
-// previous η's eigenvector (_warm_body) — but is not a block-by-block
-// copy: on the TPU the η axis is a sequential grid axis and the vector
-// lives in VMEM scratch between grid steps; here blocks run in no order,
-// so ONE CTA owns one chunk b and runs the η loop itself, keeping the
-// current eigenvector (2·N floats) in shared memory.
+// Replaces two kernels of scintools_tpu/thth/pallas_eig.py:
+//  - _make_warm_kernel (entry batched_eig_warmstart, :217), through
+//    eig_warmstart_launch: a chain is one chunk's η axis; λ only;
+//  - _make_warm_vec_kernel (entry batched_eigvec_warmstart, :296), through
+//    eigvec_warmstart_launch: a chain is a run of retrieval chunks; λ and
+//    the unit eigenvector v, which is the retrieved wavefield row.
+// Both compute what those kernels compute — the cold two-phase squaring
+// start (_eig_body) at a chain's first matrix and after every stale warm
+// step, otherwise `iters` shifted power steps from the previous matrix's
+// eigenvector (_warm_body) — but are not a block-by-block copy: on the
+// TPU the chain is a sequential grid axis and the vector lives in VMEM
+// scratch between grid steps; here blocks run in no order, so ONE CTA
+// owns one chain and runs the loop itself, keeping the current
+// eigenvector (2·N floats) in shared memory. Both entries run the same
+// kernel; a non-null `vout` makes it write v after every step.
 //
-// Input  a   : (B, neta, 2, N, N) float32, (re, im) planes, N % 128 == 0
-// Output out : (B, neta) float32, the largest-algebraic eigenvalue λ
-//              (the caller takes |λ|)
-// Scratch    : (B, 2, 2, N, N) float32 — two (re, im) ping-pong buffers
-//              per chunk for the cold start's squarings (allocated by the
-//              caller; the kernel allocates nothing).
+// Input  a    : (G, L, 2, N, N) float32, (re, im) planes, N % 128 == 0;
+//               G chains of L matrices
+// Output out  : (G, L) float32, the largest-algebraic eigenvalue λ
+//               (the caller takes |λ|)
+//        vout : (G, L, 2, N) float32, v as (re, im) rows, or null
+// Scratch     : (G, 2, 2, N, N) float32 — two (re, im) ping-pong buffers
+//               per chain for the cold start's squarings (allocated by the
+//               caller; the kernel allocates nothing).
 //
-// What bounds it on an H100. Bytes read once: B·neta·2·N²·4 (6.7 GB at
-// the north star: 64 chunks × 200 η × N=256), ≈ 2 ms at 3.35 TB/s.
-// Operations: ≈ neta·26·8N² per chunk for the warm mat-vecs plus
-// 15·4·2N³ per cold start (≈ 0.3 TFLOP of f32 CUDA-core work at the
-// north star, a few ms at 67 TFLOP/s). This simple design is far from
-// that bound:
+// What bounds it on an H100. Bytes read once: G·L·2·N²·4, plus
+// G·L·(2N+1)·4 written for the eigenvector entry. Operations: ≈ (iters+2)
+// complex N² mat-vecs (8N² flops each) per warm matrix, plus 15·4·2N³ per
+// cold start and 3 mat-vecs. For one 32-chunk group of the north star's
+// curvature search (200 η, N=256, iters 24) that is 3.4 GB (≈ 1 ms at
+// 3.35 TB/s) against ≈ 0.09 TFLOP of warm steps plus ≈ 2 GFLOP per cold
+// start (a few hundred of them on that data): operations bound it, at
+// ≈ 10 ms at 67 TFLOP/s f32. For the wavefield retrieval of a 4096²
+// spectrum (225 chunks in 9 chains of 25, N=256, iters 64) it is 0.12 GB
+// (≈ 0.04 ms) against ≈ 7.5 GFLOP of warm steps plus ≈ 2 GFLOP per cold
+// start (at least 9): operations again, ≈ 0.4 ms. This simple design is
+// far from either bound:
 //  - warm steps read A from global memory / L2 once per mat-vec (one warp
 //    per row, lanes striding the row with float4 loads, warp-shuffle
 //    reduction): at N=256 the complex matrix is 512 KiB, more than the
@@ -33,12 +47,14 @@
 //  - the cold start's 15 complex squarings run as a tiled f32 GEMM
 //    (64×128 output tile, 4×4 complex outputs per thread) inside the
 //    block, through the global scratch buffers;
-//  - one CTA per chunk fills only B of the 132 SMs. That is the first
-//    thing to fix.
+//  - one CTA per chain fills only G of the 132 SMs: 32 for a curvature-
+//    search group of 32 chunks, and 9 for the retrieval of a 4096²
+//    spectrum (225 chunks in 9 chains of 25). That is the first thing to
+//    fix.
 //
 // Reductions use a fixed-order tree (warp xor-butterfly, then warp 0
 // over the per-warp partials) and no float atomics, so a rerun gives the
-// same bits and one chunk's result never depends on another's.
+// same bits and one chain's result never depends on another's.
 
 #include <cuda_runtime.h>
 
@@ -313,8 +329,8 @@ __device__ void warm(const Src& a, int n, int iters, const Vecs& s,
 
 __global__ void __launch_bounds__(kThreads)
 eig_warmstart_kernel(const float* __restrict__ a, float* __restrict__ out,
-                     float* scratch, int neta, int n, int mid, int squarings,
-                     int iters) {
+                     float* __restrict__ vout, float* scratch, int len, int n,
+                     int mid, int squarings, int iters) {
   extern __shared__ __align__(16) float vec[];
   __shared__ __align__(16) Tiles tiles;
   __shared__ float red[kWarps + 1];
@@ -325,8 +341,8 @@ eig_warmstart_kernel(const float* __restrict__ a, float* __restrict__ out,
   float* base = scratch + (size_t)b * 4 * nn;
   float* const sre[2] = {base, base + 2 * nn};
   float* const sim[2] = {base + nn, base + 3 * nn};
-  for (int k = 0; k < neta; ++k) {
-    const float* ar = a + ((size_t)b * neta + k) * 2 * nn;
+  for (int k = 0; k < len; ++k) {
+    const float* ar = a + ((size_t)b * len + k) * 2 * nn;
     const Src am{ar, ar + nn, 1.f, 0.f};
     float lam, res;
     if (k == 0) {
@@ -338,25 +354,48 @@ eig_warmstart_kernel(const float* __restrict__ a, float* __restrict__ out,
       if (lam < 0.f || res > 0.03f * fabsf(lam) + kEps)
         cold(am, n, mid, squarings, sre, sim, s, tiles, red, lam, res);
     }
-    if (threadIdx.x == 0) out[(size_t)b * neta + k] = lam;
+    if (threadIdx.x == 0) out[(size_t)b * len + k] = lam;
+    if (vout != nullptr) {
+      float* vo = vout + ((size_t)b * len + k) * 2 * n;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        vo[i] = s.vr[i];
+        vo[n + i] = s.vi[i];
+      }
+    }
   }
+}
+
+int launch(const float* a, float* out, float* vout, float* scratch, int G,
+           int len, int n, int mid, int squarings, int iters, void* stream) {
+  const int smem = 6 * n * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      eig_warmstart_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  eig_warmstart_kernel<<<G, kThreads, smem, (cudaStream_t)stream>>>(
+      a, out, vout, scratch, len, n, mid, squarings, iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one CTA per chunk on `stream`; returns cudaGetLastError().
+// λ of B chunks' η chains of length neta, one CTA per chunk on `stream`;
+// returns cudaGetLastError().
 int eig_warmstart_launch(const float* a, float* out, float* scratch, int B,
                          int neta, int n, int mid, int squarings, int iters,
                          void* stream) {
-  const int smem = 6 * n * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      eig_warmstart_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  eig_warmstart_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      a, out, scratch, neta, n, mid, squarings, iters);
-  return (int)cudaGetLastError();
+  return launch(a, out, nullptr, scratch, B, neta, n, mid, squarings, iters,
+                stream);
+}
+
+// λ and v of G chains of L retrieval matrices, one CTA per chain on
+// `stream`; returns cudaGetLastError().
+int eigvec_warmstart_launch(const float* a, float* lam_out, float* v_out,
+                            float* scratch, int G, int L, int n, int mid,
+                            int squarings, int iters, void* stream) {
+  return launch(a, lam_out, v_out, scratch, G, L, n, mid, squarings, iters,
+                stream);
 }
 
 const char* eig_warmstart_error_string(int code) {

@@ -1,18 +1,22 @@
-"""Dynspec façade of the port: secondary spectrum and θ-θ curvature fit.
+"""Dynspec façade of the port: secondary spectrum, θ-θ curvature fit and
+wavefield retrieval.
 
 Counterpart of ``scintools_tpu/dynspec.py``: ``BasicDyn`` (:2148),
 ``Dynspec.__init__`` (:73), ``load_dyn_obj`` (:105), ``calc_sspec``
 (:462, without ``lamsteps``/``velocity``/``trap``), ``prep_thetatheta``
-(:1240), ``_chunk`` (:1341) and ``fit_thetatheta`` (:1416, the batched
+(:1240), ``_chunk`` (:1341), ``fit_thetatheta`` (:1416, the batched
 row branch :1443-1489 and the weighted global η ∝ f⁻² fit
-:1538-1581). State accretes on the instance as in the JAX package
-(``self.sspec``, ``self.eta_evo``, ``self.ththeta``, …) as numpy
-arrays; the computation runs on ``self.device``.
+:1538-1581), ``thetatheta_chunks`` (:1787, the batched grid branch),
+``calc_wavefield`` (:1888), ``_retrieval_grid_inputs`` (:1915),
+``retrieve_wavefield`` (:1934) and ``gerchberg_saxton`` (:1974). State
+accretes on the instance as in the JAX package (``self.sspec``,
+``self.eta_evo``, ``self.ththeta``, ``self.chunks``, ``self.wavefield``,
+…) as numpy arrays; the computation runs on ``self.device``.
 
 Not in this slice: file loading and processing (``process=True``), the
 Hough seed of ``prep_thetatheta`` (it needs ``fit_arc``, so both
-``eta_min`` and ``eta_max`` must be given), and the thin-screen
-search.
+``eta_min`` and ``eta_max`` must be given), the thin-screen search, and
+the ``pool``, ``memmap`` and ``mesh`` options of retrieval.
 """
 
 from __future__ import annotations
@@ -23,11 +27,20 @@ from .backend import resolve_device
 from .ops import sspec as sspec_ops
 from .robust.guards import BAD_CS, BAD_INPUT
 from .thth import core as thth_core
+from .thth import retrieval as thth_ret
 from .thth import search as thth_search
 
 _STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
-               "nct_fit", "npad", "fw", "fref", "eta_min", "eta_max", "neta",
-               "edges", "thth_tau_mask", "thetatheta_proc")
+               "nct_fit", "ncf_ret", "nct_ret", "npad", "fw", "fref",
+               "eta_min", "eta_max", "neta", "edges", "thth_tau_mask",
+               "thetatheta_proc")
+
+
+def _not_ported(**opts):
+    """Raise for the retrieval options this port does not take yet."""
+    given = sorted(k for k, v in opts.items() if v not in (None, False))
+    if given:
+        raise NotImplementedError(f"{', '.join(given)} not ported yet")
 
 
 class Dynspec:
@@ -48,9 +61,10 @@ class Dynspec:
         """A Dynspec holding exactly the θ-θ state ``state`` — a dict of
         plain numpy/float values named as the JAX ``Dynspec`` holds them
         after ``prep_thetatheta`` (``dyn, times, freqs, dt, df, cwf,
-        cwt, ncf_fit, nct_fit, npad, fw, fref, eta_min, eta_max, neta,
-        edges, thth_tau_mask, thetatheta_proc``) — ready for
-        :meth:`fit_thetatheta`."""
+        cwt, ncf_fit, nct_fit, ncf_ret, nct_ret, npad, fw, fref, eta_min,
+        eta_max, neta, edges, thth_tau_mask, thetatheta_proc``) — ready
+        for :meth:`fit_thetatheta`. An optional ``ththeta`` (the fitted
+        curvature) makes it ready for retrieval without a fit."""
         missing = [k for k in _STATE_KEYS if k not in state]
         if missing:
             raise KeyError(f"reference state lacks {missing}")
@@ -60,6 +74,8 @@ class Dynspec:
             v = state[k]
             setattr(self, k, np.array(v, dtype=float)
                     if isinstance(v, (np.ndarray, list)) else v)
+        if "ththeta" in state:
+            self.ththeta = float(state["ththeta"])
         if self.thetatheta_proc == "thin":
             raise NotImplementedError("the thin-screen search is not "
                                       "ported yet")
@@ -122,15 +138,17 @@ class Dynspec:
         if "cwf" in kwargs:
             self.cwf = 2 * (kwargs["cwf"] // 2)
             self.ncf_fit = self.dyn.shape[0] // self.cwf
+            self.ncf_ret = (self.dyn.shape[0] // (self.cwf // 2)) - 1
         else:
             self.cwf = self.dyn.shape[0]
-            self.ncf_fit = 1
+            self.ncf_fit = self.ncf_ret = 1
         if "cwt" in kwargs:
             self.cwt = 2 * (kwargs["cwt"] // 2)
             self.nct_fit = self.dyn.shape[1] // self.cwt
+            self.nct_ret = (self.dyn.shape[1] // (self.cwt // 2)) - 1
         else:
             self.cwt = self.dyn.shape[1]
-            self.nct_fit = 1
+            self.nct_fit = self.nct_ret = 1
 
         tau_lim = kwargs.get("tau_lim")
         self.fref = kwargs.get("fref", float(self.freqs.mean()))
@@ -168,14 +186,20 @@ class Dynspec:
 
         if verbose:
             print(f"Chunks: {self.ncf_fit}x{self.nct_fit} of "
-                  f"{self.cwf}x{self.cwt}; eta {self.eta_min} to "
+                  f"{self.cwf}x{self.cwt} (mosaic {self.ncf_ret}x"
+                  f"{self.nct_ret}); eta {self.eta_min} to "
                   f"{self.eta_max} s^3 with {self.neta} points; "
                   f"{self.edges.shape[0]} edges out to {self.edges[-1]} mHz")
 
-    def _chunk(self, cf, ct):
-        """Mean-subtracted fitting chunk (chunks tile the plane)."""
-        fs = slice(cf * self.cwf, (cf + 1) * self.cwf)
-        ts = slice(ct * self.cwt, (ct + 1) * self.cwt)
+    def _chunk(self, cf, ct, fit=True):
+        """Mean-subtracted chunk: fitting chunks tile the plane;
+        retrieval chunks (``fit=False``) half-overlap."""
+        fs = (slice(cf * self.cwf, (cf + 1) * self.cwf) if fit
+              else slice(cf * (self.cwf // 2),
+                         cf * (self.cwf // 2) + self.cwf))
+        ts = (slice(ct * self.cwt, (ct + 1) * self.cwt) if fit
+              else slice(ct * (self.cwt // 2),
+                         ct * (self.cwt // 2) + self.cwt))
         dspec2 = np.array(self.dyn[fs, ts])
         dspec2 -= np.nanmean(dspec2)
         return np.nan_to_num(dspec2), self.freqs[fs], self.times[ts]
@@ -234,6 +258,104 @@ class Dynspec:
                 2 / ((f0s ** 2) * self.eta_evo_err)[tofit] ** 2))
         self.ththeta = A / self.fref ** 2
         self.ththetaerr = A_err / self.fref ** 2
+
+    # ------------------------------------------------------------------
+    # wavefield retrieval
+    # ------------------------------------------------------------------
+    def _retrieval_grid_inputs(self):
+        """The half-overlap retrieval grid with each frequency row's
+        scaled geometry: ``(chunks[ncf, nct, cwf, cwt],
+        edges_rows[ncf, n_edges], etas_rows[ncf])``."""
+        chunks = np.zeros((self.ncf_ret, self.nct_ret, self.cwf, self.cwt))
+        edges_rows = np.zeros((self.ncf_ret, len(self.edges)))
+        etas_rows = np.zeros(self.ncf_ret)
+        for cf in range(self.ncf_ret):
+            for ct in range(self.nct_ret):
+                chunks[cf, ct], freq2, _ = self._chunk(cf, ct, fit=False)
+            freq = freq2.mean()
+            etas_rows[cf] = self.ththeta * (self.fref / freq) ** 2
+            edges_rows[cf] = self.edges * (freq / self.fref)
+        return chunks, edges_rows, etas_rows
+
+    def _steps(self):
+        return self.times[1] - self.times[0], self.freqs[1] - self.freqs[0]
+
+    def thetatheta_chunks(self, verbose=False, pool=None, memmap=False,
+                          mesh=None):
+        """Retrieve the half-overlap chunk grid (``self.chunks``,
+        complex64 ``[ncf_ret, nct_ret, cwf, cwt]``) in one batched pass
+        with the dense ``"eigh"`` solve, as the JAX package does."""
+        _not_ported(pool=pool, memmap=memmap, mesh=mesh)
+        if not hasattr(self, "ththeta"):
+            self.fit_thetatheta(verbose=verbose)
+        chunks, edges_rows, etas_rows = self._retrieval_grid_inputs()
+        nct = self.nct_ret
+        dt, df = self._steps()
+        E = thth_ret.grid_retrieval_batch(
+            chunks.reshape(-1, self.cwf, self.cwt),
+            np.repeat(edges_rows, nct, axis=0), np.repeat(etas_rows, nct),
+            dt, df, npad=self.npad, tau_mask=self.thth_tau_mask,
+            device=self.device)
+        self.chunks = E.reshape(self.ncf_ret, nct, self.cwf, self.cwt)
+        if verbose:
+            print(f"retrieved {self.ncf_ret}x{nct} chunks")
+
+    def calc_wavefield(self, verbose=False, pool=None, gs=False,
+                       memmap=False, niter=1, mesh=None, gs_mesh=None,
+                       device_mosaic=False):
+        """Mosaic the retrieval chunks into ``self.wavefield`` with the
+        numpy greedy stitch (``device_mosaic=True``: the device one),
+        retrieving them first if needed; ``gs`` then runs
+        :meth:`gerchberg_saxton`."""
+        _not_ported(pool=pool, memmap=memmap, mesh=mesh, gs_mesh=gs_mesh)
+        if not hasattr(self, "chunks"):
+            self.thetatheta_chunks(verbose=verbose)
+        if device_mosaic:
+            self.wavefield = thth_ret.mosaic_device(self.chunks,
+                                                    device=self.device)
+        else:
+            self.wavefield = thth_ret.mosaic(self.chunks)
+        if gs:
+            self.gerchberg_saxton(niter=niter, verbose=verbose)
+        return self.wavefield
+
+    def retrieve_wavefield(self, verbose=False, mesh=None, gs=False,
+                           niter=1, gs_mesh=None, method=None, mark=None):
+        """Device retrieval and mosaic of the half-overlap grid: the
+        chunk wavefields go from the batched retrieval to the device
+        stitch without leaving the card. Sets ``self.wavefield`` and the
+        per-chunk health grid ``self.wavefield_ok`` (quarantined chunks
+        are zero). ``method=None`` is the hand-written kernel route;
+        ``mark`` is the stage callback of
+        :func:`~.thth.retrieval.campaign_retrieval_batch`."""
+        _not_ported(mesh=mesh, gs_mesh=gs_mesh)
+        if not hasattr(self, "ththeta"):
+            self.fit_thetatheta(verbose=verbose)
+        chunks, edges_rows, etas_rows = self._retrieval_grid_inputs()
+        dt, df = self._steps()
+        wf, ok = thth_ret.campaign_retrieval_batch(
+            chunks[None], edges_rows, etas_rows, dt, df, npad=self.npad,
+            tau_mask=self.thth_tau_mask, method=method, device=self.device,
+            mark=mark)
+        self.wavefield = wf[0]
+        self.wavefield_ok = ok[0]
+        if verbose:
+            print(f"retrieved {self.ncf_ret}x{self.nct_ret} chunks, "
+                  f"{int(np.count_nonzero(ok))} quarantined")
+        if gs:
+            self.gerchberg_saxton(niter=niter, verbose=verbose)
+        return self.wavefield
+
+    def gerchberg_saxton(self, niter=1, verbose=False, pool=None, mesh=None):
+        """Gerchberg–Saxton iterations on ``self.wavefield``."""
+        _not_ported(pool=pool, mesh=mesh)
+        if not hasattr(self, "wavefield"):
+            self.calc_wavefield(verbose=verbose)
+        self.wavefield = thth_ret.gerchberg_saxton(
+            self.wavefield, self.dyn,
+            freqs=self.freqs[: self.wavefield.shape[0]], niter=niter,
+            device=self.device)
+        return self.wavefield
 
 
 class BasicDyn:

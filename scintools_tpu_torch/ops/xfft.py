@@ -1,9 +1,9 @@
 """Real-input 2-D transforms on ``torch.fft`` (cuFFT on the card).
 
 Counterpart of ``scintools_tpu/ops/xfft.py``: ``hermitian_full_from_half``
-(:111), ``fft2_full`` (:141, ``rfft`` and ``fft2`` variants),
-``halfrow_power`` (:262) and the dense branch of ``Plan.power``
-(:548-559). The JAX package routes these through a declarative plan and
+(:111), ``hermitian_half_gather`` (:125), ``fft2_full`` (:141, ``rfft``
+and ``fft2`` variants), ``ifft2_cropped`` (:186), ``halfrow_power``
+(:262) and the dense branch of ``Plan.power`` (:548-559). The JAX package routes these through a declarative plan and
 a formulation registry; the port has no registry in this slice, so the
 variant is an explicit argument.
 """
@@ -24,6 +24,23 @@ def hermitian_full_from_half(H, n2):
     return torch.cat([H, tail], dim=-1)
 
 
+def hermitian_half_gather(H, n2, rows, cols):
+    """Point-gather full-spectrum entries of real inputs from their
+    ``rfft2`` halves ``H[B, n1, n2//2+1]``: ``rows``/``cols`` (int64,
+    leading axis B) index the RAW full ``(n1, n2)`` spectrum of each
+    input, and entries in the missing columns (``cols > n2//2``) read
+    the conjugate of the mirrored half-plane entry, so the full complex
+    spectrum never materialises."""
+    n1, m = H.shape[-2:]
+    tail = cols >= m
+    r = torch.where(tail, (n1 - rows) % n1, rows)
+    c = torch.where(tail, n2 - cols, cols)
+    b = torch.arange(H.shape[0], device=H.device).view(
+        (-1,) + (1,) * (rows.ndim - 1))
+    v = H[b, r, c]
+    return torch.where(tail, torch.conj(v), v)
+
+
 def fft2_full(x, variant="fft2"):
     """Full complex 2-D spectrum of the trailing axes. ``'rfft'`` takes
     the half spectrum of a real input plus the Hermitian completion;
@@ -35,6 +52,17 @@ def fft2_full(x, variant="fft2"):
     if variant == "rfft" and not x.is_complex():
         return hermitian_full_from_half(torch.fft.rfft2(x), x.shape[-1])
     return torch.fft.fft2(x)
+
+
+def ifft2_cropped(X, crop):
+    """``ifft2(X)[..., :rows, :cols]`` over the trailing axes, with the
+    row crop folded between the per-axis transforms (the JAX package's
+    ``'split'`` variant): only ``rows`` of the axis-0 outputs reach the
+    axis-1 transform. Exact: the crop commutes with the per-row
+    transform."""
+    r, c = crop
+    Y = torch.fft.ifft(X, dim=-2)[..., :r, :]
+    return torch.fft.ifft(Y, dim=-1)[..., :c]
 
 
 def halfrow_power(x, pad_to):

@@ -1,17 +1,21 @@
-"""Batched warm-started dominant eigenvalue of θ-θ matrices.
+"""Batched warm-started dominant eigenvalue (and eigenvector) of θ-θ
+matrices.
 
-Counterpart of ``scintools_tpu/thth/pallas_eig.py:41-254`` and ``:386``
+Counterpart of ``scintools_tpu/thth/pallas_eig.py:41-331`` and ``:386``
 (``pad_to_multiple``, ``_eig_body``, ``_warm_body``,
-``batched_eig_warmstart``, ``pack_padded``). For each chunk b the η
-axis is walked in order: the first η takes the cold two-phase squaring
-start, every later η takes ``iters`` shifted power steps from the
-previous η's eigenvector, and a stale warm result (λ < 0, or a Rayleigh
-residual above 3%·|λ|) is replaced by a cold restart.
+``batched_eig_warmstart``, ``batched_eigvec_warmstart``,
+``pack_padded``). Both walk a chain of matrices in order: the first
+takes the cold two-phase squaring start, every later one ``iters``
+shifted power steps from its predecessor's eigenvector, and a stale
+warm result (λ < 0, or a Rayleigh residual above 3%·|λ|) is replaced by
+a cold restart. ``batched_eig_warmstart`` walks the η axis of each
+chunk (the curvature search) and returns λ; ``batched_eigvec_warmstart``
+walks the chunk axis (the wavefield retrieval) and returns λ and v.
 
-``batched_eig_warmstart`` dispatches on the tensor's device: a CPU
-tensor takes :func:`batched_eig_warmstart_plain` (the same algorithm
-with ``torch.matmul``), a CUDA tensor launches the hand-written Hopper
-kernel ``csrc/eig_warmstart.cu`` or raises. Complex matrices cross the
+Each wrapper dispatches on the tensor's device: a CPU tensor takes its
+plain version (the same algorithm with ``torch.matmul``, one shared
+walker), a CUDA tensor launches the hand-written Hopper kernel
+``csrc/eig_warmstart.cu`` or raises. Complex matrices cross the
 boundary as the (re, im) float32 pair wire format of
 :func:`pack_padded`.
 """
@@ -119,24 +123,26 @@ def _warm_body(ar, ai, vr, vi, iters):
     return _rayleigh(ar, ai, vr, vi)
 
 
-def batched_eig_warmstart_plain(a_ri, mid, squarings=10, iters=24,
-                                stats=None):
-    """The plain PyTorch version of :func:`batched_eig_warmstart`: a
-    Python loop over η carrying the eigenvector of all B chunks, with
-    the cold branch computed only for the chunks that need it. A dict
-    ``stats`` gets the number of cold starts added to its ``"cold"``."""
-    B, neta, two, n, n2 = a_ri.shape
+def _walk(chains, mid, squarings, iters, stats, with_vec):
+    """Walk axis 1 of ``chains[G, L, 2, N, N]``: position 0 takes the
+    cold start, every later position ``iters`` warm steps from its
+    predecessor's vector and a cold restart where that is stale; the G
+    chains are batched, and the cold branch runs only for the chains
+    that need it. Returns ``λ[G, L]`` and, with ``with_vec``,
+    ``v[G, L, 2, N]``."""
+    G, L, two, n, n2 = chains.shape
     if two != 2 or n != n2:
-        raise ValueError("a_ri must be (B, neta, 2, N, N)")
+        raise ValueError("want (..., 2, N, N) matrices")
     mid = int(mid)
-    out = a_ri.new_empty((B, neta))
+    lam_out = chains.new_empty((G, L))
+    v_out = chains.new_empty((G, L, 2, n)) if with_vec else None
     vr = vi = None
     n_cold = 0
-    for k in range(neta):
-        ar, ai = a_ri[:, k, 0], a_ri[:, k, 1]
+    for k in range(L):
+        ar, ai = chains[:, k, 0], chains[:, k, 1]
         if k == 0:
             lam, vr, vi, _ = _eig_body(ar, ai, mid, squarings)
-            n_cold += B
+            n_cold += G
         else:
             lam, vr, vi, res = _warm_body(ar, ai, vr, vi, iters)
             stale = (lam < 0.0) | (res > 0.03 * lam.abs() + _EPS)
@@ -147,10 +153,44 @@ def batched_eig_warmstart_plain(a_ri, mid, squarings=10, iters=24,
                                             squarings)
                 lam, vr, vi = lam.clone(), vr.clone(), vi.clone()
                 lam[idx], vr[idx], vi[idx] = lc, vrc, vic
-        out[:, k] = lam
+        lam_out[:, k] = lam
+        if with_vec:
+            v_out[:, k, 0] = vr[..., 0]
+            v_out[:, k, 1] = vi[..., 0]
     if stats is not None:
         stats["cold"] = stats.get("cold", 0) + n_cold
-    return out
+    return lam_out, v_out
+
+
+def batched_eig_warmstart_plain(a_ri, mid, squarings=10, iters=24,
+                                stats=None):
+    """The plain PyTorch version of :func:`batched_eig_warmstart`: a
+    Python loop over η carrying the eigenvector of all B chunks, with
+    the cold branch computed only for the chunks that need it. A dict
+    ``stats`` gets the number of cold starts added to its ``"cold"``."""
+    if a_ri.ndim != 5:
+        raise ValueError("a_ri must be (B, neta, 2, N, N)")
+    return _walk(a_ri, mid, squarings, iters, stats, with_vec=False)[0]
+
+
+def _as_chains(a_ri):
+    """``(B, 2, N, N)`` (one chain) or ``(G, L, 2, N, N)`` (G chains of
+    L) → the 5-D chain view."""
+    if a_ri.ndim not in (4, 5):
+        raise ValueError("a_ri must be (B, 2, N, N) or (G, L, 2, N, N)")
+    return a_ri if a_ri.ndim == 5 else a_ri[None]
+
+
+def batched_eigvec_warmstart_plain(a_ri, mid, squarings=10, iters=24,
+                                   stats=None):
+    """The plain PyTorch version of :func:`batched_eigvec_warmstart`:
+    the same walk as :func:`batched_eig_warmstart_plain`, along the
+    chunk axis of each chain, keeping each position's vector."""
+    lam, v = _walk(_as_chains(a_ri), mid, squarings, iters, stats,
+                   with_vec=True)
+    if a_ri.ndim == 4:
+        return lam[0], v[0]
+    return lam, v
 
 
 # ---------------------------------------------------------------------
@@ -165,10 +205,52 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.eig_warmstart_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.eig_warmstart_launch.restype = i
+        lib.eigvec_warmstart_launch.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                i, p]
+        lib.eigvec_warmstart_launch.restype = i
         lib.eig_warmstart_error_string.argtypes = [i]
         lib.eig_warmstart_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+def _launch(chains, mid, squarings, iters, with_vec):
+    """Check a CUDA ``chains[G, L, 2, N, N]`` tensor and launch one CTA
+    per chain on the current stream: ``eig_warmstart_launch`` for λ
+    alone, ``eigvec_warmstart_launch`` for λ and v. Raises on anything
+    the kernel does not take and on a refused launch."""
+    if chains.device.type != "cuda":
+        raise ValueError(f"unsupported device {chains.device}")
+    if chains.dtype != torch.float32 or not chains.is_contiguous():
+        raise ValueError(f"a_ri must be a contiguous float32 tensor, got "
+                         f"{chains.dtype} with strides {chains.stride()}")
+    G, L, two, n, n2 = chains.shape
+    if two != 2 or n != n2 or n % 128 or not 0 <= int(mid) < n:
+        raise ValueError(f"a_ri shape {tuple(chains.shape)} / mid {mid}: "
+                         "want (..., 2, N, N), N % 128 == 0, 0 <= mid < N")
+    dev = chains.device
+    lam = torch.empty((G, L), dtype=torch.float32, device=dev)
+    v = (torch.empty((G, L, 2, n), dtype=torch.float32, device=dev)
+         if with_vec else None)
+    if G == 0 or L == 0:
+        return lam, v
+    scratch = torch.empty((G, 2, 2, n, n), dtype=torch.float32, device=dev)
+    lib = _lib()
+    args = (int(mid), int(squarings), int(iters))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if with_vec:
+            rc = lib.eigvec_warmstart_launch(
+                chains.data_ptr(), lam.data_ptr(), v.data_ptr(),
+                scratch.data_ptr(), G, L, n, *args, stream)
+        else:
+            rc = lib.eig_warmstart_launch(
+                chains.data_ptr(), lam.data_ptr(), scratch.data_ptr(), G, L,
+                n, *args, stream)
+    if rc != 0:
+        msg = lib.eig_warmstart_error_string(rc).decode()
+        raise RuntimeError(f"eig_warmstart launch failed ({rc}): {msg}")
+    return lam, v
 
 
 def batched_eig_warmstart(a_ri, mid, squarings=10, iters=24):
@@ -184,35 +266,37 @@ def batched_eig_warmstart(a_ri, mid, squarings=10, iters=24):
     in [λ₂, λ₁]; it re-locks to λ₁ as the gap reopens."""
     if a_ri.device.type == "cpu":
         return batched_eig_warmstart_plain(a_ri, mid, squarings, iters)
-    if a_ri.device.type != "cuda":
-        raise ValueError(f"unsupported device {a_ri.device}")
-    if a_ri.dtype != torch.float32 or not a_ri.is_contiguous():
-        raise ValueError(f"a_ri must be a contiguous float32 tensor, got "
-                         f"{a_ri.dtype} with strides {a_ri.stride()}")
     if a_ri.ndim != 5:
         raise ValueError("a_ri must be (B, neta, 2, N, N)")
-    B, neta, two, n, n2 = a_ri.shape
-    if two != 2 or n != n2 or n % 128 or not 0 <= int(mid) < n:
-        raise ValueError(f"a_ri shape {tuple(a_ri.shape)} / mid {mid}: "
-                         "want (B, neta, 2, N, N), N % 128 == 0, "
-                         "0 <= mid < N")
-    out = torch.empty((B, neta), dtype=torch.float32, device=a_ri.device)
-    if B == 0 or neta == 0:
-        return out
-    scratch = torch.empty((B, 2, 2, n, n), dtype=torch.float32,
-                          device=a_ri.device)
-    lib = _lib()
-    with torch.cuda.device(a_ri.device):
-        stream = torch.cuda.current_stream(a_ri.device).cuda_stream
-        rc = lib.eig_warmstart_launch(a_ri.data_ptr(), out.data_ptr(),
-                                      scratch.data_ptr(), B, neta, n,
-                                      int(mid), int(squarings), int(iters),
-                                      stream)
-    if rc != 0:
-        msg = lib.eig_warmstart_error_string(rc).decode()
-        raise RuntimeError(f"eig_warmstart launch failed ({rc}): {msg}")
+    lam, _ = _launch(a_ri, mid, squarings, iters, with_vec=False)
     batched_eig_warmstart.launches += 1
-    return out
+    return lam
 
 
 batched_eig_warmstart.launches = 0
+
+
+def batched_eigvec_warmstart(a_ri, mid, squarings=10, iters=24):
+    """Dominant eigenpair of hermitian float32 matrices, warm-starting
+    each matrix from its predecessor in its chain (the retrieval's
+    chunk walk). ``a_ri`` is ``(B, 2, N, N)``, one chain as the TPU
+    kernel takes it, → ``(λ[B], v_ri[B, 2, N])``; or ``(G, L, 2, N, N)``,
+    G independent chains of L, → ``(λ[G, L], v_ri[G, L, 2, N])``. The
+    first matrix of every chain starts cold. ``v`` is the unit
+    eigenvector; its global phase is arbitrary.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    ``eigvec_warmstart_launch`` entry of ``csrc/eig_warmstart.cu`` (one
+    CTA per chain; N a multiple of 128, contiguous float32) or raises.
+    The near-degeneracy caveat of :func:`batched_eig_warmstart` holds."""
+    if a_ri.device.type == "cpu":
+        return batched_eigvec_warmstart_plain(a_ri, mid, squarings, iters)
+    lam, v = _launch(_as_chains(a_ri), mid, squarings, iters,
+                     with_vec=True)
+    batched_eigvec_warmstart.launches += 1
+    if a_ri.ndim == 4:
+        return lam[0], v[0]
+    return lam, v
+
+
+batched_eigvec_warmstart.launches = 0

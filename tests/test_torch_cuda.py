@@ -1,6 +1,7 @@
-"""Card-only checks of the PyTorch/CUDA port: the hand-written kernel
-against its plain PyTorch version on the same CUDA tensors, and the
-search run on the card against the same search on the CPU.
+"""Card-only checks of the PyTorch/CUDA port: the hand-written kernel's
+two entries against their plain PyTorch versions on the same CUDA
+tensors, and the search and the wavefield retrieval run on the card
+against the same calls on the CPU.
 
 Every test skips without a CUDA card. The file imports only the port,
 so on a machine with a card and no JAX it runs on its own:
@@ -12,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from scintools_tpu_torch import multi_chunk_search
+from scintools_tpu_torch import grid_retrieval_batch, multi_chunk_search
 from scintools_tpu_torch.thth import eig as teig
+from scintools_tpu_torch.thth import retrieval as tret
 from scintools_tpu_torch.thth.core import fft_axis
+from scintools_tpu_torch.thth.search import chunk_geometry
+from scintools_tpu_torch.workloads import make_arc_dynspec
 
 
 @pytest.fixture
@@ -110,3 +114,80 @@ def test_search_on_card_matches_cpu(cuda):
         assert g.ok == c.ok == 0
         # cuFFT vs pocketfft and kernel vs plain: η to rel 1e-3
         assert g.eta == pytest.approx(c.eta, rel=1e-3)
+
+
+def _aligned_corr(a, b):
+    """Per-row |⟨a, b⟩| / (‖a‖‖b‖) of complex (M, n) arrays."""
+    num = np.abs(np.sum(np.conj(a) * b, axis=-1))
+    return num / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def _vec(v):
+    v = v.cpu().numpy()
+    return v[..., 0, :] + 1j * v[..., 1, :]
+
+
+@pytest.mark.parametrize("n, squarings, iters", [(256, 10, 64),
+                                                 (130, 10, 24),
+                                                 (384, 0, 5)])
+def test_eigvec_kernel_matches_plain(cuda, n, squarings, iters):
+    """3 chains of 8: λ within rtol 1e-4 and v phase-aligned correlation
+    > 0.9999 on a batch with a clear dominant eigenvalue (float32
+    summation order only)."""
+    a = torch.from_numpy(teig.pack_padded(_drift(n=n, neta=8), n)).to(cuda)
+    before = teig.batched_eigvec_warmstart.launches
+    lam_k, v_k = teig.batched_eigvec_warmstart(a, n // 2, squarings, iters)
+    lam_p, v_p = teig.batched_eigvec_warmstart_plain(a, n // 2, squarings,
+                                                     iters)
+    torch.cuda.synchronize()
+    assert teig.batched_eigvec_warmstart.launches == before + 1
+    assert lam_k.shape == (3, 8) and v_k.shape == v_p.shape
+    np.testing.assert_allclose(lam_k.cpu().numpy(), lam_p.cpu().numpy(),
+                               rtol=1e-4)
+    corr = _aligned_corr(_vec(v_k), _vec(v_p))
+    assert corr.min() > 0.9999, corr.min()
+
+
+def test_eigvec_chains_are_independent_and_deterministic(cuda):
+    """One CTA per chain, fixed-order reductions: a grouped call equals
+    its one-chain calls and a rerun, bit for bit."""
+    a = torch.from_numpy(teig.pack_padded(_drift(n=256, neta=6), 256)).to(
+        cuda)
+    lam, v = teig.batched_eigvec_warmstart(a, 128, iters=64)
+    lam2, v2 = teig.batched_eigvec_warmstart(a, 128, iters=64)
+    assert torch.equal(lam, lam2) and torch.equal(v, v2)
+    for g in range(a.shape[0]):
+        lg, vg = teig.batched_eigvec_warmstart(a[g], 128, iters=64)
+        assert torch.equal(lg, lam[g]) and torch.equal(vg, v[g])
+
+
+def test_retrieval_on_card_matches_cpu(cuda):
+    """Six 128² chunks of a synthetic arc in 2 chains of 3: the kernel
+    route on the card against the plain route on the CPU (cuFFT vs
+    pocketfft, kernel vs plain): equal health, aligned corr > 0.999
+    wherever the chunk's θ-θ has a 5% gap, and one launch."""
+    dyn = make_arc_dynspec(256, 256, 2.0, 0.05, 1400.0, 5e-4, 96, seed=21)
+    chunks = np.stack([dyn[64 * i:64 * i + 128, 64 * j:64 * j + 128]
+                       for i in range(2) for j in range(3)])
+    chunks -= chunks.mean(axis=(1, 2), keepdims=True)
+    _, _, _, _, edges = chunk_geometry(nf=128, nt=128, npad=1, eta_max=1e-3,
+                                       n_edges=128)
+    args = (chunks, np.tile(edges, (6, 1)), np.full(6, 5e-4), 2.0, 0.05)
+    kw = dict(npad=1, group=3, with_ok=True)
+    before = teig.batched_eigvec_warmstart.launches
+    on_card, ok_card = grid_retrieval_batch(*args, method="kernel",
+                                            device=cuda, **kw)
+    assert teig.batched_eigvec_warmstart.launches == before + 1
+    on_cpu, ok_cpu = grid_retrieval_batch(*args, method="plain",
+                                          device="cpu", **kw)
+    np.testing.assert_array_equal(ok_card, ok_cpu)
+    fn = tret.make_chunk_retrieval_fn(128, 128, 2.0, 0.05, 128, npad=1,
+                                      device="cpu")
+    thth = fn.front(torch.as_tensor(chunks, dtype=torch.float32),
+                    torch.as_tensor(args[1]), torch.as_tensor(args[2]),
+                    0.0)[0]
+    ev = torch.linalg.eigvalsh(thth).numpy()
+    gapped = (ev[:, -1] - ev[:, -2]) >= 0.05 * np.abs(ev[:, -1])
+    assert gapped.sum() >= 3
+    corr = _aligned_corr(on_card.reshape(6, -1), on_cpu.reshape(6, -1))
+    assert corr[gapped].min() > 0.999, corr

@@ -1,12 +1,15 @@
 """The port's ``Dynspec`` façade and north-star workload
 (scintools_tpu_torch/dynspec.py, workloads.py) against the JAX package
-on the CPU: the slice end to end.
+on the CPU: the slices end to end.
 
 The JAX side prepares the θ-θ geometry; the port is handed exactly the
 same state through ``Dynspec.from_reference_state``. The JAX side's CPU
 route is its XLA η-scan and the port's the warm-start squaring
 algorithm in float32, so the fitted curvature is compared at rel 1e-2
-(the JAX package's own warm-vs-staged gate).
+(the JAX package's own warm-vs-staged gate). Retrieval starts from the
+JAX side's fitted curvature, and the wavefields are compared by
+intensity at the JAX package's cross-backend gates (rel L2 < 5e-3,
+corr > 0.9999, tools/tpu_smoke.py).
 """
 
 import os
@@ -27,6 +30,9 @@ from scintools_tpu_torch.thth import batch as tbatch  # noqa: E402
 
 _PREP = dict(cwf=128, cwt=128, eta_min=0.1, eta_max=0.9, nedge=64,
              edges_lim=2.6, npad=1)
+# a 256² spectrum in 64² chunks: a 7×7 half-overlap retrieval grid, N=128
+_PREP_RET = dict(cwf=64, cwt=64, eta_min=0.1, eta_max=0.9, nedge=32,
+                 edges_lim=2.6, npad=1)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,6 +62,42 @@ def jax_fit(arc):
 
 def _state(d):
     return {k: getattr(d, k) for k in tdyn._STATE_KEYS}
+
+
+@pytest.fixture(scope="module")
+def arc_square():
+    E, times, freqs = make_arc_wavefield(nt=256, nf=256)
+    return np.abs(E) ** 2, times, freqs
+
+
+def _jax_dynspec(arc_square):
+    dyn, times, freqs = arc_square
+    bd = jdyn.BasicDyn(dyn, name="arcsim", times=times, freqs=freqs)
+    d = jdyn.Dynspec(dyn=bd, verbose=False, process=False, backend="jax")
+    d.prep_thetatheta(**_PREP_RET)
+    return d
+
+
+@pytest.fixture(scope="module")
+def jax_retrieved(arc_square):
+    """The JAX side fitted, then retrieved on its chunk-scan warm route
+    (the CPU counterpart of its TPU kernel route)."""
+    d = _jax_dynspec(arc_square)
+    d.fit_thetatheta()
+    d.retrieve_wavefield(method="warm")
+    return d
+
+
+def _port_from(d):
+    st = _state(d)
+    st["ththeta"] = d.ththeta
+    return tdyn.Dynspec.from_reference_state(st, device="cpu")
+
+
+def _intensity_gap(a, b):
+    Ia, Ib = np.abs(a) ** 2, np.abs(b) ** 2
+    return (np.linalg.norm(Ia - Ib) / np.linalg.norm(Ib),
+            np.corrcoef(Ia.ravel(), Ib.ravel())[0, 1])
 
 
 class TestFacadeVsJax:
@@ -103,6 +145,51 @@ class TestFacadeVsJax:
                                    atol=1e-5 * lin_j.max())
 
 
+class TestRetrievalVsJax:
+    def test_retrieve_wavefield(self, jax_retrieved):
+        ds = _port_from(jax_retrieved)
+        wf = ds.retrieve_wavefield()
+        assert (ds.ncf_ret, ds.nct_ret) == (7, 7)
+        assert wf.shape == jax_retrieved.wavefield.shape == (256, 256)
+        assert ds.wavefield is wf and np.isfinite(wf).all()
+        np.testing.assert_array_equal(ds.wavefield_ok,
+                                      jax_retrieved.wavefield_ok)
+        rel, corr = _intensity_gap(wf, jax_retrieved.wavefield)
+        assert rel < 5e-3 and corr > 0.9999, (rel, corr)
+        assert not hasattr(ds, "chunks")
+
+    def test_calc_wavefield(self, arc_square, jax_retrieved):
+        dj = _jax_dynspec(arc_square)
+        dj.ththeta = jax_retrieved.ththeta
+        want = dj.calc_wavefield()
+        ds = _port_from(jax_retrieved)
+        got = ds.calc_wavefield()
+        assert ds.chunks.shape == dj.chunks.shape == (7, 7, 64, 64)
+        rel, corr = _intensity_gap(got, want)
+        assert rel < 5e-3 and corr > 0.9999, (rel, corr)
+        # the device stitch of the same chunks
+        dev = ds.calc_wavefield(device_mosaic=True)
+        assert np.linalg.norm(dev - got) < 1e-5 * np.linalg.norm(got)
+
+    def test_gerchberg_saxton_after_retrieval(self, jax_retrieved):
+        ds = _port_from(jax_retrieved)
+        wf = ds.retrieve_wavefield(gs=True, niter=2)
+        dyn = ds.dyn[: wf.shape[0], : wf.shape[1]]
+        good = np.isfinite(dyn) & (dyn > 0)
+        np.testing.assert_allclose(np.abs(wf[good]), np.sqrt(dyn[good]),
+                                   rtol=1e-5)
+
+    def test_own_prep_sets_the_mosaic_grid(self, arc_square):
+        dyn, times, freqs = arc_square
+        bd = tdyn.BasicDyn(dyn, name="arcsim", times=times, freqs=freqs)
+        ds = tdyn.Dynspec(dyn=bd, verbose=False, process=False,
+                          device="cpu")
+        ds.prep_thetatheta(**_PREP_RET)
+        dj = _jax_dynspec(arc_square)
+        assert (ds.ncf_ret, ds.nct_ret) == (dj.ncf_ret, dj.nct_ret) == (7, 7)
+        np.testing.assert_array_equal(ds.edges, dj.edges)
+
+
 class TestRejectedInputs:
     def test_device_none_raises_without_a_card(self, arc):
         if torch.cuda.is_available():
@@ -128,6 +215,11 @@ class TestRejectedInputs:
         with pytest.raises(RuntimeError):
             tdyn.Dynspec.from_reference_state(
                 {k: 0 for k in tdyn._STATE_KEYS})
+        # retrieve_wavefield runs on the Dynspec's device: with
+        # device=None there is no Dynspec to call it on
+        with pytest.raises(RuntimeError):
+            tdyn.Dynspec.from_reference_state(
+                dict({k: 0 for k in tdyn._STATE_KEYS}, ththeta=0.3))
 
     def test_unported_options_raise(self, arc):
         dyn, times, freqs = arc
@@ -148,6 +240,24 @@ class TestRejectedInputs:
             tdyn.BasicDyn(dyn)
         with pytest.raises(KeyError):
             tdyn.Dynspec.from_reference_state({"dyn": dyn}, device="cpu")
+
+    def test_unported_retrieval_options_raise(self, jax_fit):
+        ds = tdyn.Dynspec.from_reference_state(
+            dict(_state(jax_fit), ththeta=jax_fit.ththeta), device="cpu")
+        with pytest.raises(NotImplementedError):
+            ds.thetatheta_chunks(memmap=True)
+        with pytest.raises(NotImplementedError):
+            ds.thetatheta_chunks(pool=object())
+        with pytest.raises(NotImplementedError):
+            ds.calc_wavefield(mesh=object())
+        with pytest.raises(NotImplementedError):
+            ds.calc_wavefield(gs_mesh=object())
+        with pytest.raises(NotImplementedError):
+            ds.retrieve_wavefield(mesh=object())
+        with pytest.raises(NotImplementedError):
+            ds.retrieve_wavefield(method="power")
+        with pytest.raises(NotImplementedError):
+            ds.gerchberg_saxton(mesh=object())
 
 
 class TestNorthStarWorkload:
