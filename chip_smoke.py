@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's θ-θ curvature search and wavefield
-retrieval on one card.
+"""Drive the PyTorch/CUDA port on one card: the θ-θ curvature search,
+the wavefield retrieval, the Hough seed of the façade and the survey
+arc fit.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -9,39 +10,66 @@ no network, and builds every kernel in ``scintools_tpu_torch/csrc``
 Phases, each of which exits non-zero on failure:
 
 1. device: name, count, and name/power limit from ``nvidia-smi``;
-2. every kernel against its plain PyTorch version on the card, on
-   (a) a smoothly drifting hermitian batch, (b) the avoided-crossing
-   batch of the TPU kernel's tests and (c) θ-θ batches gathered at the
-   north-star geometry for one chunk group × 200 η, all at N = 256;
-   times of the kernel, its plain version and ``torch.linalg.eigvalsh``
-   (a yardstick the port never calls) on the main path's shapes; then
-   the eigenvector entry on (a) read as 4 chains of 24 and (b) as one
-   chain of 24, with its times beside ``torch.linalg.eigh``'s;
+2. every eigensolver entry against its plain PyTorch version on the
+   card. The warm-start entry on (a) a smoothly drifting hermitian
+   batch, (b) the avoided-crossing batch of the TPU kernel's tests and
+   (c) θ-θ batches gathered at the north-star geometry for one chunk
+   group × 200 η, all at N = 256; times of the kernel, its plain
+   version and ``torch.linalg.eigvalsh`` (a yardstick the port never
+   calls) on the main path's shapes. The cold-only entry on (a) a
+   random hermitian batch, against plain and ``eigvalsh`` (rtol 2e-4),
+   and (b) 256 θ-θ matrices of (c) (32 chunks × 8 evenly spaced η),
+   with its times beside ``eigvalsh``'s. Then the eigenvector entry on
+   (a) read as 4 chains of 24 and (b) as one chain of 24, with its times
+   beside ``torch.linalg.eigh``'s;
 3. the north-star pipeline at 4096² (8×8 chunks of 512², 200 η,
    256 edges), timed end to end from the dynspec on the card, with
    the η gates against truth and against the plain eigensolver;
 4. the ``Dynspec`` façade on the same dynspec:
    ``calc_sspec → prep_thetatheta → fit_thetatheta``;
-5. wavefield retrieval on that fitted façade (15×15 half-overlap
-   chunks of 512², N = 256, chains of 25): ``retrieve_wavefield`` (the
-   kernel route, timed by stage); ``calc_wavefield`` (the dense
-   ``eigh`` route and numpy mosaic), held to the kernel route per chunk
-   where the chunk's θ-θ gap is ≥ 10% (below that the chained warm
-   start lags the dense eigenvector by design, as the JAX kernel's
-   does); the plain route, held to the kernel route everywhere (the
-   stitched intensities to rel L2 < 5e-3 and corr > 0.9999); the
-   eigenpair stage's times and its λ and v against plain; a bitwise
-   rerun; the quarantine of one poisoned chunk; ``gerchberg_saxton``.
+4b. the façade's Hough seed on the same dynspec: ``prep_thetatheta``
+   without η bounds (λ rescale on the host → λ-step spectrum on the card
+   → serial ``fit_arc`` → the seeded η range), then ``fit_thetatheta``.
+   The range must hold η_true, and the per-chunk η must be right (median
+   error < 1%) in the frequency rows whose η grid holds it: the façade
+   scales each row's grid by (fref/f)² (η ∝ f⁻²), which this synthetic
+   (η_true at every frequency) does not follow, so over its 14% band the
+   narrow seeded range leaves η_true outside the grids of the rows at
+   the band's low end, whose chunks then pull ``ththeta`` off the truth
+   (by 5.08% on this deterministic input; the JAX façade does the same,
+   pinned at 512² in ``tests/test_torch_dynspec.py``). ``ththeta`` must
+   lie within 6% of η_true, and within 1e-3 (relative) of the same fit
+   run again with the plain eigensolver (``fit_thetatheta(eig="plain")``);
+5. wavefield retrieval on the fitted façade of phase 4 (15×15
+   half-overlap chunks of 512², N = 256, chains of 25):
+   ``retrieve_wavefield`` (the kernel route, timed by stage);
+   ``calc_wavefield`` (the dense ``eigh`` route and numpy mosaic), held
+   to the kernel route per chunk where the chunk's θ-θ gap is ≥ 10%
+   (below that the chained warm start lags the dense eigenvector by
+   design, as the JAX kernel's does); the plain route, held to the
+   kernel route everywhere (the stitched intensities to rel L2 < 5e-3
+   and corr > 0.9999); the eigenpair stage's times and its λ and v
+   against plain; a bitwise rerun; the quarantine of one poisoned
+   chunk; ``gerchberg_saxton``;
+6. the survey arc fit at the JAX package's survey width (128 epochs of
+   256² → 256 × 512 secondary spectra made on the card, numsteps 2000):
+   the arc-profile kernel against its plain version at (128, 252, 512)
+   × 2000 queries (rtol = atol = 2e-5), ``fit_arc_batch`` timed through
+   the kernel and the device tail, held to the float64 host tail and to
+   the truth, and a bitwise rerun.
 
 Launch counts are taken per path: zeroed just before the timed
 north-star run and read just after it, then zeroed again just before
-the façade and read just after ``fit_thetatheta``, and for the
-eigenvector entry zeroed just before the timed ``retrieve_wavefield``
-and read just after it; each must be > 0. It prints a
-``{"kernels": [...]}`` line (``launches`` is the sum over the paths
-that run the kernel, with each path's count beside it), the card's
-``nvidia-smi`` name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.
+the façade and read just after ``fit_thetatheta``, again for the Hough
+seed's façade; for the eigenvector entry zeroed just before the timed
+``retrieve_wavefield`` and read just after it; for the arc profile just
+before and after one ``fit_arc_batch`` (then timed over three more); for
+the cold-only entry
+(no path of the package calls it) around its own call in phase 2. Each
+must be > 0. It prints a ``{"kernels": [...]}`` line (``launches`` is
+the sum over the paths that run the kernel, with each path's count
+beside it), the card's ``nvidia-smi`` name and power limit, and as its
+last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -91,6 +119,19 @@ def timed(fn, reps=1):
     t1.record()
     torch.cuda.synchronize()
     return out, t0.elapsed_time(t1) / reps
+
+
+PHASE_S = {}
+_LAP = [time.perf_counter()]
+
+
+def lap(name):
+    """Record and print the seconds since the previous lap as phase
+    ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = now - _LAP[0]
+    _LAP[0] = now
+    print(f"    phase {name}: {PHASE_S[name]:.1f} s", flush=True)
 
 
 class Marks:
@@ -225,11 +266,12 @@ def eig_bound_ms(M, n, n_cold, iters=24, out_floats=1):
     matrices: input read once + ``out_floats`` per matrix written once
     over HBM bandwidth, against the warm mat-vecs (iters + 2 complex N²
     mat-vecs per warm matrix) plus the cold starts this data needed (15
-    complex N³ squarings and 3 mat-vecs each) over the f32 CUDA-core
-    peak."""
+    squarings and 3 mat-vecs each) over the f32 CUDA-core peak. Every
+    squared matrix is hermitian, so a squaring needs only one triangle
+    of its product: 4·N³ real flops, the count of a complex herk."""
     nbytes = M * 2 * n * n * 4 + M * out_floats * 4
     flops = (M - n_cold) * (iters + 2) * 8 * n * n \
-        + n_cold * (15 * 4 * 2 * n ** 3 + 3 * 8 * n * n)
+        + n_cold * (15 * 4 * n ** 3 + 3 * 8 * n * n)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -253,6 +295,7 @@ def main():
     _build.build()
     print(f"    kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.sources())})", flush=True)
+    lap("1 device and build")
 
     # ---- [2] kernel vs plain on the card ------------------------------
     print("[2] eig_warmstart kernel vs plain", flush=True)
@@ -301,7 +344,9 @@ def main():
           f"{plain_ms:.3f} ms, eigvalsh {library_ms:.3f} ms, bound "
           f"{bound_ms:.3f} ms ({bound_by}; {stats['cold']} cold starts)",
           flush=True)
-    del a, kern, plain, lam12
+    del kern, plain, lam12
+    cold = cold_phase(a, mid, rng, dev)
+    del a
 
     print("[2] eigvec_warmstart kernel vs plain (iters 64)", flush=True)
     EV = E.batched_eigvec_warmstart
@@ -329,6 +374,7 @@ def main():
     compare_vec("(b) crossing, one chain of 24", vk, vp,
                 ((l1 - l2) >= 0.05 * l1.abs())[0])
     del a, c, lk, vk, lp, vp
+    lap("2 kernels vs plain")
 
     # ---- [3] north star, full size (main path) ------------------------
     print(f"[3] north star {nf}x{nt}, group {GROUP}", flush=True)
@@ -363,6 +409,7 @@ def main():
           flush=True)
     check(bool((d_eta < 0.01).all()), "kernel vs plain η differs ≥ 1%")
     del eigs, eigs0, peak0, d0, dyn1
+    lap("3 north star")
 
     # ---- [4] the façade (main path) -----------------------------------
     print("[4] Dynspec façade", flush=True)
@@ -394,25 +441,280 @@ def main():
           and abs(ds.ththeta - eta_true) / eta_true < 0.05,
           "façade ththeta not within 5% of truth")
 
+    lap("4 facade")
+    hough = hough_phase(prob, bd, eta_true)
+    lap("4b Hough seed")
     ret = retrieval_phase(ds, dev)
+    lap("5 retrieval")
+    arc = survey_arc_phase(dev)
+    lap("6 survey arc fit")
 
+    launches_h = hough.pop("launches")
     print(json.dumps({"kernels": [{
         "name": "eig_warmstart", "route": "cuda",
         "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
         "replaces": "scintools_tpu/thth/pallas_eig.py:217",
-        "launches": launches_ns + launches_f,
+        "launches": launches_ns + launches_f + launches_h,
         "launches_north_star": launches_ns, "launches_facade": launches_f,
+        "launches_hough_facade": launches_h,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
-        "shape": [B, neta, 2, n, n]}, ret.pop("kernel")],
+        "shape": [B, neta, 2, n, n]}, ret.pop("kernel"), arc.pop("kernel"),
+        cold],
         "north_star_ms": ns_ms, "north_star_stage_ms": stages,
-        "facade_s": facade_s, **ret}), flush=True)
+        "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
+        "phase_s": PHASE_S}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": card,
                                              "count": count}}), flush=True)
+
+
+def cold_phase(a, mid, rng, dev):
+    """Phase 2, the cold-only entry: (a) a random hermitian batch and
+    (b) 256 θ-θ matrices of the north-star stack ``a`` (32 chunks × 8
+    evenly spaced η). Returns its entry of the ``kernels`` line."""
+    from scintools_tpu_torch.thth import eig as E
+
+    print("[2] eig_cold kernel vs plain", flush=True)
+    r = torch.from_numpy(E.pack_padded(random_hermitian(rng, 256, 6),
+                                       256)).to(dev)
+    kern, plain = E.batched_eig_cold(r, 128), E.batched_eig_cold_plain(r, 128)
+    top = torch.linalg.eigvalsh(torch.complex(r[:, 0], r[:, 1]))[:, -1]
+    for name, ref in (("plain", plain), ("eigvalsh", top)):
+        rel = ((kern - ref).abs() / ref.abs()).max().item()
+        print(f"  (a) random hermitian x6: max rel vs {name} {rel:.3e}",
+              flush=True)
+        check(rel <= 2e-4, f"eig_cold differs from {name} by {rel:.3e}")
+    etas = np.linspace(0, a.shape[1] - 1, 8).round().astype(int)
+    sub = a[:, etas].contiguous()                      # (32, 8, 2, N, N)
+    G, L, _, n, _ = sub.shape
+    flat = sub.reshape(G * L, 2, n, n)
+    E.batched_eig_cold(flat[:2].contiguous(), mid)          # warm-ups
+    E.batched_eig_cold_plain(flat[:2], mid)
+    E.batched_eig_cold.launches = 0                 # the entry's own path
+    kern = E.batched_eig_cold(flat, mid)
+    torch.cuda.synchronize()
+    launches = E.batched_eig_cold.launches
+    check(launches > 0, "eig_cold was never launched")
+    _, ms = timed(lambda: E.batched_eig_cold(flat, mid), reps=3)
+    plain, plain_ms = timed(lambda: E.batched_eig_cold_plain(flat, mid))
+    lam12, library_ms = timed(lambda: top2(sub))
+    max_abs, max_rel, n_near = compare(
+        f"(b) north-star θ-θ, {G} chunks x {L} eta", kern.reshape(G, L),
+        plain.reshape(G, L), lam12)
+    bound_ms, bound_by = eig_bound_ms(G * L, n, G * L)
+    print(f"    shape {tuple(flat.shape)}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, eigvalsh {library_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}; all {G * L} cold)", flush=True)
+    return {"name": "eig_cold", "route": "cuda",
+            "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
+            "replaces": "scintools_tpu/thth/pallas_eig.py:334",
+            "launches": launches, "launches_path": "phase 2 (b), its own "
+            "call: no path of the package runs the cold-only solver",
+            "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
+            "near_degenerate_points": n_near, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": list(flat.shape)}
+
+
+def hough_phase(prob, bd, eta_true):
+    """Phase 4b: the façade on the north-star dynspec with no η bounds,
+    so ``prep_thetatheta`` seeds the range by the Hough fit. Returns its
+    numbers (key ``launches``: eig_warmstart in this path)."""
+    from scintools_tpu_torch import Dynspec
+    from scintools_tpu_torch.thth import eig as E
+
+    print("[4b] Dynspec façade, Hough seed", flush=True)
+    E.batched_eig_warmstart.launches = 0
+    times = {}
+    t0 = t_all = time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times[name] = now - t0
+        t0 = now
+
+    ds = Dynspec(dyn=bd, process=False, verbose=False)
+    ds.calc_sspec()
+    stage("sspec")
+    ds.scale_dyn()
+    stage("lambda_rescale_host")
+    ds.calc_sspec(lamsteps=True)
+    stage("lamsteps_sspec")
+    ds.prep_thetatheta(cwf=512, cwt=512, npad=1, neta=N_ETA, nedge=256,
+                       edges_lim=prob["th_lim"])
+    stage("fit_arc_and_prep")
+    ds.fit_thetatheta()
+    stage("fit_thetatheta")
+    wall = time.perf_counter() - t_all
+    launches = E.batched_eig_warmstart.launches
+    th_kern, evo_kern = ds.ththeta, ds.eta_evo.copy()
+    ds.fit_thetatheta(eig="plain")         # the same fit, plain eigensolver
+    stage("fit_thetatheta_plain")
+    th_plain, evo_plain = ds.ththeta, ds.eta_evo
+    ds.ththeta, ds.eta_evo = th_kern, evo_kern
+    th_vs_plain = abs(th_kern / th_plain - 1)
+    evo_vs_plain = float(np.nanmax(np.abs(evo_kern / evo_plain - 1)))
+    err = np.abs(ds.eta_evo - eta_true) / eta_true
+    med = float(np.nanmedian(err))
+    # fit_thetatheta searches row cf over [eta_min, eta_max]·(fref/f_cf)²
+    # (η ∝ f⁻²); this synthetic keeps η_true at every frequency, so on a
+    # 14% band the rows at the band's far end cannot reach it
+    f_rows = ds.freqs[:ds.ncf_fit * ds.cwf].reshape(ds.ncf_fit, -1) \
+        .mean(axis=1)
+    scale = (ds.fref / f_rows) ** 2
+    inside = (ds.eta_min * scale < eta_true) & (eta_true < ds.eta_max * scale)
+    med_in = float(np.nanmedian(err[inside])) if inside.any() else np.nan
+    th_err = (ds.ththeta - eta_true) / eta_true
+    print(f"    betaeta {ds.betaeta:.6g} ± {ds.betaetaerr:.3g} "
+          f"(parabola {ds.betaetaerr2:.3g}); seeded η range "
+          f"[{ds.eta_min:.6g}, {ds.eta_max:.6g}] at fref {ds.fref:.1f} MHz "
+          f"(truth {eta_true}), neta {ds.neta}; lamsspec "
+          f"{ds.lamsspec.shape}", flush=True)
+    print("    stages s: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in times.items())
+          + f"; wall {wall:.3f} s; eig_warmstart launches {launches}",
+          flush=True)
+    print(f"    rows whose η grid holds η_true: {int(inside.sum())} of "
+          f"{len(inside)}; median eta_evo error there {med_in:.4%}, over "
+          f"all rows {med:.4%}; per-row median η/η_true "
+          f"{np.round(np.nanmedian(ds.eta_evo, axis=1) / eta_true, 4)}; "
+          f"ththeta {ds.ththeta:.6g} ({th_err:+.4%} from truth)", flush=True)
+    print(f"    kernel vs plain eigensolver: ththeta rel {th_vs_plain:.3e} "
+          f"(plain {th_plain:.6g}), per-chunk η max rel {evo_vs_plain:.3e}",
+          flush=True)
+    check(np.isfinite(ds.eta_min) and np.isfinite(ds.eta_max)
+          and ds.eta_min < ds.eta_max, "the seeded η range is not finite "
+          "and increasing")
+    check(ds.eta_min < eta_true < ds.eta_max,
+          "the seeded η range does not contain η_true")
+    check(launches > 0, "the seeded façade never launched eig_warmstart")
+    check(inside.any() and med_in < 0.01, "seeded façade: median eta_evo "
+          "error ≥ 1% in the rows whose η grid holds η_true")
+    check(np.isfinite(th_kern) and th_vs_plain <= 1e-3,
+          "seeded façade ththeta differs from the plain eigensolver's")
+    # the 5% of phase 4 widened to 6%: the rows whose grid misses η_true
+    # pull this deterministic input's ththeta 5.08% off (see docstring)
+    check(abs(th_err) < 0.06, "seeded façade ththeta not within 6% of "
+          "truth")
+    return {"launches": launches, "betaeta": ds.betaeta,
+            "betaetaerr": ds.betaetaerr, "betaetaerr2": ds.betaetaerr2,
+            "eta_range": [ds.eta_min, ds.eta_max], "fref": ds.fref,
+            "neta": ds.neta, "stage_s": times, "wall_s": wall,
+            "ththeta": ds.ththeta, "ththeta_rel_err": th_err,
+            "ththeta_plain": th_plain, "ththeta_rel_vs_plain": th_vs_plain,
+            "eta_evo_max_rel_vs_plain": evo_vs_plain,
+            "eta_evo_median_err": med, "rows_holding_truth": int(inside.sum()),
+            "eta_evo_median_err_those_rows": med_in}
+
+
+def survey_arc_phase(dev):
+    """Phase 6: the survey arc fit at the JAX package's survey width.
+    Returns the arc-profile kernel's entry of the ``kernels`` line (key
+    ``kernel``) and the fit's numbers."""
+    from scintools_tpu_torch import workloads as W
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.ops import fitarc as F
+    from scintools_tpu_torch.ops.normsspec import make_arc_profile_batch_fn
+
+    t0 = time.perf_counter()
+    prob = W.make_survey_arc_problem(device=dev)
+    s_dev, tdel, fdop = prob["sspecs"], prob["tdel"], prob["fdop"]
+    numsteps, eta_true = prob["numsteps"], prob["eta_true"]
+    B = len(s_dev)
+    print(f"[6] survey arc fit: {B} epochs, sspecs {tuple(s_dev.shape)} "
+          f"made on the card in {time.perf_counter() - t0:.2f} s, numsteps "
+          f"{numsteps}", flush=True)
+
+    # 6.1 the kernel against its plain version at the path's shapes
+    etamin = (tdel[1] - tdel[0]) * 3 / np.max(fdop) ** 2   # the default
+    fn = make_arc_profile_batch_fn(tdel, fdop, startbin=3, cutmid=3,
+                                   numsteps=numsteps, device=dev)
+    args = fn.kernel_args(s_dev, np.full(B, etamin))
+    R, nc = args[0].shape[1:]
+    Q = args[3].shape[0]
+    AP.arc_profile(*args)                                  # warm-ups
+    AP.arc_profile_plain(*args)
+    kern, ms = timed(lambda: AP.arc_profile(*args), reps=20)
+    plain, plain_ms = timed(lambda: AP.arc_profile_plain(*args))
+    err = (kern - plain).abs()
+    max_abs = err.max().item()
+    max_rel = (err / plain.abs().clamp_min(1e-30)).max().item()
+    n_bad = int((err > 2e-5 + 2e-5 * plain.abs()).sum())
+    nbytes = 2 * B * R * nc * 4 + B * R * 4 + Q * 4 + B * Q * 4
+    flops = 20 * B * R * Q
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"    arc_profile {(B, R, nc)} x {Q} queries: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"max |k-p| {max_abs:.3e}, max rel {max_rel:.3e}, bitwise equal "
+          f"{torch.equal(kern, plain)}", flush=True)
+    check(n_bad == 0, f"arc_profile differs from its plain version at "
+          f"{n_bad} points (rtol = atol = 2e-5)")
+    del kern, plain, args
+
+    # 6.2 the whole fit through the kernel and the device tail: one run
+    # counted, three timed
+    def fit(**kw):
+        return F.fit_arc_batch(s_dev, tdel, fdop, numsteps=numsteps,
+                               full_output=False, **kw)
+
+    fit()                                                  # warm-up
+    AP.arc_profile.launches = 0
+    fits = fit()
+    launches = AP.arc_profile.launches
+    _, fit_ms = timed(fit, reps=3)
+    eta = np.array([f.eta for f in fits])
+    err_ = np.array([f.etaerr for f in fits])
+    print(f"    fit_arc_batch: {fit_ms:.3f} ms, mean of 3 "
+          f"({B / fit_ms * 1e3:.1f} epochs/s); arc_profile launches "
+          f"{launches}", flush=True)
+    check(launches > 0, "fit_arc_batch never launched arc_profile")
+
+    # 6.3 against the float64 host tail on the same profile, the truth,
+    # and a rerun
+    host_fits = fit(on_device=False)
+    eta_h = np.array([f.eta for f in host_fits])
+    err_h = np.array([f.etaerr for f in host_fits])
+    fin = np.isfinite(eta)
+    check(np.array_equal(fin, np.isfinite(eta_h)), "device and host tails "
+          "quarantine different epochs")
+    d_eta = float(np.max(np.abs(eta[fin] / eta_h[fin] - 1), initial=0))
+    d_err = float(np.max(np.abs(err_[fin] / err_h[fin] - 1), initial=0))
+    truth = np.abs(eta[fin] - eta_true) / eta_true
+    med = float(np.median(truth)) if truth.size else float("nan")
+    rerun = np.array([f.eta for f in fit()])
+    print(f"    device vs host tail: η max rel {d_eta:.3e}, etaerr max rel "
+          f"{d_err:.3e}; {int(fin.sum())}/{B} finite; median |η-η_true|/"
+          f"η_true {med:.4%} (max {truth.max():.4%}; the JAX "
+          f"configuration's eta_vs_truth_median_pct, bench.py:1220, which "
+          f"sets no limit; gated here at 2%); rerun bitwise equal "
+          f"{np.array_equal(rerun, eta, equal_nan=True)}", flush=True)
+    check(d_eta <= 1e-4 and d_err <= 1e-3,
+          "device tail differs from the host tail")
+    check(fin.all(), f"{int((~fin).sum())} survey epochs quarantined")
+    check(med < 0.02, "survey median η error ≥ 2%")
+    check(np.array_equal(rerun, eta, equal_nan=True),
+          "a rerun of fit_arc_batch changed η")
+    return {"kernel": {
+        "name": "arc_profile", "route": "cuda",
+        "source": "scintools_tpu_torch/csrc/arc_profile.cu",
+        "replaces": "scintools_tpu/ops/arc_pallas.py:50",
+        "launches": launches, "launches_survey_arc_fit": launches,
+        "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "library_note": "no single PyTorch call computes this function",
+        "shape": [B, R, nc, Q]},
+        "fit_ms": fit_ms, "epochs_per_s": B / fit_ms * 1e3,
+        "eta_rel_vs_host_tail": d_eta, "etaerr_rel_vs_host_tail": d_err,
+        "eta_vs_truth_median": med, "n_finite": int(fin.sum())}
 
 
 def aligned_corr(a, b):

@@ -15,6 +15,7 @@ would silently loosen every parity tolerance).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -41,5 +42,8 @@ def resolve_device(device=None):
 
 def as_tensor(x, device, dtype=REAL):
     """``x`` (numpy array, scalar or tensor) as a contiguous ``dtype``
-    tensor on ``device``."""
+    tensor on ``device`` (a numpy view with negative strides, such as a
+    flip, is copied first)."""
+    if isinstance(x, np.ndarray):
+        x = np.ascontiguousarray(x)
     return torch.as_tensor(x, dtype=dtype, device=device).contiguous()

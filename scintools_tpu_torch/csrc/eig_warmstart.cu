@@ -1,12 +1,15 @@
 // Warm-started dominant eigenvalue (and eigenvector) of a batch of
 // hermitian θ-θ matrices, walking each chain of matrices in order.
 //
-// Replaces two kernels of scintools_tpu/thth/pallas_eig.py:
+// Replaces three kernels of scintools_tpu/thth/pallas_eig.py:
 //  - _make_warm_kernel (entry batched_eig_warmstart, :217), through
 //    eig_warmstart_launch: a chain is one chunk's η axis; λ only;
 //  - _make_warm_vec_kernel (entry batched_eigvec_warmstart, :296), through
 //    eigvec_warmstart_launch: a chain is a run of retrieval chunks; λ and
-//    the unit eigenvector v, which is the retrieved wavefield row.
+//    the unit eigenvector v, which is the retrieved wavefield row;
+//  - _make_kernel (entry batched_eig_pallas, :334), through
+//    eig_cold_launch: the cold start alone, one matrix per CTA — the same
+//    kernel on chains of length one, whose only step is cold().
 // Both compute what those kernels compute — the cold two-phase squaring
 // start (_eig_body) at a chain's first matrix and after every stale warm
 // step, otherwise `iters` shifted power steps from the previous matrix's
@@ -51,6 +54,12 @@
 //    search group of 32 chunks, and 9 for the retrieval of a 4096²
 //    spectrum (225 chunks in 9 chains of 25). That is the first thing to
 //    fix.
+//
+// The cold entry's work is the cold start alone: per matrix 2·N²·4 bytes
+// against ≈ 15·4·2N³ + 3·8N² operations (2 GFLOP at N = 256), so
+// operations bound it (256 matrices ≈ 8 ms at 67 TFLOP/s f32); one CTA per
+// matrix fills the card once the batch passes 132, and each CTA's
+// squarings run at what one SM's tiled GEMM gives.
 //
 // Reductions use a fixed-order tree (warp xor-butterfly, then warp 0
 // over the per-warp partials) and no float atomics, so a rerun gives the
@@ -395,6 +404,14 @@ int eigvec_warmstart_launch(const float* a, float* lam_out, float* v_out,
                             float* scratch, int G, int L, int n, int mid,
                             int squarings, int iters, void* stream) {
   return launch(a, lam_out, v_out, scratch, G, L, n, mid, squarings, iters,
+                stream);
+}
+
+// λ of B matrices by the cold start alone (chains of length one), one CTA
+// per matrix on `stream`; returns cudaGetLastError().
+int eig_cold_launch(const float* a, float* out, float* scratch, int B, int n,
+                    int mid, int squarings, void* stream) {
+  return launch(a, out, nullptr, scratch, B, 1, n, mid, squarings, 0,
                 stream);
 }
 

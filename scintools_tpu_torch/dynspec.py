@@ -1,21 +1,23 @@
-"""Dynspec façade of the port: secondary spectrum, θ-θ curvature fit and
-wavefield retrieval.
+"""Dynspec façade of the port: secondary spectra, arc curvature, θ-θ
+curvature fit and wavefield retrieval.
 
 Counterpart of ``scintools_tpu/dynspec.py``: ``BasicDyn`` (:2148),
-``Dynspec.__init__`` (:73), ``load_dyn_obj`` (:105), ``calc_sspec``
-(:462, without ``lamsteps``/``velocity``/``trap``), ``prep_thetatheta``
-(:1240), ``_chunk`` (:1341), ``fit_thetatheta`` (:1416, the batched
-row branch :1443-1489 and the weighted global η ∝ f⁻² fit
+``Dynspec.__init__`` (:73), ``load_dyn_obj`` (:105), ``scale_dyn``
+(:357, equal-wavelength only), ``_select_dyn`` (:441), ``calc_sspec``
+(:462, with ``lamsteps``), ``_select_sspec`` (:575), ``fit_arc`` (:596),
+``norm_sspec`` (:689), ``prep_thetatheta`` (:1240, with the Hough seed
+of :1277-1296), ``_chunk`` (:1341), ``fit_thetatheta`` (:1416, the
+batched row branch :1443-1489 and the weighted global η ∝ f⁻² fit
 :1538-1581), ``thetatheta_chunks`` (:1787, the batched grid branch),
 ``calc_wavefield`` (:1888), ``_retrieval_grid_inputs`` (:1915),
 ``retrieve_wavefield`` (:1934) and ``gerchberg_saxton`` (:1974). State
 accretes on the instance as in the JAX package (``self.sspec``,
-``self.eta_evo``, ``self.ththeta``, ``self.chunks``, ``self.wavefield``,
-…) as numpy arrays; the computation runs on ``self.device``.
+``self.lamsspec``, ``self.betaeta``, ``self.eta_evo``, ``self.ththeta``,
+``self.chunks``, ``self.wavefield``, …) as numpy arrays; the
+computation runs on ``self.device``.
 
-Not in this slice: file loading and processing (``process=True``), the
-Hough seed of ``prep_thetatheta`` (it needs ``fit_arc``, so both
-``eta_min`` and ``eta_max`` must be given), the thin-screen search, and
+Not in this slice: file loading and processing (``process=True``),
+velocity and trapezoid rescaling, plotting, the thin-screen search, and
 the ``pool``, ``memmap`` and ``mesh`` options of retrieval.
 """
 
@@ -24,7 +26,11 @@ from __future__ import annotations
 import numpy as np
 
 from .backend import resolve_device
+from .ops import fitarc as fitarc_ops
+from .ops import normsspec as normsspec_ops
+from .ops import scale as scale_ops
 from .ops import sspec as sspec_ops
+from .ops.scale import SPEED_OF_LIGHT
 from .robust.guards import BAD_CS, BAD_INPUT
 from .thth import core as thth_core
 from .thth import retrieval as thth_ret
@@ -104,15 +110,174 @@ class Dynspec:
         if verbose:
             print(f"LOADED DYNSPEC OBJECT {dyn.name}")
 
-    def calc_sspec(self, prewhite=False, halve=True, window="hanning",
-                   window_frac=0.1):
-        """Secondary spectrum in dB (``self.sspec``, ``self.fdop``,
-        ``self.tdel``), computed on ``self.device``."""
-        self.fdop, self.tdel, sec = sspec_ops.secondary_spectrum(
-            self.dyn, self.dt, self.df, window=window,
-            window_frac=window_frac, prewhite=prewhite, halve=halve,
+    # ------------------------------------------------------------------
+    # rescaling and spectra
+    # ------------------------------------------------------------------
+    def scale_dyn(self, scale="lambda", spacing="auto", lamsteps=False,
+                  velocity=False, trap=False):
+        """Resample onto an equal-wavelength grid (``self.lamdyn``,
+        ``self.lam``, ``self.dlam``, ``self.nlam``) on the host.
+        Velocity and trapezoid rescaling are not ported yet."""
+        if (velocity or trap or "velocity" in scale or "orbit" in scale
+                or "trap" in scale):
+            raise NotImplementedError("velocity and trapezoid rescaling "
+                                      "are not ported yet")
+        if "lambda" in scale or "wavelength" in scale or lamsteps:
+            self.lamdyn, self.lam, self.dlam = scale_ops.lambda_rescale(
+                self.dyn, self.freqs, spacing=spacing)
+            self.nlam = len(self.lam)
+
+    def _select_dyn(self, lamsteps=False, velocity=False, trap=False):
+        if velocity or trap:
+            raise NotImplementedError("velocity and trapezoid spectra are "
+                                      "not ported yet")
+        if lamsteps:
+            if not hasattr(self, "lamdyn"):
+                self.scale_dyn()
+            return self.lamdyn
+        return self.dyn
+
+    def calc_sspec(self, prewhite=False, halve=True, lamsteps=False,
+                   window="hanning", window_frac=0.1, velocity=False,
+                   trap=False):
+        """Secondary spectrum in dB, computed on ``self.device``:
+        ``self.sspec`` (``self.lamsspec`` and the β axis ``self.beta``
+        with ``lamsteps``), ``self.fdop`` and ``self.tdel``."""
+        dyn = self._select_dyn(lamsteps=lamsteps, velocity=velocity,
+                               trap=trap)
+        dlam = self.dlam if lamsteps else None
+        self.fdop, _, sec = sspec_ops.secondary_spectrum(
+            dyn, self.dt, self.df, window=window, window_frac=window_frac,
+            prewhite=prewhite, halve=halve, dlam=dlam, device=self.device)
+        nf, nt = np.shape(dyn)
+        _, self.tdel, beta = sspec_ops.sspec_axes(nf, nt, self.dt, self.df,
+                                                  halve=halve, dlam=dlam)
+        if lamsteps:
+            self.lamsspec = sec.cpu().numpy()
+            self.beta = beta
+        else:
+            self.sspec = sec.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # arc curvature
+    # ------------------------------------------------------------------
+    def _select_sspec(self, lamsteps=False, velocity=False, trap=False):
+        if velocity or trap:
+            raise NotImplementedError("velocity and trapezoid spectra are "
+                                      "not ported yet")
+        if lamsteps:
+            if not hasattr(self, "lamsspec"):
+                self.calc_sspec(lamsteps=True)
+            return np.array(self.lamsspec), np.array(self.beta)
+        if not hasattr(self, "sspec"):
+            self.calc_sspec()
+        return np.array(self.sspec), np.array(self.tdel)
+
+    def fit_arc(self, asymm=False, plot=False, delmax=None, numsteps=1e4,
+                startbin=3, cutmid=3, lamsteps=False, etamax=None,
+                etamin=None, low_power_diff=-1, high_power_diff=-0.5,
+                ref_freq=1400, constraint=(0, np.inf), nsmooth=5, efac=1,
+                noise_error=True, log_parabola=False, logsteps=False,
+                plot_spec=False, fit_spectrum=False,
+                subtract_artefacts=False, velocity=False, weighted=False):
+        """Arc-curvature measurement: ``self.betaeta`` (``lamsteps``) or
+        ``self.eta``, their errors, the profile and its η grid. Explicit
+        ``etamin``/``etamax``/``constraint`` in the non-lamsteps path are
+        β values at ``ref_freq``, converted to η [s³] at this spectrum's
+        frequency. The port has no plotting (``plot``, ``plot_spec``)."""
+        if plot or plot_spec:
+            raise NotImplementedError("the port has no plotting")
+        if not hasattr(self, "tdel"):
+            self.calc_sspec()
+        sspec, yaxis = self._select_sspec(lamsteps=lamsteps,
+                                          velocity=velocity)
+        delmax_t = np.max(self.tdel) if delmax is None else delmax
+        # the crop index is defined on the tdel axis; translate to yaxis
+        ind = int(np.argmin(np.abs(self.tdel - delmax_t)))
+        ymax_cut = yaxis[min(ind, len(yaxis) - 1)]
+
+        if not lamsteps:
+            beta_to_eta = SPEED_OF_LIGHT * 1e6 / (ref_freq * 1e6) ** 2
+            fcorr = (self.freq / ref_freq) ** 2
+
+            def b2e(x):
+                return None if x is None else \
+                    np.asarray(x) / fcorr * beta_to_eta
+
+            etamax = b2e(etamax)
+            etamin = b2e(etamin)
+            constraint = np.asarray(constraint) / fcorr * beta_to_eta
+
+        fits = fitarc_ops.fit_arc(
+            sspec, yaxis, self.fdop, asymm=asymm, delmax=ymax_cut,
+            numsteps=numsteps, startbin=startbin, cutmid=cutmid,
+            etamax=etamax, etamin=etamin, low_power_diff=low_power_diff,
+            high_power_diff=high_power_diff, constraint=constraint,
+            nsmooth=nsmooth, efac=efac, noise_error=noise_error,
+            log_parabola=log_parabola, logsteps=logsteps,
+            fit_spectrum=fit_spectrum,
+            subtract_artefacts=subtract_artefacts, weighted=weighted,
             device=self.device)
-        self.sspec = sec.cpu().numpy()
+
+        self.noise = fits[0].noise
+        self.norm_delmax = delmax_t
+        for fit, side in zip(fits, ["left", "right"] if asymm else [""]):
+            sfx = f"_{side}" if side else ""
+            pre = "betaeta" if lamsteps else "eta"
+            setattr(self, pre + sfx, fit.eta)
+            setattr(self, pre + "err" + sfx, fit.etaerr)
+            setattr(self, pre + "err2" + sfx, fit.etaerr2)
+            num = {"left": "1", "right": "2", "": ""}[side]
+            setattr(self, "norm_sspec_avg" + num, fit.profile)
+            setattr(self, "prob_eta_peak" + num, fit.prob_eta_peak)
+        self.eta_array = fits[0].eta_array
+        return fits
+
+    def norm_sspec(self, eta=None, delmax=None, plot=False, startbin=1,
+                   maxnormfac=5, minnormfac=0, cutmid=0, lamsteps=True,
+                   ref_freq=1400, velocity=False, numsteps=None,
+                   weighted=True, logsteps=False, interp_nan=False,
+                   fit_spectrum=False, powerspec_cut=False,
+                   subtract_artefacts=False):
+        """Normalise the Doppler axis by the arc at ``eta`` (fitted by
+        :meth:`fit_arc` when None; in the non-lamsteps path an explicit
+        ``eta`` is a β value at ``ref_freq``). Sets ``self.normsspecavg``,
+        ``self.normsspec`` (masked), ``self.powerspectrum``, … and returns
+        the :class:`~.ops.normsspec.NormSspec`."""
+        if plot:
+            raise NotImplementedError("the port has no plotting")
+        if not hasattr(self, "tdel"):
+            self.calc_sspec()
+        sspec, yaxis = self._select_sspec(lamsteps=lamsteps,
+                                          velocity=velocity)
+        if eta is None:
+            name = "betaeta" if lamsteps else "eta"
+            if not hasattr(self, name):
+                self.fit_arc(lamsteps=lamsteps, delmax=delmax,
+                             startbin=startbin, velocity=velocity)
+            eta = getattr(self, name)
+        elif not lamsteps:
+            beta_to_eta = SPEED_OF_LIGHT * 1e6 / (ref_freq * 1e6) ** 2
+            eta = eta / (self.freq / ref_freq) ** 2 * beta_to_eta
+
+        delmax_t = np.max(self.tdel) if delmax is None else delmax
+        ind = int(np.argmin(np.abs(self.tdel - delmax_t)))
+        ymax_cut = yaxis[min(ind, len(yaxis) - 1)]
+        ns = normsspec_ops.normalise_sspec(
+            sspec, yaxis, self.fdop, eta, delmax=ymax_cut,
+            startbin=startbin, maxnormfac=maxnormfac, minnormfac=minnormfac,
+            cutmid=cutmid, numsteps=numsteps, logsteps=logsteps,
+            weighted=weighted, interp_nan=interp_nan,
+            fit_spectrum=fit_spectrum, powerspec_cut=powerspec_cut,
+            subtract_artefacts=subtract_artefacts, device=self.device)
+        self.normsspecavg = ns.normsspecavg
+        self.normsspec = np.ma.array(ns.normsspec, mask=ns.mask)
+        self.normsspec_tdel = ns.tdel
+        self.normsspec_fdop = ns.fdop
+        self.powerspectrum = ns.powerspectrum
+        self.mask = ns.mask
+        self.weights = ns.weights
+        return ns
 
     # ------------------------------------------------------------------
     # θ-θ pipeline
@@ -120,18 +285,15 @@ class Dynspec:
     def prep_thetatheta(self, fw=.1, npad=3, verbose=False,
                         fitting_proc="standard", **kwargs):
         """Chunk geometry + η range + edges for θ-θ (η in s³, edges
-        mHz). Needs both ``eta_min`` and ``eta_max``: the Hough seed
-        that would supply them is not ported yet."""
+        mHz). A bound not given (``eta_min``, ``eta_max``) comes from the
+        Hough seed: :meth:`fit_arc` on the λ-scaled spectrum, η ± twice
+        its larger error."""
         procs = ["standard", "thin", "incoherent"]
         if fitting_proc not in procs:
             raise ValueError(f"fitting_proc must be one of {procs}")
         if fitting_proc == "thin":
             raise NotImplementedError("the thin-screen search is not "
                                       "ported yet")
-        if not ("eta_min" in kwargs and "eta_max" in kwargs):
-            raise NotImplementedError(
-                "prep_thetatheta needs both eta_min and eta_max: the "
-                "Hough seed (fit_arc) is not ported yet")
         self.thetatheta_proc = fitting_proc
         self.npad = npad
         self.fw = fw
@@ -160,8 +322,25 @@ class Dynspec:
         self.eta_max = tau.max() / (fd[1] - fd[0]) ** 2
         self.eta_min *= (self.freqs.max() / self.fref) ** 2
         self.eta_max *= (self.freqs.min() / self.fref) ** 2
-        self.eta_min = max(kwargs["eta_min"], self.eta_min)
-        self.eta_max = min(kwargs["eta_max"], self.eta_max)
+        if "eta_min" in kwargs:
+            self.eta_min = max(kwargs["eta_min"], self.eta_min)
+        if "eta_max" in kwargs:
+            self.eta_max = min(kwargs["eta_max"], self.eta_max)
+        if not ("eta_min" in kwargs and "eta_max" in kwargs):
+            if not hasattr(self, "betaeta"):
+                # Hough seed: η[s³] → β[m⁻¹mHz⁻²] via η·fref²/c
+                to_beta = (self.fref * 1e6) ** 2 / (SPEED_OF_LIGHT * 1e6)
+                self.fit_arc(lamsteps=True, numsteps=1e4,
+                             etamin=self.eta_min * to_beta,
+                             etamax=self.eta_max * to_beta, delmax=tau_lim)
+            from_beta = SPEED_OF_LIGHT * 1e6 / (self.fref * 1e6) ** 2
+            eta_hough = self.betaeta * from_beta
+            err_hough = 2 * max(self.betaetaerr,
+                                self.betaetaerr2) * from_beta
+            if "eta_min" not in kwargs:
+                self.eta_min = max(self.eta_min, eta_hough - err_hough)
+            if "eta_max" not in kwargs:
+                self.eta_max = min(self.eta_max, eta_hough + err_hough)
 
         l0, l1 = np.log10(self.eta_min), np.log10(self.eta_max)
         self.neta = int(1 + (l1 - l0) / np.log10(1 + self.fw / 10))
@@ -204,11 +383,13 @@ class Dynspec:
         dspec2 -= np.nanmean(dspec2)
         return np.nan_to_num(dspec2), self.freqs[fs], self.times[ts]
 
-    def fit_thetatheta(self, verbose=False):
+    def fit_thetatheta(self, verbose=False, eig="kernel"):
         """Per-chunk η(f, t) searches, one fused batched search per
         frequency row → weighted global η ∝ f⁻² fit (``self.ththeta``,
         ``self.ththetaerr``; per-chunk ``eta_evo``, ``eta_evo_err`` and
-        the health bitmask ``eta_evo_ok``)."""
+        the health bitmask ``eta_evo_ok``). ``eig="plain"`` runs the
+        eigensolver's plain PyTorch version on the card too (the
+        reference the kernel is held to)."""
         if not hasattr(self, "cwf"):
             raise RuntimeError("call prep_thetatheta first")
         self.eta_evo = np.zeros((self.ncf_fit, self.nct_fit))
@@ -229,7 +410,7 @@ class Dynspec:
             results = thth_search.multi_chunk_search(
                 chunks, freq2, tlist, etas, edges, fw=self.fw,
                 npad=self.npad, coher=(self.thetatheta_proc != "incoherent"),
-                tau_mask=self.thth_tau_mask, device=self.device)
+                tau_mask=self.thth_tau_mask, eig=eig, device=self.device)
             for ct, res in enumerate(results):
                 self.eta_evo[cf, ct] = res.eta
                 self.eta_evo_err[cf, ct] = res.eta_sig

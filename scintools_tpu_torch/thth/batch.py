@@ -165,7 +165,7 @@ def _health_and_quarantine(curves, in_ok, cs_ok, fit_ok, eta, sig, popt):
 
 def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
                          tau_mask=0.0, fw=0.1, squarings=10, warm_iters=24,
-                         device=None):
+                         eig="kernel", device=None):
     """The whole per-row curvature search as chained functions on
     ``device`` (``None``: the CUDA card): ``fn(dspecs[B, nf, nt]
     float32, etas[neta]) → (eigs[B, neta], eta[B], eta_sig[B],
@@ -174,7 +174,8 @@ def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
     mean-pad → rfft2 conjugate spectrum (+ health guards) → masked
     θ-θ gather → warm-start eigensolver → closed-form parabola peak fit
     → health bitmask and quarantine. The geometry is baked in on the
-    host; the raw chunk stack is the only host→device copy."""
+    host; the raw chunk stack is the only host→device copy. ``eig`` as
+    in :func:`make_multi_eval_fn`."""
     device = resolve_device(device)
     tau_a, tau_keep = _tau_keep_mask(tau, tau_mask)
     if len(tau_a) != (npad + 1) * nf:
@@ -183,7 +184,7 @@ def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
             f"{(npad + 1) * nf} — tau/fd must be the fft_axis of the "
             "chunk axes at this npad")
     multi = make_multi_eval_fn(tau, fd, edges, squarings=squarings,
-                               warm_iters=warm_iters, device=device)
+                               warm_iters=warm_iters, eig=eig, device=device)
 
     def fn(dspecs, etas):
         cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep,

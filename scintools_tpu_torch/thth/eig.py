@@ -1,16 +1,19 @@
-"""Batched warm-started dominant eigenvalue (and eigenvector) of θ-θ
-matrices.
+"""Batched dominant eigenvalue (and eigenvector) of θ-θ matrices: warm
+started along chains, or by the cold start alone.
 
-Counterpart of ``scintools_tpu/thth/pallas_eig.py:41-331`` and ``:386``
+Counterpart of ``scintools_tpu/thth/pallas_eig.py:41-386``
 (``pad_to_multiple``, ``_eig_body``, ``_warm_body``,
 ``batched_eig_warmstart``, ``batched_eigvec_warmstart``,
-``pack_padded``). Both walk a chain of matrices in order: the first
-takes the cold two-phase squaring start, every later one ``iters``
-shifted power steps from its predecessor's eigenvector, and a stale
-warm result (λ < 0, or a Rayleigh residual above 3%·|λ|) is replaced by
-a cold restart. ``batched_eig_warmstart`` walks the η axis of each
-chunk (the curvature search) and returns λ; ``batched_eigvec_warmstart``
-walks the chunk axis (the wavefield retrieval) and returns λ and v.
+``batched_eig_pallas``, ``batched_eig_squaring_xla``,
+``pack_padded``). The warm-start solvers walk a chain of matrices in
+order: the first takes the cold two-phase squaring start, every later
+one ``iters`` shifted power steps from its predecessor's eigenvector,
+and a stale warm result (λ < 0, or a Rayleigh residual above 3%·|λ|) is
+replaced by a cold restart. ``batched_eig_warmstart`` walks the η axis
+of each chunk (the curvature search) and returns λ;
+``batched_eigvec_warmstart`` walks the chunk axis (the wavefield
+retrieval) and returns λ and v; ``batched_eig_cold`` runs the cold
+start alone on every matrix of a batch.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes its
 plain version (the same algorithm with ``torch.matmul``, one shared
@@ -173,6 +176,15 @@ def batched_eig_warmstart_plain(a_ri, mid, squarings=10, iters=24,
     return _walk(a_ri, mid, squarings, iters, stats, with_vec=False)[0]
 
 
+def batched_eig_cold_plain(a_ri, mid, squarings=10):
+    """The plain PyTorch version of :func:`batched_eig_cold` (the
+    counterpart of ``batched_eig_squaring_xla``): the cold start on the
+    whole ``(batch, 2, N, N)`` batch at once."""
+    if a_ri.ndim != 4 or a_ri.shape[1] != 2:
+        raise ValueError("a_ri must be (batch, 2, N, N)")
+    return _eig_body(a_ri[:, 0], a_ri[:, 1], int(mid), squarings)[0]
+
+
 def _as_chains(a_ri):
     """``(B, 2, N, N)`` (one chain) or ``(G, L, 2, N, N)`` (G chains of
     L) → the 5-D chain view."""
@@ -208,17 +220,20 @@ def _lib():
         lib.eigvec_warmstart_launch.argtypes = [p, p, p, p, i, i, i, i, i,
                                                 i, p]
         lib.eigvec_warmstart_launch.restype = i
+        lib.eig_cold_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.eig_cold_launch.restype = i
         lib.eig_warmstart_error_string.argtypes = [i]
         lib.eig_warmstart_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
-def _launch(chains, mid, squarings, iters, with_vec):
+def _launch(chains, mid, squarings, iters, with_vec, cold=False):
     """Check a CUDA ``chains[G, L, 2, N, N]`` tensor and launch one CTA
     per chain on the current stream: ``eig_warmstart_launch`` for λ
-    alone, ``eigvec_warmstart_launch`` for λ and v. Raises on anything
-    the kernel does not take and on a refused launch."""
+    alone, ``eigvec_warmstart_launch`` for λ and v, ``eig_cold_launch``
+    (``cold``, chains of one) for the cold start alone. Raises on
+    anything the kernel does not take and on a refused launch."""
     if chains.device.type != "cuda":
         raise ValueError(f"unsupported device {chains.device}")
     if chains.dtype != torch.float32 or not chains.is_contiguous():
@@ -239,7 +254,11 @@ def _launch(chains, mid, squarings, iters, with_vec):
     args = (int(mid), int(squarings), int(iters))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if with_vec:
+        if cold:
+            rc = lib.eig_cold_launch(chains.data_ptr(), lam.data_ptr(),
+                                     scratch.data_ptr(), G, n, int(mid),
+                                     int(squarings), stream)
+        elif with_vec:
             rc = lib.eigvec_warmstart_launch(
                 chains.data_ptr(), lam.data_ptr(), v.data_ptr(),
                 scratch.data_ptr(), G, L, n, *args, stream)
@@ -300,3 +319,26 @@ def batched_eigvec_warmstart(a_ri, mid, squarings=10, iters=24):
 
 
 batched_eigvec_warmstart.launches = 0
+
+
+def batched_eig_cold(a_ri, mid, squarings=10):
+    """Dominant (largest-algebraic) eigenvalues of a ``(batch, 2, N, N)``
+    float32 batch of hermitian matrices by the cold two-phase squaring
+    start alone, no warm start (the TPU's ``batched_eig_pallas``).
+    Returns ``(batch,)`` float32.
+
+    A CPU tensor runs :func:`batched_eig_cold_plain`; a CUDA tensor
+    launches the ``eig_cold_launch`` entry of ``csrc/eig_warmstart.cu``
+    (one CTA per matrix; N a multiple of 128, contiguous float32) or
+    raises."""
+    if a_ri.device.type == "cpu":
+        return batched_eig_cold_plain(a_ri, mid, squarings)
+    if a_ri.ndim != 4:
+        raise ValueError("a_ri must be (batch, 2, N, N)")
+    lam, _ = _launch(a_ri[:, None], mid, squarings, 0, with_vec=False,
+                     cold=True)
+    batched_eig_cold.launches += 1
+    return lam[:, 0]
+
+
+batched_eig_cold.launches = 0

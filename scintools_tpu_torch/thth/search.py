@@ -116,21 +116,23 @@ _FUSED_CACHE = {}
 _CACHE_SIZE = 16
 
 
-def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, device):
+def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, eig,
+                device):
     """The fused search function for one geometry, built once and kept
     in a FIFO-bounded dict keyed on the geometry's bytes."""
     from .batch import make_fused_search_fn
 
     nf, nt = shape
     key = (tau.tobytes(), fd.tobytes(), edges.tobytes(), (int(nf), int(nt)),
-           int(npad), bool(coher), float(tau_mask), float(fw), str(device))
+           int(npad), bool(coher), float(tau_mask), float(fw), eig,
+           str(device))
     fn = _FUSED_CACHE.get(key)
     if fn is None:
         if len(_FUSED_CACHE) >= _CACHE_SIZE:
             _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
         fn = _FUSED_CACHE[key] = make_fused_search_fn(
             tau, fd, edges, nf, nt, npad=npad, coher=coher,
-            tau_mask=tau_mask, fw=fw, device=device)
+            tau_mask=tau_mask, fw=fw, eig=eig, device=device)
     return fn
 
 
@@ -157,14 +159,17 @@ def _fused_results(fn, stack, etas, freq, times):
 
 
 def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
-                       coher=True, tau_mask=0.0, device=None):
+                       coher=True, tau_mask=0.0, eig="kernel", device=None):
     """Curvature search on a batch of same-geometry chunks (e.g. all
     time-chunks of one frequency row) in one fused pass on ``device``:
     mean-pad → conjugate spectrum → masked θ-θ gather → warm-start
     eigen curve → closed-form parabola peak fit.
 
     dspecs : list of (nf, nt) chunk arrays; times : list of per-chunk
-    time axes (same spacing). Returns a list of ChunkSearchResult."""
+    time axes (same spacing). ``eig`` is ``"kernel"`` (the card's
+    kernel on a CUDA device) or ``"plain"`` (its plain PyTorch version
+    everywhere), as in :func:`.batch.make_multi_eval_fn`. Returns a list
+    of ChunkSearchResult."""
     dev = resolve_device(device)
     etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
     stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
@@ -176,7 +181,7 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     tau = fft_axis(freq_a, pad=npad, scale=1.0)
     edges_a = np.asarray(unit_checks(edges, "edges"), dtype=float)
     fn = _fused_eval(tau, fd, edges_a, (nf, nt), npad, coher,
-                     float(unit_checks(tau_mask) or 0.0), fw, dev)
+                     float(unit_checks(tau_mask) or 0.0), fw, eig, dev)
     return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
 
 

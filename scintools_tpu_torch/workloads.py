@@ -1,4 +1,4 @@
-"""The north-star workload: a known-curvature dynspec and its pipeline.
+"""The workloads: the north star and the survey arc fit.
 
 Counterpart of ``bench.py:392`` ``make_arc_dynspec``, ``:418``
 ``make_north_star_problem`` (numpy copies) and ``:448``
@@ -8,6 +8,12 @@ gather and the warm-start eigensolver over the η grid with the chunk
 batch walked in groups by a Python loop, then the closed-form peak fit.
 At 4096² that is an 8×8 grid of 512² chunks (CS 1024² at npad=1), 200 η
 and 256 θ edges (n_th = 255 → N = 256), on an 8192² sspec frame.
+
+``make_survey_arc_problem`` is the epoch batch of the JAX package's
+survey arc-fit configuration (``bench.py:1098`` ``bench_survey_arc``):
+128 epochs of 256² known-curvature dynspecs whose secondary spectra
+(256 delays × 512 Dopplers) ``ops.fitarc.fit_arc_batch`` fits at
+numsteps 2000.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import numpy as np
 import torch
 
 from .backend import as_tensor, resolve_device
-from .ops.sspec import secondary_spectrum_power
+from .ops.sspec import secondary_spectrum, secondary_spectrum_power
 from .ops.windows import get_window
 from .thth.batch import make_multi_eval_fn
 from .thth.core import fft_axis
@@ -126,3 +132,24 @@ def make_north_star_pipeline(nf, nt, cf, ct, npad, wins, tau, fd, edges,
 
     run.eval_fn = eval_fn
     return run
+
+
+def make_survey_arc_problem(B=128, n=256, numsteps=2000, seed0=300,
+                            device=None):
+    """``B`` epochs of ``n``² synthetic arc dynspecs (η_true = 5e-4
+    µs/mHz², 96 images, seeds ``seed0 + b``; dt 2 s, df 0.05 MHz from
+    1400 MHz) and their secondary spectra in dB, computed on ``device``
+    by :func:`~.ops.sspec.secondary_spectrum` as the JAX configuration's
+    ``calc_sspec`` does. Returns a dict with ``sspecs`` (a ``(B, n,
+    2n)`` float32 tensor on ``device``), the axes ``tdel`` [µs] and
+    ``fdop`` [mHz], ``numsteps`` and ``eta_true``."""
+    dev = resolve_device(device)
+    dt, df, f0, eta_true = 2.0, 0.05, 1400.0, 5e-4
+    secs = []
+    for b in range(B):
+        dyn = make_arc_dynspec(n, n, dt, df, f0, eta_true, n_images=96,
+                               seed=seed0 + b)
+        fdop, tdel, sec = secondary_spectrum(dyn, dt, df, device=dev)
+        secs.append(sec)
+    return dict(sspecs=torch.stack(secs), tdel=tdel, fdop=fdop,
+                numsteps=numsteps, eta_true=eta_true)

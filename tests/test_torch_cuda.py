@@ -1,7 +1,8 @@
-"""Card-only checks of the PyTorch/CUDA port: the hand-written kernel's
-two entries against their plain PyTorch versions on the same CUDA
-tensors, and the search and the wavefield retrieval run on the card
-against the same calls on the CPU.
+"""Card-only checks of the PyTorch/CUDA port: the hand-written kernels
+(the eigensolver's three entries and the arc profile) against their
+plain PyTorch versions on the same CUDA tensors, and the search, the
+wavefield retrieval and the survey arc fit run on the card against the
+same calls on the CPU.
 
 Every test skips without a CUDA card. The file imports only the port,
 so on a machine with a card and no JAX it runs on its own:
@@ -14,11 +15,14 @@ import pytest
 import torch
 
 from scintools_tpu_torch import grid_retrieval_batch, multi_chunk_search
+from scintools_tpu_torch.ops import arc_profile as tap
+from scintools_tpu_torch.ops import fitarc as tfa
 from scintools_tpu_torch.thth import eig as teig
 from scintools_tpu_torch.thth import retrieval as tret
 from scintools_tpu_torch.thth.core import fft_axis
 from scintools_tpu_torch.thth.search import chunk_geometry
-from scintools_tpu_torch.workloads import make_arc_dynspec
+from scintools_tpu_torch.workloads import (make_arc_dynspec,
+                                           make_survey_arc_problem)
 
 
 @pytest.fixture
@@ -191,3 +195,108 @@ def test_retrieval_on_card_matches_cpu(cuda):
     assert gapped.sum() >= 3
     corr = _aligned_corr(on_card.reshape(6, -1), on_cpu.reshape(6, -1))
     assert corr[gapped].min() > 0.999, corr
+
+
+@pytest.mark.parametrize("n, batch, squarings", [(256, 5, 10), (130, 3, 10),
+                                                 (384, 2, 0)])
+def test_eig_cold_kernel_matches_plain(cuda, n, batch, squarings):
+    """rtol 2e-4 against the plain version, the cold start's gate
+    against eigvalsh (15 float32 squarings in another summation
+    order); one launch."""
+    mats = _hermitian(np.random.default_rng(n), n, batch)
+    a = torch.from_numpy(teig.pack_padded(mats, n)).to(cuda)
+    before = teig.batched_eig_cold.launches
+    kern = teig.batched_eig_cold(a, n // 2, squarings)
+    plain = teig.batched_eig_cold_plain(a, n // 2, squarings)
+    torch.cuda.synchronize()
+    assert teig.batched_eig_cold.launches == before + 1
+    assert kern.shape == (batch,)
+    np.testing.assert_allclose(kern.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=2e-4)
+    if squarings:
+        top = np.array([np.linalg.eigvalsh(m)[-1] for m in mats])
+        np.testing.assert_allclose(kern.cpu().numpy(), top, rtol=2e-4)
+
+
+def test_eig_cold_refuses_what_it_cannot_take(cuda):
+    a = torch.zeros((2, 2, 128, 128), device=cuda)
+    before = teig.batched_eig_cold.launches
+    with pytest.raises(ValueError):
+        teig.batched_eig_cold(a.double(), 64)
+    with pytest.raises(ValueError):
+        teig.batched_eig_cold(a.transpose(-1, -2), 64)
+    with pytest.raises(ValueError):
+        teig.batched_eig_cold(a[:, :, :100, :100], 50)
+    assert teig.batched_eig_cold.launches == before
+
+
+def _arc_inputs(rng, B, R, nc, Q, device):
+    s = 20.0 + 5.0 * rng.standard_normal((B, R, nc))
+    s[:, :, nc // 2 - 1:nc // 2 + 1] = np.nan
+    s[0, 3, 10:14] = np.nan
+    good = ~np.isnan(s)
+    fdop = np.linspace(-30.0, 30.0, nc)
+    tdel = np.linspace(0.5, 12.0, R)
+    scales = np.sqrt(tdel[None] / rng.uniform(0.005, 0.02, B)[:, None])
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    args = (t(np.where(good, s, 0.0)), t(good), t(scales),
+            t(np.linspace(-1, 1, Q)))
+    return args, (fdop[0], float(np.mean(np.diff(fdop))),
+                  float(np.max(np.abs(fdop))), nc)
+
+
+@pytest.mark.parametrize("B, R, nc, Q", [(3, 40, 96, 300), (2, 24, 128, 130),
+                                         (5, 252, 512, 2000)])
+def test_arc_profile_kernel_matches_plain(cuda, B, R, nc, Q):
+    """rtol = atol = 2e-5 (tests/test_arc_pallas.py:35); both round
+    every operation once in the same order, so they agree far closer
+    than that. A rerun is bitwise equal; one launch per call."""
+    args, consts = _arc_inputs(np.random.default_rng(Q), B, R, nc, Q, cuda)
+    before = tap.arc_profile.launches
+    kern = tap.arc_profile(*args, *consts)
+    again = tap.arc_profile(*args, *consts)
+    plain = tap.arc_profile_plain(*args, *consts)
+    torch.cuda.synchronize()
+    assert tap.arc_profile.launches == before + 2
+    assert torch.equal(kern, again)
+    np.testing.assert_allclose(kern.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_arc_profile_refuses_what_it_cannot_take(cuda):
+    args, consts = _arc_inputs(np.random.default_rng(1), 2, 8, 64, 50, cuda)
+    s, good, scales, fq = args
+    before = tap.arc_profile.launches
+    with pytest.raises(ValueError):
+        tap.arc_profile(s.double(), good, scales, fq, *consts)
+    with pytest.raises(ValueError):
+        tap.arc_profile(s.transpose(1, 2).contiguous().transpose(1, 2),
+                        good, scales, fq, *consts)
+    with pytest.raises(ValueError):
+        tap.arc_profile(s, good, scales.cpu(), fq, *consts)
+    with pytest.raises(ValueError):
+        tap.arc_profile(s, good[:, :4], scales, fq, *consts)
+    assert tap.arc_profile.launches == before
+
+
+def test_survey_arc_fit_on_card_matches_cpu(cuda):
+    """Eight epochs of the survey configuration: the device fit on the
+    card (kernel) against the same fit on the CPU (plain version):
+    η rel 1e-4, etaerr rel 1e-3, and the kernel was launched."""
+    prob = make_survey_arc_problem(B=8, device=cuda)
+    s_dev = prob["sspecs"]
+    args = (prob["tdel"], prob["fdop"])
+    before = tap.arc_profile.launches
+    on_card = tfa.fit_arc_batch(s_dev, *args, numsteps=prob["numsteps"],
+                                full_output=False, device=cuda)
+    assert tap.arc_profile.launches == before + 1
+    on_cpu = tfa.fit_arc_batch(s_dev, *args, numsteps=prob["numsteps"],
+                               full_output=False, device="cpu")
+    for g, c in zip(on_card, on_cpu):
+        assert np.isfinite(g.eta) == np.isfinite(c.eta)
+        if np.isfinite(c.eta):
+            assert g.eta == pytest.approx(c.eta, rel=1e-4)
+            assert g.etaerr == pytest.approx(c.etaerr, rel=1e-3)

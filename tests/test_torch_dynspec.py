@@ -145,6 +145,147 @@ class TestFacadeVsJax:
                                    atol=1e-5 * lin_j.max())
 
 
+# a 256² known-curvature arc (the north star's synthetic at a CPU size):
+# the JAX package's own Hough seed brackets η_true = 5e-4 on it
+_SEED_PREP = dict(cwf=128, cwt=128, npad=1, nedge=64)
+
+
+@pytest.fixture(scope="module")
+def arc_north():
+    n, dt, df, f0 = 256, 2.0, 0.05, 1400.0
+    dyn = tw.make_arc_dynspec(n, n, dt, df, f0, 5e-4, n_images=96, seed=21)
+    return dyn, dt * np.arange(n), f0 + df * np.arange(n)
+
+
+def _pair(arc_north):
+    dyn, times, freqs = arc_north
+    kw = dict(name="arc", times=times, freqs=freqs)
+    dj = jdyn.Dynspec(dyn=jdyn.BasicDyn(dyn, **kw), verbose=False,
+                      process=False, backend="jax")
+    dp = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, **kw), verbose=False,
+                      process=False, device="cpu")
+    return dj, dp
+
+
+@pytest.fixture(scope="module")
+def seeded(arc_north):
+    """Both façades after ``prep_thetatheta`` without η bounds (the
+    Hough seed) and ``fit_thetatheta``."""
+    dj, dp = _pair(arc_north)
+    for d in (dj, dp):
+        d.prep_thetatheta(**_SEED_PREP)
+        d.fit_thetatheta()
+    return dj, dp
+
+
+class TestArcFacadeVsJax:
+    """The arc fit of the façade against the JAX façade. The port's
+    spectra are float32 (≲1e-6 of the peak in linear power), the JAX
+    side's float64, and the rest of the path is the same float64
+    arithmetic, so the fitted curvatures agree to ~1e-6 relative; the
+    tolerances below leave a decade of room."""
+
+    def test_fit_arc_lamsteps(self, arc_north):
+        dj, dp = _pair(arc_north)
+        fj = dj.fit_arc(lamsteps=True, numsteps=4000)[0]
+        fp = dp.fit_arc(lamsteps=True, numsteps=4000)[0]
+        np.testing.assert_array_equal(dp.lamdyn, dj.lamdyn)
+        assert dp.dlam == dj.dlam and dp.nlam == dj.nlam
+        np.testing.assert_array_equal(dp.beta, dj.beta)
+        np.testing.assert_array_equal(dp.fdop, dj.fdop)
+        assert dp.betaeta == pytest.approx(dj.betaeta, rel=1e-5)
+        assert dp.betaetaerr == pytest.approx(dj.betaetaerr, rel=1e-4)
+        assert dp.betaetaerr2 == pytest.approx(dj.betaetaerr2, rel=1e-3)
+        assert fp.eta == dp.betaeta and fj.eta == dj.betaeta
+        np.testing.assert_allclose(dp.eta_array, dj.eta_array, rtol=1e-12)
+
+    def test_fit_arc_tdel_and_norm_sspec(self, arc_north):
+        """The non-lamsteps fit (β bounds at ``ref_freq`` converted to
+        η) and ``norm_sspec`` at the fitted curvature."""
+        dj, dp = _pair(arc_north)
+        kw = dict(numsteps=3000, etamin=2.0, etamax=6.0)
+        dj.fit_arc(**kw)
+        dp.fit_arc(**kw)
+        assert dp.eta == pytest.approx(dj.eta, rel=1e-5)
+        assert dp.etaerr == pytest.approx(dj.etaerr, rel=1e-4)
+        nj = dj.norm_sspec(lamsteps=False, numsteps=600)
+        np_ = dp.norm_sspec(lamsteps=False, numsteps=600)
+        np.testing.assert_array_equal(np_.fdop, nj.fdop)
+        np.testing.assert_array_equal(dp.mask, dj.mask)
+        np.testing.assert_allclose(dp.normsspecavg, dj.normsspecavg,
+                                   rtol=1e-4)
+
+    def test_prep_thetatheta_hough_seed(self, seeded):
+        dj, dp = seeded
+        assert 0.5 * 5e-4 < dp.eta_min < 5e-4 < dp.eta_max < 2 * 5e-4
+        assert dp.eta_min == pytest.approx(dj.eta_min, rel=1e-5)
+        assert dp.eta_max == pytest.approx(dj.eta_max, rel=1e-5)
+        assert dp.neta == dj.neta
+        np.testing.assert_array_equal(dp.edges, dj.edges)
+        assert dp.betaeta == pytest.approx(dj.betaeta, rel=1e-5)
+
+    def test_fit_thetatheta_after_the_seed(self, seeded):
+        """rel 1e-2: the JAX package's own warm-vs-staged gate."""
+        dj, dp = seeded
+        assert np.isfinite(dp.ththeta)
+        assert dp.ththeta == pytest.approx(dj.ththeta, rel=1e-2)
+        assert dp.ththeta == pytest.approx(5e-4, rel=0.05)
+
+    def test_fit_thetatheta_plain_eig(self, arc_north):
+        """``eig="plain"`` (the card's reference route) fits as the
+        default does on the CPU, where both run the plain eigensolver:
+        bitwise; an unknown name raises."""
+        _, dp = _pair(arc_north)
+        dp.prep_thetatheta(**_SEED_PREP)
+        dp.fit_thetatheta()
+        th, evo = dp.ththeta, dp.eta_evo.copy()
+        dp.fit_thetatheta(eig="plain")
+        assert dp.ththeta == th
+        np.testing.assert_array_equal(dp.eta_evo, evo)
+        with pytest.raises(ValueError, match="unknown eig"):
+            dp.fit_thetatheta(eig="eigh")
+
+    def test_wide_band_seed_matches_jax(self):
+        """A 14% band (512 channels of 0.4 MHz from 1400 MHz, the north
+        star's fractional band): the synthetic keeps η_true at every
+        frequency while the façade searches row cf over [η_min, η_max]·
+        (fref/f_cf)², so the narrow seeded range misses η_true in the
+        highest row and ``ththeta`` lands ~5% off the truth, in both
+        packages alike: range rel 1e-5, ththeta and per-row η rel 1e-3
+        (the float32 spectra of the port)."""
+        n, dt, df, f0, eta = 512, 2.0, 0.4, 1400.0, 5e-4
+        dyn = tw.make_arc_dynspec(n, n, dt, df, f0, eta, n_images=96,
+                                  seed=21)
+        kw = dict(name="wide", times=dt * np.arange(n),
+                  freqs=f0 + df * np.arange(n))
+        prep = dict(cwf=128, cwt=128, npad=1, nedge=64)
+        dj = jdyn.Dynspec(dyn=jdyn.BasicDyn(dyn, **kw), verbose=False,
+                          process=False, backend="jax")
+        dp = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, **kw), verbose=False,
+                          process=False, device="cpu")
+        for d in (dj, dp):
+            d.prep_thetatheta(**prep)
+            d.fit_thetatheta()
+        assert dp.eta_min == pytest.approx(dj.eta_min, rel=1e-5)
+        assert dp.eta_max == pytest.approx(dj.eta_max, rel=1e-5)
+        assert dp.neta == dj.neta
+        assert dp.eta_min < eta < dp.eta_max
+        top = dp.freqs[-128:].mean()
+        assert dp.eta_max * (dp.fref / top) ** 2 < eta   # the last row
+        assert dp.ththeta == pytest.approx(dj.ththeta, rel=1e-3)
+        assert abs(dp.ththeta / eta - 1) > 0.03
+        np.testing.assert_allclose(np.nanmedian(dp.eta_evo, axis=1),
+                                   np.nanmedian(dj.eta_evo, axis=1),
+                                   rtol=1e-3)
+
+    def test_one_bound_keeps_it_and_seeds_the_other(self, arc_north):
+        dj, dp = _pair(arc_north)
+        for d in (dj, dp):
+            d.prep_thetatheta(eta_max=9e-4, **_SEED_PREP)
+        assert dp.eta_max == dj.eta_max
+        assert dp.eta_min == pytest.approx(dj.eta_min, rel=1e-5)
+
+
 class TestRetrievalVsJax:
     def test_retrieve_wavefield(self, jax_retrieved):
         ds = _port_from(jax_retrieved)
@@ -230,7 +371,13 @@ class TestRejectedInputs:
             tdyn.Dynspec(filename="x.dynspec", device="cpu")
         ds = tdyn.Dynspec(dyn=bd, verbose=False, device="cpu")
         with pytest.raises(NotImplementedError):
-            ds.prep_thetatheta(cwf=128, cwt=128)           # Hough seed
+            ds.scale_dyn(scale="velocity")
+        with pytest.raises(NotImplementedError):
+            ds.calc_sspec(trap=True)
+        with pytest.raises(NotImplementedError):
+            ds.fit_arc(plot=True)
+        with pytest.raises(NotImplementedError):
+            ds.norm_sspec(eta=1.0, plot=True)
         with pytest.raises(NotImplementedError):
             ds.prep_thetatheta(fitting_proc="thin", eta_min=0.1,
                                eta_max=0.9)

@@ -159,11 +159,64 @@ class TestColdBranch:
         np.testing.assert_allclose(lam, 0.0, atol=1e-6)
 
 
+class TestColdOnlyVsPallas:
+    """``batched_eig_cold_plain`` (the counterpart of JAX's
+    ``batched_eig_squaring_xla``) against the cold-only Pallas kernel in
+    interpret mode and its XLA twin, on tests/test_pallas_eig.py's
+    fixtures: rtol 1e-5 against both (the same float32 squarings; only
+    the summation order differs), 2e-4 against ``eigvalsh`` (the JAX
+    kernel's own gate)."""
+
+    @pytest.mark.parametrize("n, batch", [(40, 4), (48, 6), (30, 3)])
+    def test_matches_pallas_interpret_and_xla(self, rng, n, batch):
+        import jax.numpy as jnp
+
+        mats = _random_hermitian(rng, n, batch)
+        a = teig.pack_padded(mats, n)
+        ref_p = np.asarray(jeig.batched_eig_pallas(jnp.asarray(a), n // 2,
+                                                   interpret=True))
+        ref_x = np.asarray(jeig.batched_eig_squaring_xla(jnp.asarray(a),
+                                                         n // 2))
+        before = teig.batched_eig_cold.launches
+        got = teig.batched_eig_cold(torch.from_numpy(a), n // 2).numpy()
+        assert teig.batched_eig_cold.launches == before    # CPU: no kernel
+        assert got.shape == (batch,)
+        np.testing.assert_allclose(got, ref_p, rtol=1e-5)
+        np.testing.assert_allclose(got, ref_x, rtol=1e-5)
+        np.testing.assert_allclose(got, _top(mats), rtol=2e-4)
+
+    def test_equals_the_warm_solvers_first_step(self):
+        """The cold start is the first step of every warm chain."""
+        mats = _drift(B=3, neta=2)
+        a = torch.from_numpy(teig.pack_padded(mats, 32))
+        cold = teig.batched_eig_cold_plain(a[:, 0].contiguous(), 16)
+        warm = teig.batched_eig_warmstart_plain(a, 16)[:, 0]
+        assert torch.equal(cold, warm)
+
+    def test_zero_matrix_and_squarings(self):
+        z = torch.zeros((2, 2, 128, 128))
+        np.testing.assert_allclose(teig.batched_eig_cold(z, 64).numpy(), 0.0,
+                                   atol=1e-6)
+        import jax.numpy as jnp
+
+        mats = _random_hermitian(np.random.default_rng(2), 40, 2)
+        a = teig.pack_padded(mats, 40)
+        for sq in (0, 3):
+            np.testing.assert_allclose(
+                teig.batched_eig_cold(torch.from_numpy(a), 20, sq).numpy(),
+                np.asarray(jeig.batched_eig_squaring_xla(jnp.asarray(a), 20,
+                                                         sq)), rtol=1e-5)
+        with pytest.raises(ValueError):
+            teig.batched_eig_cold_plain(torch.zeros((2, 128, 128)), 64)
+
+
 class TestKernelDispatch:
     def test_unsupported_device_raises(self):
         a = torch.zeros((1, 1, 2, 128, 128), device="meta")
         with pytest.raises(ValueError):
             teig.batched_eig_warmstart(a, 64)
+        with pytest.raises(ValueError):
+            teig.batched_eig_cold(a[0], 64)
 
     def test_kernel_matches_plain_on_card(self):
         """On a CUDA card: the hand-written kernel against its plain
