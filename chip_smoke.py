@@ -21,7 +21,10 @@ Phases, each of which exits non-zero on failure:
    and (b) 256 θ-θ matrices of (c) (32 chunks × 8 evenly spaced η),
    with its times beside ``eigvalsh``'s. Then the eigenvector entry on
    (a) read as 4 chains of 24 and (b) as one chain of 24, with its times
-   beside ``torch.linalg.eigh``'s;
+   beside ``torch.linalg.eigh``'s, and on (a) read as 96 chains of one,
+   where v is the cold start's own vector: within 1e-5 (L2) of plain's,
+   which the split-TF32 squarings keep on these gapped matrices and
+   plain TF32 (1e-4 or more away) would not;
 3. the north-star pipeline at 4096² (8×8 chunks of 512², 200 η,
    256 edges), timed end to end from the dynspec on the card, with
    the η gates against truth and against the plain eigensolver;
@@ -58,6 +61,20 @@ Phases, each of which exits non-zero on failure:
    the kernel and the device tail, held to the float64 host tail and to
    the truth, and a bitwise rerun.
 
+Each eigensolver entry prints the launch plan its call recorded (per
+launch: chains, cluster size C, the clusters the card seats at once,
+bands held and shared memory per CTA), the ``-Xptxas -v`` registers and
+spills of each kernel, and the cold starts per chain that the kernel
+counted (max, mean, total beside the plain version's). Its ``kernels``
+entry carries ``cluster`` (C of the call's first launch) and
+``cold_starts_max_chain``. Its ``bound_ms`` counts the cold start's
+squarings at the rate the kernel runs them, three TF32 products each on
+the tensor cores (``bound_tc_ms``, the same count), and
+``bound_f32_ms`` every operation at the f32 CUDA-core rate. The arc
+profile runs no tensor-core work and no chains: its ``bound_tc_ms``,
+``bound_f32_ms`` (its ``bound_ms`` is that count), ``cluster`` and
+``cold_starts_max_chain`` are null.
+
 Launch counts are taken per path: zeroed just before the timed
 north-star run and read just after it, then zeroed again just before
 the façade and read just after ``fit_thetatheta``, again for the Hough
@@ -82,10 +99,11 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-# CUDA-core FLOP/s outside the tensor cores
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32
+# CUDA-core FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 GROUP = 32          # north-star chunks per eigensolver launch
 N_ETA = 200
 
@@ -265,16 +283,88 @@ def eig_bound_ms(M, n, n_cold, iters=24, out_floats=1):
     """Least time for the eigensolver's work on this run's data over M
     matrices: input read once + ``out_floats`` per matrix written once
     over HBM bandwidth, against the warm mat-vecs (iters + 2 complex N²
-    mat-vecs per warm matrix) plus the cold starts this data needed (15
-    squarings and 3 mat-vecs each) over the f32 CUDA-core peak. Every
+    mat-vecs per warm matrix, f32 CUDA cores) plus the cold starts this
+    data needed (3 mat-vecs, and 15 squarings as the kernel runs them:
+    three TF32 products each at the tensor cores' TF32 peak). Every
     squared matrix is hermitian, so a squaring needs only one triangle
-    of its product: 4·N³ real flops, the count of a complex herk."""
+    of its product: 4·N³ real flops, the count of a complex herk.
+    Returns (bound ms, what bounds it, the bound ms with every operation
+    at the f32 CUDA-core peak)."""
     nbytes = M * 2 * n * n * 4 + M * out_floats * 4
-    flops = (M - n_cold) * (iters + 2) * 8 * n * n \
-        + n_cold * (15 * 4 * n ** 3 + 3 * 8 * n * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    vec_flops = (M - n_cold) * (iters + 2) * 8 * n * n \
+        + n_cold * 3 * 8 * n * n
+    sq_flops = n_cold * 15 * 4 * n ** 3
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = vec_flops / F32_FLOP_PER_S + 3 * sq_flops / TF32_FLOP_PER_S
+    t_f32 = (vec_flops + sq_flops) / F32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * max(t_bytes, t_f32))
+
+
+def show_plan(name, stats):
+    """Print (and return) what an eigensolver kernel call recorded in
+    ``stats``: its launch plan (per launch, chains, cluster size C,
+    clusters the card seats, bands held and shared memory per CTA) and
+    the cold starts per chain that the kernel counted."""
+    plan = stats["plan"]
+    per = stats["cold_per_chain"].float()
+    out = {"plan": plan, "cluster": plan[0]["cluster"],
+           "cold_starts_max_chain": int(per.max()),
+           "cold_starts_mean_chain": float(per.mean()),
+           "cold_starts_per_chain": [int(c) for c in per.tolist()]}
+    line = "; ".join(f"{p['chains']} chains at C={p['cluster']} (seats "
+                     f"{p['resident']}, {p['nbuf']} band(s), "
+                     f"{p['smem']} B smem/CTA)" for p in plan)
+    many = len(per) > 40
+    print(f"    {name} plan ({len(per)} chains): {line}; cold starts per "
+          f"chain max {out['cold_starts_max_chain']}, mean "
+          f"{out['cold_starts_mean_chain']:.2f}"
+          + ("" if many else f": {out['cold_starts_per_chain']}"),
+          flush=True)
+    if many:
+        del out["cold_starts_per_chain"]
+    return out
+
+
+def device_kernels(fn):
+    """Run ``fn()`` once under ``torch.profiler``; returns ``[(name,
+    start µs, duration µs)]`` of the device activities it recorded
+    (kernels, copies), empty if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted((e.name, e.time_range.start, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def busy_share(acts):
+    """Share of the device window (first activity's start to the last
+    one's end) in which some recorded activity ran."""
+    spans = sorted((t, t + d) for _, t, d in acts)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return busy / (max(b for _, b in spans) - spans[0][0])
+
+
+def ptxas_lines(logs):
+    """The ``-Xptxas -v`` register and spill lines of each kernel built."""
+    return {name: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
+            for name, log in logs.items()}
 
 
 def main():
@@ -292,9 +382,11 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build()
+    ptxas = ptxas_lines(_build.build())
     print(f"    kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.sources())})", flush=True)
+    for name, lines in ptxas.items():
+        print(f"    ptxas {name}: " + " | ".join(lines), flush=True)
     lap("1 device and build")
 
     # ---- [2] kernel vs plain on the card ------------------------------
@@ -330,6 +422,8 @@ def main():
     E.batched_eig_warmstart(a[:1, :2].contiguous(), mid)
     E.batched_eig_warmstart_plain(a[:1, :2], mid)
     top2(a[:1, :2])
+    kstats = {}
+    E.batched_eig_warmstart(a, mid, stats=kstats)
     kern, ms = timed(lambda: E.batched_eig_warmstart(a, mid), reps=3)
     stats = {}
     plain, plain_ms = timed(
@@ -339,11 +433,20 @@ def main():
         f"(c) north-star θ-θ {GROUP} chunks x {N_ETA} eta", kern, plain,
         lam12)
     B, neta, _, n, _ = a.shape
-    bound_ms, bound_by = eig_bound_ms(B * neta, n, stats["cold"])
+    plain_colds = stats["cold"]
+    bound_ms, bound_by, bound_f32_ms = eig_bound_ms(B * neta, n, plain_colds)
+    warm_plan = show_plan("eig_warmstart", kstats)
+    # what paces the call: each launch's device time, by torch.profiler
+    launch_ms = [d / 1e3 for name, _, d in device_kernels(
+        lambda: E.batched_eig_warmstart(a, mid)) if "eig_warmstart" in name]
+    print(f"    torch.profiler, one call: eig_warmstart launches' device "
+          f"times {[round(t, 3) for t in launch_ms]} ms (the plan's "
+          f"launches in order)", flush=True)
     print(f"    shape {tuple(a.shape)}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, eigvalsh {library_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}; {stats['cold']} cold starts)",
-          flush=True)
+          f"{bound_ms:.3f} ms ({bound_by}; {bound_f32_ms:.3f} ms with every "
+          f"operation at the f32 CUDA-core rate); cold starts: kernel "
+          f"{kstats['cold']}, plain {stats['cold']}", flush=True)
     del kern, plain, lam12
     cold = cold_phase(a, mid, rng, dev)
     del a
@@ -361,11 +464,24 @@ def main():
         a, 128, iters=64, stats=stats))
     c = torch.complex(a[:, :, 0], a[:, :, 1])
     _, vec_eigh_ms = timed(lambda: torch.linalg.eigh(c))
-    b_ms, b_by = eig_bound_ms(a.shape[0] * a.shape[1], 256, stats["cold"],
-                              iters=64, out_floats=2 * 256 + 1)
+    b_ms, b_by, _ = eig_bound_ms(a.shape[0] * a.shape[1], 256,
+                                 stats["cold"], iters=64,
+                                 out_floats=2 * 256 + 1)
     print(f"    shape {tuple(a.shape)}: kernel {vec_ms:.3f} ms, plain "
           f"{vec_plain_ms:.3f} ms, eigh {vec_eigh_ms:.3f} ms, bound "
           f"{b_ms:.3f} ms ({b_by}; {stats['cold']} cold starts)", flush=True)
+    # chains of one: v is the cold start's vector, unrefined by warm steps
+    a1 = a.reshape(-1, 1, 2, 256, 256)
+    lk, vk = EV(a1, 128)
+    lp, vp = E.batched_eigvec_warmstart_plain(a1, 128)
+    cold_v_l2 = (vk - vp).double().pow(2).sum(dim=(-2, -1)).sqrt().max()
+    cold_v_l2 = cold_v_l2.item()
+    lam_rel = ((lk - lp).abs() / lp.abs()).max().item()
+    print(f"  (a) drift, {a1.shape[0]} chains of one: cold-start vector max "
+          f"L2 from plain {cold_v_l2:.3e} (gate 1e-5; plain TF32 lands "
+          f"≥ 1e-4 away), λ max rel {lam_rel:.3e}", flush=True)
+    check(cold_v_l2 <= 1e-5 and lam_rel <= 1e-4, "the cold start's vector "
+          "or λ on the card differs from its plain version")
     a = torch.from_numpy(E.pack_padded(crossing_batch()[0], 256)).to(dev)
     lk, vk = EV(a, 128, iters=64)
     lp, vp = E.batched_eigvec_warmstart_plain(a, 128, iters=64)
@@ -408,6 +524,13 @@ def main():
     print(f"    kernel vs plain η, chunks 0-3: max rel {d_eta.max():.3e}",
           flush=True)
     check(bool((d_eta < 0.01).all()), "kernel vs plain η differs ≥ 1%")
+    acts = device_kernels(lambda: run(dyn1, e_np))
+    share = busy_share(acts)
+    eig_us = sum(d for name, _, d in acts if "eig_warmstart" in name)
+    print(f"    torch.profiler, one more run: {len(acts)} device activities, "
+          f"device busy {share if share is None else round(share, 4)} of the "
+          f"window from the first to the last; eig_warmstart "
+          f"{eig_us / 1e3:.3f} ms of them", flush=True)
     del eigs, eigs0, peak0, d0, dyn1
     lap("3 north star")
 
@@ -460,10 +583,20 @@ def main():
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "bound_by": bound_by, "bound_tc_ms": bound_ms,
+        "bound_f32_ms": bound_f32_ms,
+        "library_ms": library_ms, "cluster": warm_plan["cluster"],
+        "plan": warm_plan["plan"],
+        "cold_starts_max_chain": warm_plan["cold_starts_max_chain"],
+        "cold_starts_mean_chain": warm_plan["cold_starts_mean_chain"],
+        "cold_starts_per_chain": warm_plan["cold_starts_per_chain"],
+        "profiler_launch_ms": launch_ms,
+        "cold_starts": kstats["cold"], "cold_starts_plain": plain_colds,
         "shape": [B, neta, 2, n, n]}, ret.pop("kernel"), arc.pop("kernel"),
         cold],
+        "ptxas": ptxas, "eigvec_cold_vector_l2_vs_plain": cold_v_l2,
         "north_star_ms": ns_ms, "north_star_stage_ms": stages,
+        "north_star_device_busy_share": share,
         "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
         "phase_s": PHASE_S}), flush=True)
     print(smi(), flush=True)
@@ -481,7 +614,8 @@ def cold_phase(a, mid, rng, dev):
     print("[2] eig_cold kernel vs plain", flush=True)
     r = torch.from_numpy(E.pack_padded(random_hermitian(rng, 256, 6),
                                        256)).to(dev)
-    kern, plain = E.batched_eig_cold(r, 128), E.batched_eig_cold_plain(r, 128)
+    kern = E.batched_eig_cold(r, 128)
+    plain = E.batched_eig_cold_plain(r, 128)
     top = torch.linalg.eigvalsh(torch.complex(r[:, 0], r[:, 1]))[:, -1]
     for name, ref in (("plain", plain), ("eigvalsh", top)):
         rel = ((kern - ref).abs() / ref.abs()).max().item()
@@ -495,7 +629,8 @@ def cold_phase(a, mid, rng, dev):
     E.batched_eig_cold(flat[:2].contiguous(), mid)          # warm-ups
     E.batched_eig_cold_plain(flat[:2], mid)
     E.batched_eig_cold.launches = 0                 # the entry's own path
-    kern = E.batched_eig_cold(flat, mid)
+    kstats = {}
+    kern = E.batched_eig_cold(flat, mid, stats=kstats)
     torch.cuda.synchronize()
     launches = E.batched_eig_cold.launches
     check(launches > 0, "eig_cold was never launched")
@@ -505,10 +640,13 @@ def cold_phase(a, mid, rng, dev):
     max_abs, max_rel, n_near = compare(
         f"(b) north-star θ-θ, {G} chunks x {L} eta", kern.reshape(G, L),
         plain.reshape(G, L), lam12)
-    bound_ms, bound_by = eig_bound_ms(G * L, n, G * L)
+    bound_ms, bound_by, bound_f32_ms = eig_bound_ms(G * L, n, kstats["cold"])
+    plan = show_plan("eig_cold", kstats)
     print(f"    shape {tuple(flat.shape)}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, eigvalsh {library_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}; all {G * L} cold)", flush=True)
+          f"{bound_ms:.3f} ms ({bound_by}; {bound_f32_ms:.3f} ms with every "
+          f"operation at the f32 CUDA-core rate; {kstats['cold']} cold "
+          f"starts)", flush=True)
     return {"name": "eig_cold", "route": "cuda",
             "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
             "replaces": "scintools_tpu/thth/pallas_eig.py:334",
@@ -517,7 +655,11 @@ def cold_phase(a, mid, rng, dev):
             "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
             "near_degenerate_points": n_near, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": list(flat.shape)}
+            "bound_tc_ms": bound_ms, "bound_f32_ms": bound_f32_ms,
+            "library_ms": library_ms, "cluster": plan["cluster"],
+            "plan": plan["plan"],
+            "cold_starts_max_chain": plan["cold_starts_max_chain"],
+            "cold_starts": kstats["cold"], "shape": list(flat.shape)}
 
 
 def hough_phase(prob, bd, eta_true):
@@ -709,7 +851,8 @@ def survey_arc_phase(dev):
         "launches": launches, "launches_survey_arc_fit": launches,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "bound_by": bound_by, "bound_tc_ms": None, "bound_f32_ms": None,
+        "library_ms": None, "cluster": None, "cold_starts_max_chain": None,
         "library_note": "no single PyTorch call computes this function",
         "shape": [B, R, nc, Q]},
         "fit_ms": fit_ms, "epochs_per_s": B / fit_ms * 1e3,
@@ -832,6 +975,8 @@ def retrieval_phase(ds, dev):
     mid = fn.n_th // 2
     EV(a[:1, :2].contiguous(), mid, iters=64)               # warm-ups
     E.batched_eigvec_warmstart_plain(a[:1, :2], mid, iters=64)
+    kstats = {}
+    EV(a, mid, iters=64, stats=kstats)
     (lk, vk), ms = timed(lambda: EV(a, mid, iters=64), reps=3)
     stats = {}
     (lp, vp), plain_ms = timed(lambda: E.batched_eigvec_warmstart_plain(
@@ -843,12 +988,16 @@ def retrieval_phase(ds, dev):
         f"retrieval eig, {G} chains of {L}", lk, lp, lam12)
     low = compare_vec(f"retrieval eig, {G} chains of {L}", vk, vp,
                       gapped.reshape(G, L))
-    bound_ms, bound_by = eig_bound_ms(G * L, n, stats["cold"], iters=64,
-                                      out_floats=2 * n + 1)
+    bound_ms, bound_by, bound_f32_ms = eig_bound_ms(
+        G * L, n, stats["cold"], iters=64, out_floats=2 * n + 1)
+    plan = show_plan("eigvec_warmstart", kstats)
     print(f"    eig stage {tuple(a.shape)}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, eigh ({n_grid}, {fn.n_th}, {fn.n_th}) "
           f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-          f"{stats['cold']} cold starts)", flush=True)
+          f"{bound_f32_ms:.3f} ms with every operation at the f32 CUDA-core "
+          f"rate); cold "
+          f"starts: kernel {kstats['cold']}, plain {stats['cold']}",
+          flush=True)
     del a, thth, lk, vk, lp, vp
 
     # 5.4 reproducibility and quarantine
@@ -900,7 +1049,13 @@ def retrieval_phase(ds, dev):
         "max_rel_err_vs_plain": max_rel, "min_vec_corr_vs_plain": low,
         "near_degenerate_points": n_near, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "shape": [G, L, 2, n, n]},
+        "bound_tc_ms": bound_ms, "bound_f32_ms": bound_f32_ms,
+        "library_ms": library_ms,
+        "cluster": plan["cluster"], "plan": plan["plan"],
+        "cold_starts_max_chain": plan["cold_starts_max_chain"],
+        "cold_starts_mean_chain": plan["cold_starts_mean_chain"],
+        "cold_starts": kstats["cold"], "cold_starts_plain": stats["cold"],
+        "shape": [G, L, 2, n, n]},
         "retrieval_s": retrieval_s, "retrieval_stage_ms": stages,
         "calc_wavefield_s": calc_s, "gs_s": gs_s,
         "kernel_vs_dense_intensity": [rel, corr],

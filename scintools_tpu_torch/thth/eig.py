@@ -21,6 +21,17 @@ walker), a CUDA tensor launches the hand-written Hopper kernel
 ``csrc/eig_warmstart.cu`` or raises. Complex matrices cross the
 boundary as the (re, im) float32 pair wire format of
 :func:`pack_padded`.
+
+The kernel gives each chain a thread-block cluster of C CTAs, each
+owning N/C rows: its band of every matrix sits in shared memory while
+the warm steps iterate, the mat-vec's rows are exchanged through
+distributed shared memory with one cluster barrier per step, and the
+cold start's squarings run on the tensor cores in split TF32.
+:func:`_cluster_plan` picks C from the shared memory the kernel's
+layout needs and the clusters the card seats at once, both asked of the
+card; a call with more chains than that runs as several launches. Its
+arithmetic order depends on N alone, so a chain's bits do not depend on
+the plan or on the other chains in the call.
 """
 
 from __future__ import annotations
@@ -176,12 +187,15 @@ def batched_eig_warmstart_plain(a_ri, mid, squarings=10, iters=24,
     return _walk(a_ri, mid, squarings, iters, stats, with_vec=False)[0]
 
 
-def batched_eig_cold_plain(a_ri, mid, squarings=10):
+def batched_eig_cold_plain(a_ri, mid, squarings=10, stats=None):
     """The plain PyTorch version of :func:`batched_eig_cold` (the
     counterpart of ``batched_eig_squaring_xla``): the cold start on the
-    whole ``(batch, 2, N, N)`` batch at once."""
+    whole ``(batch, 2, N, N)`` batch at once. A dict ``stats`` gets the
+    batch added to its ``"cold"``."""
     if a_ri.ndim != 4 or a_ri.shape[1] != 2:
         raise ValueError("a_ri must be (batch, 2, N, N)")
+    if stats is not None:
+        stats["cold"] = stats.get("cold", 0) + a_ri.shape[0]
     return _eig_body(a_ri[:, 0], a_ri[:, 1], int(mid), squarings)[0]
 
 
@@ -206,8 +220,52 @@ def batched_eigvec_warmstart_plain(a_ri, mid, squarings=10, iters=24,
 
 
 # ---------------------------------------------------------------------
-# the kernel's wrapper
+# the kernel's launch plan and wrapper
 # ---------------------------------------------------------------------
+
+CLUSTERS = (16, 8, 4)        # cluster sizes the kernel is launched with
+
+
+def _cluster_plan(G, n, smem_bytes, max_active):
+    """The kernel's launch plan for G chains of N × N matrices: a list of
+    launches ``(chains, C, nbuf, smem bytes)`` that run one after another
+    over consecutive chains. A launch gives each chain C CTAs, each
+    holding ``nbuf`` bands of its N/C rows in shared memory (2: the next
+    matrix's band streams in while this one iterates; 0: the band is
+    read from L2, where no C holds it).
+
+    The card answers two questions: ``smem_bytes(n, C, nbuf)``, the bytes
+    of the kernel's shared-memory layout, 0 where it cannot give a block
+    that much; and ``max_active(C, smem)``, the clusters it keeps
+    resident at once (``cudaOccupancyMaxActiveClusters``). C is the
+    largest of :data:`CLUSTERS` whose band fits and for which all the
+    launch's clusters are resident at once. When no C seats all G, the
+    smallest C that fits takes as many chains as it seats, and the rest
+    are planned again: on an H100 that seats 30 clusters of 4, G = 32
+    runs as 30 chains at C = 4, then 2 at C = 16, not as a second wave of
+    2 chains at C = 4. A chain's bits do not depend on the plan."""
+    fits = {}
+    for c in CLUSTERS:
+        for nbuf in (2, 1):
+            smem = smem_bytes(n, c, nbuf)
+            if smem:
+                fits[c] = (nbuf, smem)
+                break
+    if not fits:
+        fits = {c: (0, smem_bytes(n, c, 0)) for c in CLUSTERS}
+    plan = []
+    while True:
+        resident = [c for c in fits if max_active(c, fits[c][1]) >= G]
+        if resident or G == 0:
+            c = max(resident or fits)
+            return plan + [(G, c, *fits[c])]
+        c = min(fits)
+        seated = max_active(c, fits[c][1])
+        if seated < 1:
+            return plan + [(G, c, *fits[c])]
+        plan.append((seated, c, *fits[c]))
+        G -= seated
+
 
 def _lib():
     from .. import _build
@@ -215,25 +273,66 @@ def _lib():
     lib = _build.load("eig_warmstart")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.eig_warmstart_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.eig_warmstart_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                             i, i, p]
         lib.eig_warmstart_launch.restype = i
-        lib.eigvec_warmstart_launch.argtypes = [p, p, p, p, i, i, i, i, i,
-                                                i, p]
+        lib.eigvec_warmstart_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                                i, i, i, i, p]
         lib.eigvec_warmstart_launch.restype = i
-        lib.eig_cold_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.eig_cold_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         lib.eig_cold_launch.restype = i
+        lib.eig_max_active_clusters.argtypes = [i, i, p]
+        lib.eig_max_active_clusters.restype = i
+        lib.eig_smem_bytes.argtypes = [i, i, i, p]
+        lib.eig_smem_bytes.restype = i
         lib.eig_warmstart_error_string.argtypes = [i]
         lib.eig_warmstart_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
-def _launch(chains, mid, squarings, iters, with_vec, cold=False):
-    """Check a CUDA ``chains[G, L, 2, N, N]`` tensor and launch one CTA
-    per chain on the current stream: ``eig_warmstart_launch`` for λ
-    alone, ``eigvec_warmstart_launch`` for λ and v, ``eig_cold_launch``
-    (``cold``, chains of one) for the cold start alone. Raises on
-    anything the kernel does not take and on a refused launch."""
+def _check(lib, rc, what):
+    if rc != 0:
+        msg = lib.eig_warmstart_error_string(rc).decode()
+        raise RuntimeError(f"eig_warmstart {what} failed ({rc}): {msg}")
+
+
+_ANSWERS = {}
+
+
+def _card(device):
+    """The card ``device``'s answers to :func:`_cluster_plan`'s two
+    questions, as its callables ``(smem_bytes, max_active)``; each
+    answer is asked of the card once."""
+    lib = _lib()
+
+    def ask(fn, *args):
+        key = (device.index, fn, *args)
+        if key not in _ANSWERS:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                rc = getattr(lib, fn)(*args, ctypes.byref(out))
+            _check(lib, rc, fn)
+            _ANSWERS[key] = out.value
+        return _ANSWERS[key]
+
+    return (lambda n, c, nbuf: ask("eig_smem_bytes", n, c, nbuf),
+            lambda c, smem: ask("eig_max_active_clusters", c, smem))
+
+
+def _launch(chains, mid, squarings, iters, with_vec, cold=False,
+            stats=None):
+    """Check a CUDA ``chains[G, L, 2, N, N]`` tensor and launch one
+    cluster per chain on the current stream, in the launches
+    :func:`_cluster_plan` gives: ``eig_warmstart_launch`` for λ alone,
+    ``eigvec_warmstart_launch`` for λ and v, ``eig_cold_launch``
+    (``cold``, chains of one) for the cold start alone. Returns λ, v and
+    the number of launches. A dict ``stats`` gets the cold starts added
+    to its ``"cold"``, the kernel's per-chain counts as
+    ``"cold_per_chain"`` and the plan as ``"plan"`` (per launch:
+    ``chains``, ``cluster``, ``nbuf``, ``smem``, and ``resident``, the
+    clusters of that size the card keeps at once). Raises on anything
+    the kernel does not take and on a refused launch."""
     if chains.device.type != "cuda":
         raise ValueError(f"unsupported device {chains.device}")
     if chains.dtype != torch.float32 or not chains.is_contiguous():
@@ -248,71 +347,99 @@ def _launch(chains, mid, squarings, iters, with_vec, cold=False):
     v = (torch.empty((G, L, 2, n), dtype=torch.float32, device=dev)
          if with_vec else None)
     if G == 0 or L == 0:
-        return lam, v
-    scratch = torch.empty((G, 2, 2, n, n), dtype=torch.float32, device=dev)
+        return lam, v, 0
+    smem_bytes, max_active = _card(dev)
+    plan = _cluster_plan(G, n, smem_bytes, max_active)
+    scratch = torch.empty((max(p[0] for p in plan), 2, 2, n, n),
+                          dtype=torch.float32, device=dev)
+    colds = (torch.empty(G, dtype=torch.int32, device=dev)
+             if stats is not None else None)
     lib = _lib()
-    args = (int(mid), int(squarings), int(iters))
+    args = (n, int(mid), int(squarings))
+
+    def at(t, chain, per_chain):
+        # address of chain `chain` of a float32/int32 tensor t
+        return None if t is None else t.data_ptr() + 4 * chain * per_chain
+
+    start = 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cold:
-            rc = lib.eig_cold_launch(chains.data_ptr(), lam.data_ptr(),
-                                     scratch.data_ptr(), G, n, int(mid),
-                                     int(squarings), stream)
-        elif with_vec:
-            rc = lib.eigvec_warmstart_launch(
-                chains.data_ptr(), lam.data_ptr(), v.data_ptr(),
-                scratch.data_ptr(), G, L, n, *args, stream)
-        else:
-            rc = lib.eig_warmstart_launch(
-                chains.data_ptr(), lam.data_ptr(), scratch.data_ptr(), G, L,
-                n, *args, stream)
-    if rc != 0:
-        msg = lib.eig_warmstart_error_string(rc).decode()
-        raise RuntimeError(f"eig_warmstart launch failed ({rc}): {msg}")
-    return lam, v
+        for g, c, nbuf, smem in plan:      # one after another on `stream`
+            a_ptr = at(chains, start, L * 2 * n * n)
+            lam_ptr = at(lam, start, L)
+            if cold:
+                rc = lib.eig_cold_launch(a_ptr, lam_ptr, at(colds, start, 1),
+                                         scratch.data_ptr(), g, *args, c,
+                                         nbuf, smem, stream)
+            elif with_vec:
+                rc = lib.eigvec_warmstart_launch(
+                    a_ptr, lam_ptr, at(v, start, L * 2 * n),
+                    at(colds, start, 1), scratch.data_ptr(), g, L, *args,
+                    int(iters), c, nbuf, smem, stream)
+            else:
+                rc = lib.eig_warmstart_launch(
+                    a_ptr, lam_ptr, at(colds, start, 1), scratch.data_ptr(),
+                    g, L, *args, int(iters), c, nbuf, smem, stream)
+            _check(lib, rc, "launch")
+            start += g
+    if stats is not None:
+        stats["plan"] = [{"chains": g, "cluster": c, "nbuf": nbuf,
+                          "smem": smem, "resident": max_active(c, smem)}
+                         for g, c, nbuf, smem in plan]
+        stats["cold"] = stats.get("cold", 0) + int(colds.sum())
+        stats["cold_per_chain"] = colds
+    return lam, v, len(plan)
 
 
-def batched_eig_warmstart(a_ri, mid, squarings=10, iters=24):
+def batched_eig_warmstart(a_ri, mid, squarings=10, iters=24, stats=None):
     """Dominant (largest-algebraic) eigenvalues of a (B, neta, 2, N, N)
     float32 batch of hermitian matrices, warm-starting each η from its
     predecessor within the same chunk b. Returns (B, neta) float32;
-    the caller takes ``abs``.
+    the caller takes ``abs``. A dict ``stats`` gets the cold starts added
+    to its ``"cold"`` (on the card also ``"cold_per_chain"`` and the
+    launch ``"plan"``).
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/eig_warmstart.cu`` (N a multiple of 128, contiguous float32)
-    or raises. Caveat (as the TPU kernel's): at a near-degenerate point
-    of a dominant-eigenvector crossing the value may be any eigenvalue
-    in [λ₂, λ₁]; it re-locks to λ₁ as the gap reopens."""
+    ``csrc/eig_warmstart.cu`` (one thread-block cluster per chunk; N a
+    multiple of 128, contiguous float32) or raises. Caveat (as the TPU
+    kernel's): at a near-degenerate point of a dominant-eigenvector
+    crossing the value may be any eigenvalue in [λ₂, λ₁]; it re-locks to
+    λ₁ as the gap reopens."""
     if a_ri.device.type == "cpu":
-        return batched_eig_warmstart_plain(a_ri, mid, squarings, iters)
+        return batched_eig_warmstart_plain(a_ri, mid, squarings, iters,
+                                           stats)
     if a_ri.ndim != 5:
         raise ValueError("a_ri must be (B, neta, 2, N, N)")
-    lam, _ = _launch(a_ri, mid, squarings, iters, with_vec=False)
-    batched_eig_warmstart.launches += 1
+    lam, _, launched = _launch(a_ri, mid, squarings, iters, with_vec=False,
+                               stats=stats)
+    batched_eig_warmstart.launches += launched
     return lam
 
 
 batched_eig_warmstart.launches = 0
 
 
-def batched_eigvec_warmstart(a_ri, mid, squarings=10, iters=24):
+def batched_eigvec_warmstart(a_ri, mid, squarings=10, iters=24, stats=None):
     """Dominant eigenpair of hermitian float32 matrices, warm-starting
     each matrix from its predecessor in its chain (the retrieval's
     chunk walk). ``a_ri`` is ``(B, 2, N, N)``, one chain as the TPU
     kernel takes it, → ``(λ[B], v_ri[B, 2, N])``; or ``(G, L, 2, N, N)``,
     G independent chains of L, → ``(λ[G, L], v_ri[G, L, 2, N])``. The
     first matrix of every chain starts cold. ``v`` is the unit
-    eigenvector; its global phase is arbitrary.
+    eigenvector; its global phase is arbitrary. ``stats`` as in
+    :func:`batched_eig_warmstart`.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     ``eigvec_warmstart_launch`` entry of ``csrc/eig_warmstart.cu`` (one
-    CTA per chain; N a multiple of 128, contiguous float32) or raises.
-    The near-degeneracy caveat of :func:`batched_eig_warmstart` holds."""
+    cluster per chain; N a multiple of 128, contiguous float32) or
+    raises. The near-degeneracy caveat of :func:`batched_eig_warmstart`
+    holds."""
     if a_ri.device.type == "cpu":
-        return batched_eigvec_warmstart_plain(a_ri, mid, squarings, iters)
-    lam, v = _launch(_as_chains(a_ri), mid, squarings, iters,
-                     with_vec=True)
-    batched_eigvec_warmstart.launches += 1
+        return batched_eigvec_warmstart_plain(a_ri, mid, squarings, iters,
+                                              stats)
+    lam, v, launched = _launch(_as_chains(a_ri), mid, squarings, iters,
+                               with_vec=True, stats=stats)
+    batched_eigvec_warmstart.launches += launched
     if a_ri.ndim == 4:
         return lam[0], v[0]
     return lam, v
@@ -321,23 +448,24 @@ def batched_eigvec_warmstart(a_ri, mid, squarings=10, iters=24):
 batched_eigvec_warmstart.launches = 0
 
 
-def batched_eig_cold(a_ri, mid, squarings=10):
+def batched_eig_cold(a_ri, mid, squarings=10, stats=None):
     """Dominant (largest-algebraic) eigenvalues of a ``(batch, 2, N, N)``
     float32 batch of hermitian matrices by the cold two-phase squaring
     start alone, no warm start (the TPU's ``batched_eig_pallas``).
-    Returns ``(batch,)`` float32.
+    Returns ``(batch,)`` float32. ``stats`` as in
+    :func:`batched_eig_warmstart`.
 
     A CPU tensor runs :func:`batched_eig_cold_plain`; a CUDA tensor
     launches the ``eig_cold_launch`` entry of ``csrc/eig_warmstart.cu``
-    (one CTA per matrix; N a multiple of 128, contiguous float32) or
+    (one cluster per matrix; N a multiple of 128, contiguous float32) or
     raises."""
     if a_ri.device.type == "cpu":
-        return batched_eig_cold_plain(a_ri, mid, squarings)
+        return batched_eig_cold_plain(a_ri, mid, squarings, stats)
     if a_ri.ndim != 4:
         raise ValueError("a_ri must be (batch, 2, N, N)")
-    lam, _ = _launch(a_ri[:, None], mid, squarings, 0, with_vec=False,
-                     cold=True)
-    batched_eig_cold.launches += 1
+    lam, _, launched = _launch(a_ri[:, None], mid, squarings, 0,
+                               with_vec=False, cold=True, stats=stats)
+    batched_eig_cold.launches += launched
     return lam[:, 0]
 
 

@@ -153,8 +153,8 @@ def test_eigvec_kernel_matches_plain(cuda, n, squarings, iters):
 
 
 def test_eigvec_chains_are_independent_and_deterministic(cuda):
-    """One CTA per chain, fixed-order reductions: a grouped call equals
-    its one-chain calls and a rerun, bit for bit."""
+    """One cluster per chain, fixed-order reductions: a grouped call
+    equals its one-chain calls and a rerun, bit for bit."""
     a = torch.from_numpy(teig.pack_padded(_drift(n=256, neta=6), 256)).to(
         cuda)
     lam, v = teig.batched_eigvec_warmstart(a, 128, iters=64)
@@ -163,6 +163,128 @@ def test_eigvec_chains_are_independent_and_deterministic(cuda):
     for g in range(a.shape[0]):
         lg, vg = teig.batched_eigvec_warmstart(a[g], 128, iters=64)
         assert torch.equal(lg, lam[g]) and torch.equal(vg, v[g])
+
+
+def _crossing(n=256, nsteps=24, eps=0.02, seed=13):
+    """The avoided crossing of chip_smoke.py (tests/test_pallas_eig.py's,
+    background scaled to keep its spectral radius as at n = 32)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n))
+                        + 1j * rng.normal(size=(n, n)))
+    u, w = q[:, 0:1], q[:, 1:2]
+    junk = _hermitian(rng, n, 1)[0] * 0.02 * np.sqrt(32 / n)
+    mats = []
+    for t in np.linspace(0.0, 1.0, nsteps):
+        A = ((2.0 - t) * (u @ np.conj(u.T)) + (1.2 + t) * (w @ np.conj(w.T))
+             + eps * (u @ np.conj(w.T) + w @ np.conj(u.T)) + junk)
+        mats.append((A + np.conj(A.T)) / 2)
+    return np.array(mats)[None]
+
+
+def test_bits_do_not_depend_on_the_launch_plan(cuda):
+    """The same chains inside calls of G = 1, 8, 9 and 32, which the plan
+    runs at different cluster sizes (one cluster of 16; 8 of 8; and 32
+    as 30 chains at C = 4 then 2 at C = 16 on an H100), give the same
+    bits for λ, and for the eigenvector entry for λ and v: the kernel's
+    arithmetic order depends on N alone."""
+    a = torch.from_numpy(teig.pack_padded(_drift(n=256, B=32, neta=4,
+                                                 seed=3), 256)).to(cuda)
+    plans = {}
+    stats = {}
+    lam = teig.batched_eig_warmstart(a, 128, stats=stats)
+    plans[32] = stats["plan"]
+    lam_v, v = teig.batched_eigvec_warmstart(a, 128, iters=16)
+    for G in (1, 8, 9):
+        sub = a[:G].contiguous()
+        stats = {}
+        assert torch.equal(teig.batched_eig_warmstart(sub, 128, stats=stats),
+                           lam[:G]), G
+        plans[G] = stats["plan"]
+        lg, vg = teig.batched_eigvec_warmstart(sub, 128, iters=16)
+        assert torch.equal(lg, lam_v[:G]) and torch.equal(vg, v[:G]), G
+    last = a[31:].contiguous()
+    assert torch.equal(teig.batched_eig_warmstart(last, 128), lam[31:])
+    clusters = {tuple((p["chains"], p["cluster"]) for p in plan)
+                for plan in plans.values()}
+    assert len(clusters) >= 2, plans
+
+
+def test_cold_restart_mid_chain_matches_plain(cuda):
+    """The crossing batch restarts cold in the middle of its chain (the
+    kernel's per-chain count says so); where the gap λ₁ − λ₂ is ≥ 5% of
+    λ₁ the kernel equals the plain version to rtol 1e-4, and at the
+    near-degenerate points it equals plain or lies within [λ₂, λ₁]
+    (1e-4·λ₁ slack), as chip_smoke.py's gate."""
+    mats = _crossing()
+    a = torch.from_numpy(teig.pack_padded(mats, 256)).to(cuda)
+    stats, pstats = {}, {}
+    kern = teig.batched_eig_warmstart(a, 128, stats=stats)[0].cpu().numpy()
+    plain = teig.batched_eig_warmstart_plain(a, 128,
+                                             stats=pstats)[0].cpu().numpy()
+    assert int(stats["cold_per_chain"][0]) == stats["cold"] >= 2
+    assert pstats["cold"] >= 2
+    ev = np.sort(np.linalg.eigvalsh(mats[0]), axis=-1)
+    l1, l2 = ev[:, -1], ev[:, -2]
+    near = (l1 - l2) < 0.05 * np.abs(l1)
+    np.testing.assert_allclose(kern[~near], plain[~near], rtol=1e-4)
+    slack = 1e-4 * np.abs(l1)
+    inside = (kern >= l2 - slack) & (kern <= l1 + slack)
+    same = np.abs(kern - plain) <= 1e-4 * np.abs(plain)
+    assert np.all((inside | same)[near])
+
+
+@pytest.mark.parametrize("n", [128, 384, 768])
+def test_plans_match_plain(cuda, n):
+    """N = 128 (8 rows per CTA at C = 16), N = 384 and N = 768, where no
+    cluster size holds the band and the kernel reads it from L2: λ of
+    both warm entries within rtol 1e-4 of plain, v correlated > 0.9999."""
+    a = torch.from_numpy(teig.pack_padded(_drift(n=n, B=3, neta=5), n)).to(
+        cuda)
+    stats = {}
+    kern = teig.batched_eig_warmstart(a, n // 2, stats=stats)
+    assert (stats["plan"][0]["nbuf"] == 0) == (n == 768)
+    plain = teig.batched_eig_warmstart_plain(a, n // 2)
+    np.testing.assert_allclose(kern.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-4)
+    lam_k, v_k = teig.batched_eigvec_warmstart(a, n // 2, iters=24)
+    lam_p, v_p = teig.batched_eigvec_warmstart_plain(a, n // 2, iters=24)
+    np.testing.assert_allclose(lam_k.cpu().numpy(), lam_p.cpu().numpy(),
+                               rtol=1e-4)
+    assert _aligned_corr(_vec(v_k), _vec(v_p)).min() > 0.9999
+
+
+def test_cold_start_vector_is_split_tf32_accurate(cuda):
+    """Chains of one at N = 256: v is the cold start's vector itself, not
+    refined by warm steps. On matrices whose top eigenvalue has a clear
+    gap, split TF32 keeps it within 1e-5 (L2) of the plain float32 cold
+    start's, where plain TF32 (one product) lands 1e-4 or more away
+    (tests/test_torch_eig.py::TestSplitTf32Emulation); λ cannot tell the
+    two apart, the vector can. (Where the gap is a few percent, as in a
+    random hermitian matrix, float32 summation order alone moves the
+    vector by a few 1e-5.)"""
+    n = 256
+    mats = _drift(n=n, B=4, neta=2, seed=11).reshape(8, 1, n, n)
+    a = torch.from_numpy(teig.pack_padded(mats, n)).to(cuda)
+    stats = {}
+    lam_k, v_k = teig.batched_eigvec_warmstart(a, n // 2, stats=stats)
+    lam_p, v_p = teig.batched_eigvec_warmstart_plain(a, n // 2)
+    assert stats["cold"] == len(mats)
+    gap = (v_k - v_p).double().pow(2).sum(dim=(-2, -1)).sqrt()
+    assert gap.max().item() <= 1e-5, gap
+    np.testing.assert_allclose(lam_k.cpu().numpy(), lam_p.cpu().numpy(),
+                               rtol=1e-4)
+
+
+def test_eig_cold_counts_its_cold_starts(cuda):
+    """The cold-only entry writes one cold start per matrix into the
+    kernel's per-chain count, and its plan into ``stats``."""
+    a = torch.from_numpy(teig.pack_padded(
+        _hermitian(np.random.default_rng(5), 128, 40), 128)).to(cuda)
+    stats = {}
+    teig.batched_eig_cold(a, 64, stats=stats)
+    assert stats["cold"] == 40
+    assert stats["cold_per_chain"].cpu().tolist() == [1] * 40
+    assert sum(p["chains"] for p in stats["plan"]) == 40
 
 
 def test_retrieval_on_card_matches_cpu(cuda):
