@@ -56,10 +56,20 @@ Phases, each of which exits non-zero on failure:
    chunk; ``gerchberg_saxton``;
 6. the survey arc fit at the JAX package's survey width (128 epochs of
    256² → 256 × 512 secondary spectra made on the card, numsteps 2000):
-   the arc-profile kernel against its plain version at (128, 252, 512)
-   × 2000 queries (rtol = atol = 2e-5), ``fit_arc_batch`` timed through
-   the kernel and the device tail, held to the float64 host tail and to
-   the truth, and a bitwise rerun.
+   6.1 the arc-profile kernel, reading the (128, 256, 512) spectra in
+   place (rows 3 … 254, the 3-column cut, the NaN mask), against its
+   plain version at 2000 queries: bitwise equal under its plan, under
+   each forced cluster size at 1, 16, 64 and 128 epochs (each timed with
+   the host queued ahead and by a call's wall) and on its ordinary-load
+   path (a copy of the spectra off 16-byte alignment), with its plan (C,
+   work units seated, launches, the ring's S stages of k rows) and its
+   registers and spills; its ``ms`` is a call's wall by CUDA events, as
+   every kernel's, and ``device_ms`` its device time by
+   ``torch.profiler``; 6.2 ``fit_arc_batch`` timed through the kernel and the
+   device tail, with ``torch.profiler`` over one fit (device time and
+   busy share) and over its profile stage alone (every launch from the
+   spectra to the fold); 6.3 held to the float64 host tail and to the
+   truth, and a bitwise rerun.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -72,8 +82,9 @@ squarings at the rate the kernel runs them, three TF32 products each on
 the tensor cores (``bound_tc_ms``, the same count), and
 ``bound_f32_ms`` every operation at the f32 CUDA-core rate. The arc
 profile runs no tensor-core work and no chains: its ``bound_tc_ms``,
-``bound_f32_ms`` (its ``bound_ms`` is that count), ``cluster`` and
-``cold_starts_max_chain`` are null.
+``bound_f32_ms`` (its ``bound_ms`` is that count) and
+``cold_starts_max_chain`` are null; its ``cluster`` is C of its plan's
+first launch.
 
 Launch counts are taken per path: zeroed just before the timed
 north-star run and read just after it, then zeroed again just before
@@ -327,20 +338,68 @@ def show_plan(name, stats):
     return out
 
 
-def device_kernels(fn):
-    """Run ``fn()`` once under ``torch.profiler``; returns ``[(name,
-    start µs, duration µs)]`` of the device activities it recorded
-    (kernels, copies), empty if the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+def queued_ms(fn, reps):
+    """Mean ms of ``reps`` runs of ``fn()`` back to back on the card with
+    the host out of the way: the card sleeps (≈ 25 ms) while the host
+    queues them, and CUDA events time the runs (their launches and the
+    gaps between them)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    t0.record()
+    for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_kernels(fn, need=None, tries=3):
+    """Run ``fn()`` twice under ``torch.profiler``, the first run a
+    warm-up step it discards, followed by a 0.1 s pause (a fresh trace
+    drops the first launches); returns ``[(name, start µs, duration µs)]``
+    of the device activities of the second run (kernels, copies), empty
+    if the profiler saw no device time. Where ``need`` is given and no
+    activity's name holds it (seen on the H100 after many launches in
+    one process), it traces again, at most ``tries`` times in all, and
+    prints each retry; it fails if the last trace holds none."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(1, tries + 1):
+        events = []
         torch.cuda.synchronize()
-    return sorted((e.name, e.time_range.start, e.time_range.elapsed_us())
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: events.extend(p.events())) \
+                as prof:
+            for step in range(2):
+                fn()
+                torch.cuda.synchronize()
+                if step == 0:
+                    time.sleep(0.1)
+                prof.step()
+        acts = sorted((e.name, e.time_range.start, e.time_range.elapsed_us())
+                      for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith("ProfilerStep"))
+        if need is None or any(need in n for n, _, _ in acts):
+            return acts
+        print(f"    torch.profiler saw no {need} launch in trace {attempt} "
+              f"of at most {tries}", flush=True)
+    fail(f"torch.profiler saw no {need} launch")
+
+
+def device_ms(fn, name, calls):
+    """Device time (ms) per call of kernel ``name``: every launch of it
+    in one run of ``fn()``, which makes ``calls`` calls, summed by
+    :func:`device_kernels` and divided by ``calls`` (a call whose plan
+    has several launches counts them all). For a kernel shorter than the
+    host's cost of a call, which CUDA events around a loop of calls
+    time instead."""
+    times = [d for n, _, d in device_kernels(fn, need=name) if name in n]
+    return sum(times) / calls / 1e3
 
 
 def busy_share(acts):
@@ -569,7 +628,7 @@ def main():
     lap("4b Hough seed")
     ret = retrieval_phase(ds, dev)
     lap("5 retrieval")
-    arc = survey_arc_phase(dev)
+    arc = survey_arc_phase(dev, ptxas)
     lap("6 survey arc fit")
 
     launches_h = hough.pop("launches")
@@ -755,9 +814,10 @@ def hough_phase(prob, bd, eta_true):
             "eta_evo_median_err_those_rows": med_in}
 
 
-def survey_arc_phase(dev):
-    """Phase 6: the survey arc fit at the JAX package's survey width.
-    Returns the arc-profile kernel's entry of the ``kernels`` line (key
+def survey_arc_phase(dev, ptxas):
+    """Phase 6: the survey arc fit at the JAX package's survey width
+    (``ptxas``: phase 1's register and spill lines per source). Returns
+    the arc-profile kernel's entry of the ``kernels`` line (key
     ``kernel``) and the fit's numbers."""
     from scintools_tpu_torch import workloads as W
     from scintools_tpu_torch.ops import arc_profile as AP
@@ -773,33 +833,102 @@ def survey_arc_phase(dev):
           f"made on the card in {time.perf_counter() - t0:.2f} s, numsteps "
           f"{numsteps}", flush=True)
 
-    # 6.1 the kernel against its plain version at the path's shapes
+    # 6.1 the kernel against its plain version at the path's shapes: the
+    # spectra read in place (rows 3 … 254, the 3-column cut, NaN mask)
     etamin = (tdel[1] - tdel[0]) * 3 / np.max(fdop) ** 2   # the default
     fn = make_arc_profile_batch_fn(tdel, fdop, startbin=3, cutmid=3,
                                    numsteps=numsteps, device=dev)
     args = fn.kernel_args(s_dev, np.full(B, etamin))
-    R, nc = args[0].shape[1:]
-    Q = args[3].shape[0]
+    spectra, scales, fq, _, cut, _, _, fmax = args
+    nc = spectra.shape[2]
+    R, Q = scales.shape[1], fq.shape[0]
     AP.arc_profile(*args)                                  # warm-ups
-    AP.arc_profile_plain(*args)
+    AP.arc_profile_rows_plain(*args)
+    kstats = {}
+    AP.arc_profile(*args, stats=kstats)
+    # a call's wall by CUDA events around a loop of calls, as every
+    # kernel's ``ms``; the kernel's device time per call by torch.profiler
+    # (the wrapper's host cost is of the kernel's order)
     kern, ms = timed(lambda: AP.arc_profile(*args), reps=20)
-    plain, plain_ms = timed(lambda: AP.arc_profile_plain(*args))
+
+    def calls(n, *a, **kw):
+        return lambda: [AP.arc_profile(*a, **kw) for _ in range(n)]
+
+    dev_ms = device_ms(calls(20, *args), "arc_profile_kernel", 20)
+    plain, plain_ms = timed(lambda: AP.arc_profile_rows_plain(*args))
     err = (kern - plain).abs()
     max_abs = err.max().item()
     max_rel = (err / plain.abs().clamp_min(1e-30)).max().item()
-    n_bad = int((err > 2e-5 + 2e-5 * plain.abs()).sum())
-    nbytes = 2 * B * R * nc * 4 + B * R * 4 + Q * 4 + B * Q * 4
+    bitwise = torch.equal(kern, plain)
+    # the kernel's second path: a copy of the spectra 4 bytes off 16-byte
+    # alignment, whose rows the producer warp loads without bulk copies
+    flat = torch.empty(spectra.numel() + 1, device=dev)
+    shifted = flat[1:].view(spectra.shape)
+    shifted.copy_(spectra)
+    lstats = {}
+    got = AP.arc_profile(shifted, *args[1:], stats=lstats)
+    check(not lstats["plan"][0]["bulk"] and torch.equal(got, plain),
+          "arc_profile's ordinary-load path differs from its plain version")
+    loads_ms = device_ms(calls(10, shifted, *args[1:]),
+                         "arc_profile_kernel", 10)
+    del flat, shifted, got
+    # every cluster size on the first nb epochs, in turns: the same bits;
+    # a call (every launch of its plan) with the host queued ahead, which
+    # the card's time paces, and a call's wall, which the host may pace
+    sweep = {}
+    for nb in (1, 16, 64, B):
+        a_b = (spectra[:nb], scales[:nb], *args[2:])
+        bstats = {}
+        AP.arc_profile(*a_b, stats=bstats)
+        dev_c = {c: [] for c in AP.CLUSTERS}
+        wall_c = {c: [] for c in AP.CLUSTERS}
+        for _ in range(2):
+            for c in AP.CLUSTERS:
+                check(torch.equal(AP.arc_profile(*a_b, cluster=c),
+                                  plain[:nb]),
+                      f"arc_profile at B = {nb}, C = {c} differs from its "
+                      "plain version")
+                dev_c[c].append(queued_ms(
+                    lambda: AP.arc_profile(*a_b, cluster=c), reps=10))
+                wall_c[c].append(timed(
+                    lambda: AP.arc_profile(*a_b, cluster=c), reps=10)[1])
+        sweep[nb] = {"plan_cluster": bstats["plan"][0]["cluster"],
+                     "queued_ms": {c: min(t) for c, t in dev_c.items()},
+                     "wall_ms": {c: min(t) for c, t in wall_c.items()}}
+        print(f"    arc_profile B={nb} (plan C={sweep[nb]['plan_cluster']}),"
+              " by forced C, queued / a call's wall, ms per call (best of "
+              "2 x 10): " + ", ".join(
+                  f"C={c} {sweep[nb]['queued_ms'][c]:.4f} / "
+                  f"{sweep[nb]['wall_ms'][c]:.4f}" for c in AP.CLUSTERS),
+              flush=True)
+    nbytes = B * R * nc * 4 + B * R * 4 + Q * 4 + B * Q * 4
     flops = 20 * B * R * Q
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"    arc_profile {(B, R, nc)} x {Q} queries: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"max |k-p| {max_abs:.3e}, max rel {max_rel:.3e}, bitwise equal "
-          f"{torch.equal(kern, plain)}", flush=True)
-    check(n_bad == 0, f"arc_profile differs from its plain version at "
-          f"{n_bad} points (rtol = atol = 2e-5)")
-    del kern, plain, args
+    inside = float(((scales[:, :, None] * fq).abs() <= AP._f32(fmax))
+                   .float().mean())
+    plan = kstats["plan"]
+    print("    arc_profile plan: " + "; ".join(
+        f"{p['epochs']} epochs at C={p['cluster']} (seats {p['resident']}, "
+        f"{p['passes']} pass(es), {p['warps']} consumer warps + 1 producer, "
+        f"ring of S={p['stages']} stages of k={p['rows']} rows, {p['smem']} "
+        f"B smem/CTA, bulk copies {p['bulk']}, out-of-support queries "
+        f"skipped {p['skip']})" for p in plan)
+        + f"; {len(plan)} launch(es); ptxas: "
+        + " | ".join(ptxas.get("arc_profile", ["(built earlier)"])),
+        flush=True)
+    print(f"    arc_profile {(B, R, nc)} of {tuple(spectra.shape)}, cut "
+          f"{cut}, x {Q} queries: kernel {ms:.4f} ms (a call's wall, mean "
+          f"of 20; device {dev_ms:.4f} ms a call), plain {plain_ms:.3f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP); rows by ordinary loads "
+          f"{loads_ms:.4f} ms device; (r, q) inside the support "
+          f"{inside:.4f}; max |k-p| "
+          f"{max_abs:.3e}, max rel {max_rel:.3e}, bitwise equal {bitwise}",
+          flush=True)
+    check(bitwise, "arc_profile differs from its plain version")
+    del kern, plain
 
     # 6.2 the whole fit through the kernel and the device tail: one run
     # counted, three timed
@@ -818,6 +947,33 @@ def survey_arc_phase(dev):
           f"({B / fit_ms * 1e3:.1f} epochs/s); arc_profile launches "
           f"{launches}", flush=True)
     check(launches > 0, "fit_arc_batch never launched arc_profile")
+    # where the fit's time goes, by torch.profiler: the whole fit, then
+    # its profile stage (the fit's own call: spectra → scales → kernel →
+    # fold) alone
+    acts = device_kernels(fit, need="arc_profile_kernel")
+    fit_share = busy_share(acts)
+    fit_dev_ms = sum(d for _, _, d in acts) / 1e3
+    window_ms = ((max(t + d for _, t, d in acts)
+                  - min(t for _, t, _ in acts)) / 1e3 if acts else None)
+    kern_us = [d for name, _, d in acts if "arc_profile" in name]
+    prof_fn = make_arc_profile_batch_fn(tdel, fdop, startbin=3, cutmid=3,
+                                        numsteps=numsteps, fold=True,
+                                        device=dev)
+    e_dev = torch.full((B,), etamin, dtype=torch.float64, device=dev)
+    stage = sorted(device_kernels(lambda: prof_fn(s_dev, e_dev),
+                                  need="arc_profile_kernel"),
+                   key=lambda a: a[1])
+    stage_ms = sum(d for _, _, d in stage) / 1e3
+    print(f"    torch.profiler, one fit: {len(acts)} device activities, "
+          f"{fit_dev_ms:.3f} ms of device time in a {window_ms} ms window "
+          f"from the first to the last, busy share "
+          f"{fit_share if fit_share is None else round(fit_share, 4)}; "
+          f"arc_profile {[round(d / 1e3, 4) for d in kern_us]} ms of it",
+          flush=True)
+    print(f"    profile stage alone: {len(stage)} device activities, "
+          f"{stage_ms:.4f} ms: " + "; ".join(
+              f"{name[:100]} {d / 1e3:.4f}" for name, _, d in stage),
+          flush=True)
 
     # 6.3 against the float64 host tail on the same profile, the truth,
     # and a rerun
@@ -850,12 +1006,21 @@ def survey_arc_phase(dev):
         "replaces": "scintools_tpu/ops/arc_pallas.py:50",
         "launches": launches, "launches_survey_arc_fit": launches,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bitwise_equal_plain": bitwise,
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
         "bound_by": bound_by, "bound_tc_ms": None, "bound_f32_ms": None,
-        "library_ms": None, "cluster": None, "cold_starts_max_chain": None,
+        "library_ms": None, "cluster": plan[0]["cluster"], "plan": plan,
+        "by_epochs_and_cluster": sweep, "loads_path_device_ms": loads_ms,
+        "inside_support": inside,
+        "cold_starts_max_chain": None,
         "library_note": "no single PyTorch call computes this function",
-        "shape": [B, R, nc, Q]},
+        "shape": [B, R, nc, Q], "spectra_shape": list(spectra.shape)},
         "fit_ms": fit_ms, "epochs_per_s": B / fit_ms * 1e3,
+        "fit_device_busy_share": fit_share, "fit_device_ms": fit_dev_ms,
+        "fit_device_window_ms": window_ms, "fit_device_activities": len(acts),
+        "profile_stage_ms": stage_ms,
+        "profile_stage": [[name, d / 1e3] for name, _, d in stage],
         "eta_rel_vs_host_tail": d_eta, "etaerr_rel_vs_host_tail": d_err,
         "eta_vs_truth_median": med, "n_finite": int(fin.sum())}
 

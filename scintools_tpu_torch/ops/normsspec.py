@@ -115,10 +115,12 @@ def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
     zero and the output is ``[B, numsteps//2]`` over the fdopnew ≥ 0
     bins.
 
-    A uniform Doppler grid goes through :func:`~.arc_profile.arc_profile`
-    (the kernel on a CUDA device, its plain version on the CPU); any
-    other grid through the ``jnp.interp``-semantics row interpolation.
-    ``fn.kernel_args(sspecs, etas)`` gives the kernel's arguments."""
+    A uniform Doppler grid goes through one call of
+    :func:`~.arc_profile.arc_profile` (the kernel on a CUDA device, which
+    reads the rows, the NaN mask and the cut in place; its plain version
+    on the CPU); any other grid through the ``jnp.interp``-semantics row
+    interpolation. ``fn.kernel_args(sspecs, etas)`` gives the kernel's
+    arguments."""
     dev = resolve_device(device)
     tdel = np.asarray(tdel, dtype=float)
     fdop = np.asarray(fdop, dtype=float)
@@ -126,8 +128,11 @@ def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
     ind = int(np.argmin(np.abs(tdel - delmax)))
     tdel_c = tdel[startbin:ind]
     nc = len(fdop)
-    cut = (slice(int(nc / 2 - np.floor(cutmid / 2)),
-                 int(nc / 2 + np.floor(cutmid / 2))) if cutmid > 0 else None)
+    # the cut columns [c0, c1), as the slice of the JAX package selects
+    c0, c1 = slice(int(nc / 2 - np.floor(cutmid / 2)),
+                   int(nc / 2 + np.floor(cutmid / 2))).indices(nc)[:2] \
+        if cutmid > 0 else (0, 0)
+    cut = (c0, max(c0, c1))
     numsteps = int(numsteps) + int(numsteps) % 2
     fdopnew = np.linspace(-maxnormfac, maxnormfac, numsteps)
     uniform = _is_uniform(fdop)
@@ -142,26 +147,25 @@ def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
     neg = torch.as_tensor(np.flatnonzero(fdopnew < 0)[::-1].copy(),
                           device=dev)
 
-    def rows(sspecs, etas):
-        """The cropped rows (NaN in the cut) and ``√(tdel_r/η_b)``."""
-        s = as_tensor(sspecs, dev)[:, startbin:ind, :]
-        if cut is not None:
-            s = s.clone()
-            s[:, :, cut] = float("nan")
-        return s, torch.sqrt(tdel_t[None, :]
-                             / as_tensor(etas, dev, torch.float64)[:, None])
+    def scales_of(etas):
+        """``√(tdel_r/η_b)`` in float64."""
+        return torch.sqrt(tdel_t[None, :]
+                          / as_tensor(etas, dev, torch.float64)[:, None])
 
     def kernel_args(sspecs, etas):
-        """The arguments :func:`~.arc_profile.arc_profile` gets."""
-        s, scales = rows(sspecs, etas)
-        good = ~torch.isnan(s)
-        return (torch.where(good, s, 0.0).contiguous(), good.to(REAL),
-                scales.to(REAL).contiguous(), fq, f0, dfd, fmax, nc)
+        """The arguments :func:`~.arc_profile.arc_profile` gets: the
+        spectra as they are and the scales rounded once to float32."""
+        return (as_tensor(sspecs, dev), scales_of(etas).to(REAL), fq,
+                startbin, cut, f0, dfd, fmax)
 
     def base(sspecs, etas):
         if uniform:
             return arc_profile(*kernel_args(sspecs, etas))
-        s, scales = rows(sspecs, etas)
+        s = as_tensor(sspecs, dev)[:, startbin:ind, :]
+        if cut[1] > cut[0]:
+            s = s.clone()
+            s[:, :, cut[0]:cut[1]] = float("nan")
+        scales = scales_of(etas)
         B, R, _ = s.shape
         xq = (scales[:, :, None] * fq64).reshape(B * R, -1)
         norm = _interp_any_grid(xq, fdop64, s.reshape(B * R, nc).double())

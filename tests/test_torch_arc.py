@@ -86,18 +86,51 @@ def _kernel_inputs(sspecs, tdel, fdop, etas, startbin, cutmid):
             good.astype(np.float32), scales.astype(np.float32), tdel_c)
 
 
+def _cut(nc, cutmid):
+    """The cut columns [c0, c1) of the JAX package's slice."""
+    if not cutmid:
+        return (0, 0)
+    return (int(nc / 2 - cutmid // 2), int(nc / 2 + cutmid // 2))
+
+
+def _surface_inputs(sspecs, tdel, fdop, etas, startbin, numsteps, cutmid):
+    """The kernel's surface (``ops.arc_profile.arc_profile``) built in
+    numpy: the spectra as they are, the scales rounded once to float32,
+    the query grid, the row range, the cut and the float32 constants."""
+    ind = int(np.argmin(np.abs(tdel - np.max(tdel))))
+    scales = np.sqrt(tdel[startbin:ind][None, :] / etas[:, None])
+    fq = np.linspace(-1, 1, numsteps + numsteps % 2)
+    return (torch.from_numpy(sspecs.astype(np.float32)),
+            torch.from_numpy(scales.astype(np.float32)),
+            torch.from_numpy(fq.astype(np.float32)), startbin,
+            _cut(len(fdop), cutmid), float(fdop[0]),
+            float(np.mean(np.diff(fdop))), float(np.max(np.abs(fdop))))
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN where the other is NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+GEOMS = [dict(ntdel=40, nfdop=96, startbin=2, cutmid=3, numsteps=300,
+              etas=(0.01, 0.02, 0.005)),
+         dict(ntdel=24, nfdop=128, startbin=1, cutmid=0, numsteps=130,
+              etas=(0.008, 0.03, 0.015))]
+
+
 class TestArcProfileKernel:
-    """The plain version of the port's kernel against the TPU kernel in
+    """The plain versions of the port's kernel against the TPU kernel in
     interpret mode: rtol = atol = 2e-5, the TPU kernel's own tolerance
     against its XLA base (tests/test_arc_pallas.py:35); both compute in
     float32."""
 
-    @pytest.mark.parametrize("geom", [
-        dict(ntdel=40, nfdop=96, startbin=2, cutmid=3, numsteps=300,
-             etas=(0.01, 0.02, 0.005)),
-        dict(ntdel=24, nfdop=128, startbin=1, cutmid=0, numsteps=130,
-             etas=(0.008, 0.03, 0.015))], ids=["40x96", "24x128"])
+    @pytest.mark.parametrize("geom", GEOMS, ids=["40x96", "24x128"])
     def test_plain_matches_pallas_interpret(self, geom):
+        """``arc_profile_plain`` at the TPU kernel's own surface, and the
+        kernel's wrapper on a CPU tensor (the spectra as they are), which
+        runs the plain version: bit for bit the same, no launch."""
         sspecs, tdel, fdop = _arc_batch(ntdel=geom["ntdel"],
                                         nfdop=geom["nfdop"])
         etas = np.array(geom["etas"])
@@ -110,15 +143,21 @@ class TestArcProfileKernel:
                                               interpret=True)
         padc = ((0, 0), (0, 0), (0, pad))
         ref = np.asarray(kfn(np.pad(s_m, padc), np.pad(good, padc), scales))
-        before = tap.arc_profile.launches
-        got = tap.arc_profile(
+        consts = (fdop[0], np.mean(np.diff(fdop)), np.max(np.abs(fdop)))
+        got = tap.arc_profile_plain(
             torch.from_numpy(s_m), torch.from_numpy(good),
             torch.from_numpy(scales),
-            torch.from_numpy(fdopnew.astype(np.float32)), fdop[0],
-            np.mean(np.diff(fdop)), np.max(np.abs(fdop)), nc).numpy()
-        assert tap.arc_profile.launches == before      # CPU: no kernel
+            torch.from_numpy(fdopnew.astype(np.float32)), *consts, nc)
         assert got.shape == ref.shape == (3, geom["numsteps"])
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+        before = tap.arc_profile.launches
+        rows = tap.arc_profile(
+            torch.from_numpy(sspecs.astype(np.float32)),
+            torch.from_numpy(scales), torch.from_numpy(fdopnew.astype(
+                np.float32)), geom["startbin"], _cut(nc, geom["cutmid"]),
+            *consts)
+        assert tap.arc_profile.launches == before      # CPU: no kernel
+        assert _same_bits(rows, got)
 
     @pytest.mark.parametrize("fold", [False, True])
     def test_batch_fn_matches_jax_pallas_batch_fn(self, fold):
@@ -159,6 +198,135 @@ class TestArcProfileKernel:
         got = tns.make_arc_profile_batch_fn(tdel, fdop_nu, device=CPU,
                                             **kw)(sspecs, etas).numpy()
         np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+
+
+class TestArcProfileRows:
+    """The kernel's surface (the spectra read in place, with the row
+    range, the cut and the scales) and its plain version
+    ``arc_profile_rows_plain``."""
+
+    @pytest.mark.parametrize("cutmid", [0, 3], ids=["nocut", "cut3"])
+    @pytest.mark.parametrize("geom", GEOMS, ids=["40x96", "24x128"])
+    def test_rows_plain_matches_jax_pallas_batch_fn(self, geom, cutmid):
+        """Against the JAX package's ``make_arc_profile_batch_fn(
+        pallas=True)`` (the Pallas kernel in interpret mode after its
+        crop, cut and mask): rtol = atol = 2e-5; and the port's batch fn
+        hands the wrapper exactly these arguments."""
+        sspecs, tdel, fdop = _arc_batch(ntdel=geom["ntdel"],
+                                        nfdop=geom["nfdop"])
+        etas = np.array(geom["etas"])
+        kw = dict(startbin=geom["startbin"], cutmid=cutmid,
+                  numsteps=geom["numsteps"])
+        ref = np.asarray(jns.make_arc_profile_batch_fn(
+            tdel, fdop, pallas=True, **kw)(sspecs, etas))
+        args = _surface_inputs(sspecs, tdel, fdop, etas, geom["startbin"],
+                               geom["numsteps"], cutmid)
+        got = tap.arc_profile_rows_plain(*args)
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+        fn = tns.make_arc_profile_batch_fn(tdel, fdop, device=CPU, **kw)
+        made = fn.kernel_args(sspecs, etas)
+        for a, b in zip(made, args):
+            if isinstance(b, torch.Tensor):
+                assert _same_bits(a, b)
+            else:
+                assert a == b
+        assert _same_bits(fn(sspecs, etas), got)
+
+    def test_rows_plain_is_crop_mask_then_plain(self):
+        """Bit for bit the crop, the NaN cut, the mask and
+        ``arc_profile_plain``, on spectra with NaN pixels, ±inf pixels
+        (one on an edge column) and an epoch stride larger than the
+        epoch (a view into a wider array)."""
+        rng = np.random.default_rng(11)
+        B, ntdel, nc, Q = 3, 30, 64, 150
+        wide = 20.0 + 5.0 * rng.standard_normal((B, ntdel + 4, nc))
+        wide[0, 6, 9:12] = np.nan
+        wide[1, 10, 40] = np.inf
+        wide[2, 28, 0] = -np.inf       # the last row: queries clip to it
+        spectra = torch.from_numpy(wide.astype(np.float32))[:, 2:2 + ntdel]
+        assert spectra.stride(0) == (ntdel + 4) * nc
+        startbin, R, cut = 2, 25, (31, 33)
+        scales = torch.from_numpy(np.sqrt(np.linspace(0.3, 9.0, R)[None]
+                                          / np.array([0.01, 0.02, 0.005])
+                                          [:, None]).astype(np.float32))
+        fq = torch.linspace(-1, 1, Q)
+        consts = (-30.0, 60.0 / 63, 30.0)
+        got = tap.arc_profile_rows_plain(spectra, scales, fq, startbin, cut,
+                                         *consts)
+        s = spectra[:, startbin:startbin + R].clone()
+        s[:, :, cut[0]:cut[1]] = float("nan")
+        good = ~torch.isnan(s)
+        want = tap.arc_profile_plain(torch.where(good, s, 0.0),
+                                     good.float(), scales, fq, *consts, nc)
+        assert _same_bits(got, want)
+        assert bool(torch.isnan(got).any()) and bool(torch.isinf(s).any())
+        assert torch.equal(torch.isfinite(got[0]), torch.ones(Q, dtype=bool))
+
+
+def _plan(B, Q=2000, nc=512, seats=132, smem_limit=232448, cluster=None):
+    """``_plan`` against a stubbed card of 132 SMs: ``seats`` work units
+    resident whatever their shape (one CTA an SM by default), the
+    kernel's layout (16 B of barriers per stage, 128-aligned, then the
+    ring) capped at ``smem_limit``."""
+    def smem_bytes(k, S):
+        need = -(-16 * S // 128) * 128 + S * k * nc * 4
+        return need if need <= smem_limit else 0
+
+    return tap._plan(B, Q, nc, smem_bytes, lambda c, w, smem: seats,
+                     (4, 16, 8), cluster)
+
+
+class TestArcProfilePlan:
+    """The launch plan against a stubbed card of 132 SMs."""
+
+    @pytest.mark.parametrize("B", [1, 16, 64, 128, 132, 1000])
+    def test_one_cta_per_epoch_unless_forced(self, B):
+        """C = 1 at every B (on the H100 no C > 1 was faster at 1, 16, 64
+        or 128 epochs): one pass of 16 warps × 32 threads × 4 query slots
+        over 2000 queries, 16 KB copies of 8 rows of 512 floats into a
+        ring of 4 stages; what the card does not seat at once runs in
+        further launches of 132 epochs."""
+        plan = _plan(B)
+        assert {p["cluster"] for p in plan} == {1}
+        assert [p["epochs"] for p in plan] == \
+            [132] * (B // 132) + ([B % 132] if B % 132 else [])
+        for p in plan:
+            assert (p["passes"], p["warps"]) == (1, 16)
+            assert (p["rows"], p["stages"]) == (8, 4)
+            assert p["smem"] == 128 + 4 * 8 * 512 * 4
+            assert p["resident"] == 132
+
+    def test_call_the_card_cannot_seat_in_one_launch(self):
+        """50 work units at once: B = 128 runs as 50, 50 and 28 epochs;
+        forced C = 4 splits each epoch's 2000 queries over 4 CTAs of 16
+        warps (500 a CTA, 16 warps × 32 threads); a card that seats no
+        work unit raises."""
+        plan = _plan(128, seats=50)
+        assert [(p["epochs"], p["cluster"]) for p in plan] == \
+            [(50, 1), (50, 1), (28, 1)]
+        assert all(p["resident"] == 50 for p in plan)
+        p = _plan(128, seats=50, cluster=4)
+        assert [(q["epochs"], q["cluster"]) for q in p] == \
+            [(50, 4), (50, 4), (28, 4)]
+        assert p[0]["warps"] == 16
+        with pytest.raises(RuntimeError):
+            _plan(4, seats=0)
+
+    def test_forced_cluster_many_queries_and_wide_rows(self):
+        plan = _plan(128, cluster=4)
+        assert [(p["epochs"], p["cluster"]) for p in plan] == [(128, 4)]
+        # 10⁴ queries: more than 16 warps × 32 × 4 slots hold, so each
+        # epoch takes 5 passes of 2000 queries
+        p = _plan(128, Q=10 ** 4)[0]
+        assert (p["passes"], p["warps"]) == (5, 16)
+        # rows of 20000 floats: one row a copy, stages shrink until the
+        # ring fits
+        p = _plan(128, nc=20000)[0]
+        assert p["rows"] == 1 and p["stages"] == 2
+        assert p["smem"] == 128 + 2 * 20000 * 4
+        with pytest.raises(ValueError):
+            _plan(128, nc=40000)
 
 
 class TestTwoInterpolations:

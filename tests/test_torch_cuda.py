@@ -352,55 +352,118 @@ def test_eig_cold_refuses_what_it_cannot_take(cuda):
     assert teig.batched_eig_cold.launches == before
 
 
-def _arc_inputs(rng, B, R, nc, Q, device):
-    s = 20.0 + 5.0 * rng.standard_normal((B, R, nc))
-    s[:, :, nc // 2 - 1:nc // 2 + 1] = np.nan
-    s[0, 3, 10:14] = np.nan
-    good = ~np.isnan(s)
+def _arc_inputs(rng, B, ntdel, nc, startbin, R, Q, device, pad=0):
+    """The kernel's surface on ``device``: dB spectra (B, ntdel, nc)
+    with NaN stripes and pixels, a +inf pixel mid-row and a −inf pixel
+    on the first column of the last row (where out-of-support queries
+    clip), a cut of 3 central columns, scales, the query grid and the
+    float32 constants. ``pad`` extra rows per epoch make the spectra a
+    view with a larger epoch stride."""
+    s = 20.0 + 5.0 * rng.standard_normal((B, ntdel + pad, nc))
+    s[:, :, nc // 4:nc // 4 + 2] = np.nan
+    s[0, startbin + 3, 10:14] = np.nan
+    s[-1, startbin + R // 2, nc // 3] = np.inf
+    s[0, startbin + R - 1, 0] = -np.inf
     fdop = np.linspace(-30.0, 30.0, nc)
-    tdel = np.linspace(0.5, 12.0, R)
+    # the far rows leave |fq| > 0.6 outside the support
+    tdel = np.linspace(0.5, 48.0, R)
     scales = np.sqrt(tdel[None] / rng.uniform(0.005, 0.02, B)[:, None])
 
     def t(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
-    args = (t(np.where(good, s, 0.0)), t(good), t(scales),
-            t(np.linspace(-1, 1, Q)))
-    return args, (fdop[0], float(np.mean(np.diff(fdop))),
-                  float(np.max(np.abs(fdop))), nc)
+    spectra = t(s)[:, :ntdel]
+    cut = (nc // 2 - 1, nc // 2 + 2)
+    return (spectra, t(scales), t(np.linspace(-1, 1, Q)), startbin, cut,
+            float(fdop[0]), float(np.mean(np.diff(fdop))),
+            float(np.max(np.abs(fdop))))
 
 
-@pytest.mark.parametrize("B, R, nc, Q", [(3, 40, 96, 300), (2, 24, 128, 130),
-                                         (5, 252, 512, 2000)])
-def test_arc_profile_kernel_matches_plain(cuda, B, R, nc, Q):
-    """rtol = atol = 2e-5 (tests/test_arc_pallas.py:35); both round
-    every operation once in the same order, so they agree far closer
-    than that. A rerun is bitwise equal; one launch per call."""
-    args, consts = _arc_inputs(np.random.default_rng(Q), B, R, nc, Q, cuda)
+def _same_bits(a, b):
+    """Equal bit for bit, NaN where the other is NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+@pytest.mark.parametrize("B, ntdel, nc, startbin, R, Q", [
+    (3, 44, 96, 2, 39, 300),       # R not a multiple of the rows a copy
+    (2, 26, 128, 1, 23, 130),
+    (5, 256, 512, 3, 252, 1999),   # Q not a multiple of the threads
+    (1, 256, 510, 3, 252, 2000),   # nc % 4 != 0: ordinary loads; B = 1
+    (4, 40, 61, 0, 40, 517)])
+def test_arc_profile_kernel_matches_plain(cuda, B, ntdel, nc, startbin, R,
+                                          Q):
+    """Bit for bit the plain version (both round every operation once in
+    the same order and sum each query in row order), with NaN pixels,
+    the cut, and ±inf pixels; a rerun is bitwise equal; the plan's
+    launches are counted."""
+    args = _arc_inputs(np.random.default_rng(Q), B, ntdel, nc, startbin, R,
+                       Q, cuda)
     before = tap.arc_profile.launches
-    kern = tap.arc_profile(*args, *consts)
-    again = tap.arc_profile(*args, *consts)
-    plain = tap.arc_profile_plain(*args, *consts)
+    stats = {}
+    kern = tap.arc_profile(*args, stats=stats)
+    again = tap.arc_profile(*args)
+    plain = tap.arc_profile_rows_plain(*args)
     torch.cuda.synchronize()
-    assert tap.arc_profile.launches == before + 2
-    assert torch.equal(kern, again)
-    np.testing.assert_allclose(kern.cpu().numpy(), plain.cpu().numpy(),
-                               rtol=2e-5, atol=2e-5)
+    assert tap.arc_profile.launches == before + 2 * len(stats["plan"])
+    assert [p["bulk"] for p in stats["plan"]] == [nc % 4 == 0]
+    assert _same_bits(kern, again)
+    assert _same_bits(kern, plain)
+    assert bool(torch.isnan(kern).any()) and bool(torch.isinf(kern).any())
+
+
+@pytest.mark.parametrize("nc, pad", [(512, 0), (510, 0), (512, 3)],
+                         ids=["bulk", "loads", "stride"])
+def test_arc_profile_bits_do_not_depend_on_the_cluster(cuda, nc, pad):
+    """Forced C = 1, 2, 4 and 8 (multicast where rows arrive by bulk
+    copy) give the same bits as the default plan and the plain version:
+    each query is summed by one thread in row order whatever C. Also on
+    a view whose epoch stride is not the epoch's size."""
+    args = _arc_inputs(np.random.default_rng(nc), 12, 256, nc, 3, 252, 2000,
+                       cuda, pad=pad)
+    assert args[0].stride(0) == (256 + pad) * nc
+    want = tap.arc_profile_rows_plain(*args)
+    for c in (None, 1, 2, 4, 8):
+        stats = {}
+        got = tap.arc_profile(*args, cluster=c, stats=stats)
+        assert _same_bits(got, want), c
+        if c is not None:
+            assert {p["cluster"] for p in stats["plan"]} == {c}
+
+
+def test_arc_profile_query_passes(cuda):
+    """5000 queries at C = 1 and 2 need 3 and 2 work units per epoch
+    (2048 query slots a CTA): the same bits as the plain version."""
+    args = _arc_inputs(np.random.default_rng(4), 3, 30, 64, 2, 27, 5000,
+                       cuda)
+    want = tap.arc_profile_rows_plain(*args)
+    for c, passes in ((1, 3), (2, 2)):
+        stats = {}
+        assert _same_bits(tap.arc_profile(*args, cluster=c, stats=stats),
+                          want)
+        assert stats["plan"][0]["passes"] == passes
 
 
 def test_arc_profile_refuses_what_it_cannot_take(cuda):
-    args, consts = _arc_inputs(np.random.default_rng(1), 2, 8, 64, 50, cuda)
-    s, good, scales, fq = args
+    s, scales, fq, startbin, cut, *consts = _arc_inputs(
+        np.random.default_rng(1), 2, 12, 64, 1, 8, 50, cuda)
     before = tap.arc_profile.launches
+    bad = [
+        (s.double(), scales, fq, startbin, cut),            # dtype
+        (s, scales.cpu(), fq, startbin, cut),                # device
+        (s, scales[:1], fq, startbin, cut),                  # B differs
+        (s.transpose(1, 2).contiguous().transpose(1, 2), scales, fq,
+         startbin, cut),                                     # strided rows
+        (s, scales, fq[None], startbin, cut),                # fq not (Q,)
+        (s, scales, fq, 5, cut),                             # rows past end
+        (s, scales, fq, startbin, (40, 70)),                 # cut past end
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tap.arc_profile(*args, *consts)
     with pytest.raises(ValueError):
-        tap.arc_profile(s.double(), good, scales, fq, *consts)
-    with pytest.raises(ValueError):
-        tap.arc_profile(s.transpose(1, 2).contiguous().transpose(1, 2),
-                        good, scales, fq, *consts)
-    with pytest.raises(ValueError):
-        tap.arc_profile(s, good, scales.cpu(), fq, *consts)
-    with pytest.raises(ValueError):
-        tap.arc_profile(s, good[:, :4], scales, fq, *consts)
+        tap.arc_profile(s, scales, fq, startbin, cut, *consts, cluster=3)
     assert tap.arc_profile.launches == before
 
 
