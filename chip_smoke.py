@@ -103,6 +103,7 @@ last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -630,15 +631,21 @@ def main():
     lap("5 retrieval")
     arc = survey_arc_phase(dev, ptxas)
     lap("6 survey arc fit")
+    one = single_chunk_phase(ds, prob, bd, eta_true, ret.pop("rgap"), dev)
 
     launches_h = hough.pop("launches")
+    launches_1 = one.pop("launches_single_chunk")
+    launches_r = one.pop("launches_one_chunk_rows")
     print(json.dumps({"kernels": [{
         "name": "eig_warmstart", "route": "cuda",
         "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
         "replaces": "scintools_tpu/thth/pallas_eig.py:217",
-        "launches": launches_ns + launches_f + launches_h,
+        "launches": launches_ns + launches_f + launches_h + launches_1
+        + launches_r,
         "launches_north_star": launches_ns, "launches_facade": launches_f,
         "launches_hough_facade": launches_h,
+        "launches_single_chunk": launches_1,
+        "launches_one_chunk_rows": launches_r,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -657,7 +664,8 @@ def main():
         "north_star_ms": ns_ms, "north_star_stage_ms": stages,
         "north_star_device_busy_share": share,
         "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
-        "phase_s": PHASE_S}), flush=True)
+        "single_chunk_and_retrieval": one, "phase_s": PHASE_S}),
+        flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": card,
@@ -943,10 +951,52 @@ def survey_arc_phase(dev, ptxas):
     _, fit_ms = timed(fit, reps=3)
     eta = np.array([f.eta for f in fits])
     err_ = np.array([f.etaerr for f in fits])
+
+    # the same fit rebuilding its function and grids on every call, as
+    # before the per-geometry cache: the cache's gain, with the same bits.
+    # The two alternate (cached, rebuilt, rebuilt, cached, twice), 5 calls
+    # a round; beside them the build alone on the host clock
+    def uncached():
+        F._ARC_FIT_CACHE.clear()
+        return fit()
+
+    builds = F.ARC_FIT_CACHE_STATS["builds"]
+    fits_u = uncached()
+    same = np.array_equal(np.array([[f.eta, f.etaerr, f.etaerr2]
+                                    for f in fits_u]),
+                          np.array([[f.eta, f.etaerr, f.etaerr2]
+                                    for f in fits]), equal_nan=True)
+    rounds = {fit: [], uncached: []}
+    for fn in (fit, uncached, uncached, fit) * 2:
+        rounds[fn].append(timed(fn, reps=5)[1])
+    rebuilt = F.ARC_FIT_CACHE_STATS["builds"] - builds
+    cached_ms, uncached_ms = min(rounds[fit]), min(rounds[uncached])
+    build_s = []
+    for _ in range(5):
+        F._ARC_FIT_CACHE.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F._arc_fit_fn(np.asarray(tdel, float), np.asarray(fdop, float),
+                      np.max(tdel), 3, 3, numsteps, 5, -1, -0.5,
+                      (0, np.inf), True, True, dev)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+    build_ms = min(build_s) * 1e3
+    fit()
+    builds = F.ARC_FIT_CACHE_STATS["builds"]
+    fit()
     print(f"    fit_arc_batch: {fit_ms:.3f} ms, mean of 3 "
           f"({B / fit_ms * 1e3:.1f} epochs/s); arc_profile launches "
-          f"{launches}", flush=True)
+          f"{launches}. In turns, best of 4 rounds of 5 calls: cached "
+          f"{cached_ms:.3f} ms (rounds {[round(t, 3) for t in rounds[fit]]}),"
+          f" rebuilt every call {uncached_ms:.3f} ms (rounds "
+          f"{[round(t, 3) for t in rounds[uncached]]}, {rebuilt} builds); "
+          f"the build alone {build_ms:.3f} ms (host clock, best of 5); "
+          f"same bits {same}", flush=True)
     check(launches > 0, "fit_arc_batch never launched arc_profile")
+    check(same, "the cached fit's bits differ from a fresh build's")
+    check(F.ARC_FIT_CACHE_STATS["builds"] == builds,
+          "a repeated fit_arc_batch call built its function again")
     # where the fit's time goes, by torch.profiler: the whole fit, then
     # its profile stage (the fit's own call: spectra → scales → kernel →
     # fold) alone
@@ -1017,12 +1067,285 @@ def survey_arc_phase(dev, ptxas):
         "library_note": "no single PyTorch call computes this function",
         "shape": [B, R, nc, Q], "spectra_shape": list(spectra.shape)},
         "fit_ms": fit_ms, "epochs_per_s": B / fit_ms * 1e3,
+        "fit_cached_ms": cached_ms, "fit_uncached_ms": uncached_ms,
+        "fit_build_ms": build_ms,
         "fit_device_busy_share": fit_share, "fit_device_ms": fit_dev_ms,
         "fit_device_window_ms": window_ms, "fit_device_activities": len(acts),
         "profile_stage_ms": stage_ms,
         "profile_stage": [[name, d / 1e3] for name, _, d in stage],
         "eta_rel_vs_host_tail": d_eta, "etaerr_rel_vs_host_tail": d_err,
         "eta_vs_truth_median": med, "n_finite": int(fin.sum())}
+
+
+def single_chunk_phase(ds, prob, bd, eta_true, rgap, dev):
+    """Phase 7 on the fitted façade ``ds`` of phase 4 (after phase 5,
+    whose dense ``eigh`` chunks are ``ds.chunks`` and whose θ-θ gap per
+    retrieval chunk is ``rgap``): the single-chunk search with the
+    warm-start kernel at B = 1, the façade's one-chunk-per-row fit,
+    ``calc_asymmetry``, the retrieval routes without the chained kernel
+    (one chunk, ``'power'``, VLBI), ``refine_mosaic`` and the ``memmap``
+    route. Returns its numbers (keys ``launches_single_chunk`` and
+    ``launches_one_chunk_rows``: eig_warmstart in its two paths)."""
+    import tempfile
+
+    from scintools_tpu_torch import BasicDyn, Dynspec
+    from scintools_tpu_torch.thth import core as C
+    from scintools_tpu_torch.thth import eig as E
+    from scintools_tpu_torch.thth import retrieval as R
+    from scintools_tpu_torch.thth import search as S
+
+    out = {}
+    # 7.1 one chunk: single_search on the card, the η grid as one chain
+    cf, ct = min(3, ds.ncf_fit - 1), min(4, ds.nct_fit - 1)
+    print(f"[7.1] thetatheta_single({cf}, {ct}): one {ds.cwf}x{ds.cwt} "
+          f"chunk, {ds.neta} η, {len(ds.edges)} edges", flush=True)
+    ds.thetatheta_single(cf, ct)                          # warm-up
+    E.batched_eig_warmstart.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ds.thetatheta_single(cf, ct)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    launches_1 = E.batched_eig_warmstart.launches
+    res_p = ds.thetatheta_single(cf, ct, eig="plain")
+    # the stage's pieces on the same chunk: the gather, then the kernel
+    # with its plan and cold starts, against plain
+    dspec2, freq2, time2 = ds._chunk(cf, ct)
+    etas, edges = ds._thth_row_geometry(freq2)
+    CS, tau, fd = S.chunk_conjugate_spectrum(dspec2, time2, freq2,
+                                             npad=ds.npad)
+    ev = C.make_eval_fn(tau, fd, edges, method="auto", device=dev).multi
+    a = ev.gather(torch.as_tensor(C.cs_to_ri(CS)[None], dtype=torch.float32,
+                                  device=dev), etas)
+    mid = ev.n_th // 2
+    kstats = {}
+    E.batched_eig_warmstart(a, mid, stats=kstats)
+    kern, k_ms = timed(lambda: E.batched_eig_warmstart(a, mid), reps=3)
+    pstats = {}
+    plain, p_ms = timed(lambda: E.batched_eig_warmstart_plain(
+        a, mid, stats=pstats))
+    plan = show_plan("eig_warmstart at B = 1", kstats)
+    max_abs, max_rel, n_near = compare(
+        f"(7.1) one chain of {a.shape[1]} η", kern, plain, top2(a),
+        rtol=1e-3)
+    d_plain = abs(res.eta / res_p.eta - 1)
+    d_fused = abs(res.eta / ds.eta_evo[cf, ct] - 1)
+    b_ms, b_by, _ = eig_bound_ms(a.shape[1], a.shape[-1], pstats["cold"])
+    print(f"    wall {single_s * 1e3:.3f} ms; eig_warmstart launches "
+          f"{launches_1}; η {res.eta:.6g} (plain {res_p.eta:.6g}, rel "
+          f"{d_plain:.3e}; phase 4's fused {ds.eta_evo[cf, ct]:.6g}, rel "
+          f"{d_fused:.3e}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}) for {tuple(a.shape)}", flush=True)
+    check(launches_1 > 0, "thetatheta_single never launched eig_warmstart")
+    check(res.ok == 0 and np.isfinite(res.eta), "one chunk not healthy")
+    check(d_plain <= 1e-3, "one chunk: η differs from the plain eigensolver")
+    check(d_fused <= 1e-2, "one chunk: η differs from phase 4's fused η")
+    out.update(launches_single_chunk=launches_1,
+               single_chunk_ms=single_s * 1e3,
+               single_chunk_eta=res.eta, single_chunk_eta_rel_vs_plain=d_plain,
+               single_chunk_eta_rel_vs_fused=d_fused,
+               single_chunk_kernel_ms=k_ms, single_chunk_plain_ms=p_ms,
+               single_chunk_bound_ms=b_ms, single_chunk_max_rel=max_rel,
+               single_chunk_near_degenerate=n_near,
+               single_chunk_plan=plan["plan"],
+               single_chunk_cold_starts=kstats["cold"],
+               single_chunk_cold_starts_plain=pstats["cold"])
+    del a, kern, plain
+    lap("7.1 one chunk")
+
+    # 7.2 one chunk per row: the façade's serial route at full width
+    print(f"[7.2] fit_thetatheta, one {ds.cwf} x {ds.dyn.shape[1]} chunk "
+          "per row", flush=True)
+    d1 = Dynspec(dyn=bd, process=False, verbose=False)
+    d1.prep_thetatheta(cwf=ds.cwf, npad=ds.npad, eta_min=0.5 * eta_true,
+                       eta_max=2 * eta_true, neta=ds.neta,
+                       nedge=len(ds.edges), edges_lim=prob["th_lim"])
+    E.batched_eig_warmstart.launches = 0
+    t0 = time.perf_counter()
+    d1.fit_thetatheta()
+    torch.cuda.synchronize()
+    rows_s = time.perf_counter() - t0
+    launches_2 = E.batched_eig_warmstart.launches
+    th_k, evo_k = d1.ththeta, d1.eta_evo.copy()
+    t0 = time.perf_counter()
+    d1.fit_thetatheta(eig="plain")
+    rows_plain_s = time.perf_counter() - t0
+    th_rel = abs(th_k / d1.ththeta - 1)
+    th_err = (th_k - eta_true) / eta_true
+    print(f"    {d1.ncf_fit}x{d1.nct_fit} chunks; wall {rows_s:.3f} s "
+          f"(plain {rows_plain_s:.3f} s); eig_warmstart launches "
+          f"{launches_2}; ththeta {th_k:.6g} ({th_err:+.4%} from truth), "
+          f"rel {th_rel:.3e} from the plain fit; per-row η/η_true "
+          f"{np.round(evo_k[:, 0] / eta_true, 4)}", flush=True)
+    check(launches_2 > 0, "the one-chunk rows never launched eig_warmstart")
+    check(bool(np.isfinite(evo_k).all()), "a one-chunk row's η not finite")
+    check(abs(th_err) < 0.06, "one-chunk rows: ththeta not within 6% of "
+          "truth")
+    check(th_rel <= 1e-3, "one-chunk rows: ththeta differs from the plain "
+          "eigensolver's")
+    out.update(launches_one_chunk_rows=launches_2, one_chunk_rows_s=rows_s,
+               one_chunk_rows_plain_s=rows_plain_s,
+               one_chunk_rows_ththeta=th_k,
+               one_chunk_rows_ththeta_rel_err=th_err,
+               one_chunk_rows_rel_vs_plain=th_rel)
+    del d1
+    lap("7.2 one chunk per row")
+
+    # 7.3 calc_asymmetry over the 64 fit chunks
+    t0 = time.perf_counter()
+    asym = ds.calc_asymmetry()
+    torch.cuda.synchronize()
+    asym_s = time.perf_counter() - t0
+    print(f"[7.3] calc_asymmetry {asym.shape}: wall {asym_s:.3f} s; A in "
+          f"[{np.nanmin(asym):.4f}, {np.nanmax(asym):.4f}], median "
+          f"{np.nanmedian(asym):.4f}", flush=True)
+    check(bool(np.isfinite(asym).all()) and bool((np.abs(asym) <= 1).all()),
+          "calc_asymmetry not finite or |A| > 1")
+    out.update(asymmetry_s=asym_s, asymmetry_range=[float(asym.min()),
+                                                    float(asym.max())])
+    lap("7.3 asymmetry")
+
+    # 7.4 retrieval without the chained kernel: one chunk, and 'power'
+    chunks, edges_rows, etas_rows = ds._retrieval_grid_inputs()
+    n_grid = ds.ncf_ret * ds.nct_ret
+    dense = torch.as_tensor(ds.chunks.reshape(n_grid, ds.cwf, ds.cwt),
+                            device=dev)
+    rf, rt = ds.ncf_ret // 2, ds.nct_ret // 2
+    dspec2, freq2, time2 = ds._chunk(rf, rt, fit=False)
+    freq = freq2.mean()
+    t0 = time.perf_counter()
+    one, _, _ = R.single_chunk_retrieval(
+        dspec2, ds.edges * (freq / ds.fref), time2, freq2,
+        ds.ththeta * (ds.fref / freq) ** 2, idx_t=rt, idx_f=rf,
+        npad=ds.npad, device=dev)
+    one_s = time.perf_counter() - t0
+    k = rf * ds.nct_ret + rt
+    c_one = aligned_corr(torch.as_tensor(one, device=dev)[None],
+                         dense[k:k + 1]).item()
+    t0 = time.perf_counter()
+    wf_p = ds.retrieve_wavefield(method="power")
+    torch.cuda.synchronize()
+    power_s = time.perf_counter() - t0
+    grid = (chunks.reshape(n_grid, ds.cwf, ds.cwt),
+            np.repeat(edges_rows, ds.nct_ret, axis=0),
+            np.repeat(etas_rows, ds.nct_ret), *ds._steps())
+    E_pw = R.grid_retrieval_batch(*grid, npad=ds.npad, method="power",
+                                  device_out=True, device=dev)
+    c_pw = aligned_corr(E_pw, dense)
+    wide = rgap.to(dev) >= 0.10
+    print(f"[7.4] single_chunk_retrieval ({rf}, {rt}): wall "
+          f"{one_s * 1e3:.3f} ms, aligned corr with eigh {c_one:.9f} (θ-θ "
+          f"gap {rgap[k].item():.3f}); retrieve_wavefield(method='power') "
+          f"wall {power_s:.3f} s; per chunk vs eigh least corr "
+          f"{c_pw[wide].min().item():.9f} over {int(wide.sum())} chunks "
+          f"with a gap ≥ 10%, {c_pw.min().item():.9f} over all", flush=True)
+    check(bool(np.isfinite(wf_p).all()) and wf_p.shape == ds.dyn.shape,
+          "the 'power' wavefield is not finite")
+    check(rgap[k].item() < 0.10 or c_one > 0.99, "single_chunk_retrieval "
+          "decorrelated from eigh")
+    check(bool((c_pw[wide] > 0.99).all()), "a 'power' chunk with a 10% θ-θ "
+          "gap decorrelated from eigh")
+    out.update(single_chunk_retrieval_ms=one_s * 1e3,
+               single_chunk_retrieval_corr=c_one, power_retrieval_s=power_s,
+               power_least_corr_gapped=c_pw[wide].min().item())
+    del E_pw, c_pw
+    lap("7.4 one chunk and power retrieval")
+
+    # 7.5 VLBI: one retrieval row, two identical stations
+    row = chunks[rf]
+    vl = np.stack([np.stack([c, c.astype(np.complex64), c]) for c in row])
+    args = (edges_rows[rf], etas_rows[rf], *ds._steps(), 2)
+    R.vlbi_retrieval_batch(vl[:1], *args, npad=ds.npad, device=dev)
+    t0 = time.perf_counter()
+    Ev = R.vlbi_retrieval_batch(vl, *args, npad=ds.npad, device=dev)
+    vlbi_s = time.perf_counter() - t0
+    Evt = torch.as_tensor(Ev, device=dev)
+    c_dish = aligned_corr(Evt[:, 0], Evt[:, 1])
+    _, freq0, time0 = ds._chunk(rf, 0, fit=False)
+    host, _, _ = R.vlbi_chunk_retrieval(list(vl[0]), edges_rows[rf], time0,
+                                        freq0, etas_rows[rf], npad=ds.npad,
+                                        device=dev)
+    c_host = min(aligned_corr(Evt[:1, d], torch.as_tensor(
+        host[d], device=dev)[None]).item() for d in range(2))
+    print(f"[7.5] vlbi_retrieval_batch {vl.shape}: wall {vlbi_s:.3f} s; "
+          f"dish 1 vs dish 2 least corr {c_dish.min().item():.9f}; chunk 0 "
+          f"vs host vlbi_chunk_retrieval least corr {c_host:.9f}",
+          flush=True)
+    check(bool(np.isfinite(Ev).all()), "VLBI wavefields not finite")
+    check(bool((c_dish > 0.9999).all()), "the two identical dishes' "
+          "wavefields differ")
+    check(c_host > 0.999, "VLBI batch differs from the host composite")
+    out.update(vlbi_s=vlbi_s, vlbi_dish_corr=c_dish.min().item(),
+               vlbi_host_corr=c_host)
+    del Ev, Evt, vl
+    lap("7.5 VLBI")
+
+    # 7.6 refine_mosaic on phase 5's chunks, rotations then the full fit
+    ref = {}
+    for mode, kw in (("rot", {}), ("full", {"dspec": ds.dyn})):
+        f = R.mosaic_objective(ds.chunks, mode=mode, device=dev, **kw)
+        x0 = R.rot_init(ds.chunks)
+        if mode == "full":
+            x0 = np.concatenate([x0, np.ones(n_grid)])
+        f0 = f(x0)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            f(x0)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        _, res_m = R.refine_mosaic(ds.chunks, mode=mode, maxiter=20,
+                                   device=dev, **kw)
+        ref_s = time.perf_counter() - t0
+        print(f"[7.6] refine_mosaic(mode={mode!r}, maxiter=20): wall "
+              f"{ref_s:.3f} s, {res_m.nfev} objective calls of "
+              f"{call_ms:.3f} ms (value and gradient); objective "
+              f"{f0:.9g} at x0 → {res_m.fun:.9g}", flush=True)
+        check(res_m.fun <= f0, f"refine_mosaic({mode!r}) ended worse than "
+              "it started")
+        ref[mode] = {"wall_s": ref_s, "nfev": int(res_m.nfev),
+                     "call_ms": call_ms, "f0": float(f0),
+                     "fun": float(res_m.fun)}
+    out["refine_mosaic"] = ref
+    lap("7.6 refine_mosaic")
+
+    # 7.7 memmap on a crop of 2 × 2 fit chunks (3×3 retrieval chunks)
+    n = 2 * ds.cwf
+    crop = BasicDyn(ds.dyn[:n, :n], name="crop", freqs=ds.freqs[:n],
+                    times=ds.times[:n])
+    walls = {}
+    wfs = {}
+    for memmap in (False, True):
+        dc = Dynspec(dyn=crop, process=False, verbose=False)
+        dc.prep_thetatheta(cwf=ds.cwf, cwt=ds.cwt, npad=ds.npad,
+                           eta_min=ds.eta_min, eta_max=ds.eta_max,
+                           neta=ds.neta, nedge=len(ds.edges),
+                           edges_lim=prob["th_lim"])
+        dc.ththeta = ds.ththeta
+        with tempfile.TemporaryDirectory() as tmp:
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                t0 = time.perf_counter()
+                wfs[memmap] = dc.calc_wavefield(memmap=memmap)
+                walls[memmap] = time.perf_counter() - t0
+                on_file = os.path.exists("memmap.dat")
+            finally:
+                os.chdir(cwd)
+        check(on_file == memmap, "memmap.dat not as asked")
+    diff = float(np.abs(wfs[True] - wfs[False]).max())
+    scale = float(np.abs(wfs[False]).max())
+    print(f"[7.7] calc_wavefield on a {n}² crop (3x3 chunks): memmap "
+          f"{walls[True]:.3f} s, in memory {walls[False]:.3f} s; max |Δ| "
+          f"{diff:.3e} of max |E| {scale:.3e}; bitwise equal "
+          f"{np.array_equal(wfs[True], wfs[False])}", flush=True)
+    check(diff <= 1e-5 * scale, "memmap route differs from the in-memory "
+          "route")
+    out.update(memmap_s=walls[True], memmap_in_memory_s=walls[False],
+               memmap_max_abs_diff=diff)
+    lap("7.7 memmap")
+    return out
 
 
 def aligned_corr(a, b):
@@ -1225,7 +1548,7 @@ def retrieval_phase(ds, dev):
         "calc_wavefield_s": calc_s, "gs_s": gs_s,
         "kernel_vs_dense_intensity": [rel, corr],
         "kernel_vs_plain_intensity": [rel_p, corr_p],
-        "kernel_vs_dense_chunk_corr_by_gap": bands}
+        "kernel_vs_dense_chunk_corr_by_gap": bands, "rgap": rgap.cpu()}
 
 
 if __name__ == "__main__":

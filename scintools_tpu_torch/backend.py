@@ -40,6 +40,18 @@ def resolve_device(device=None):
     return dev
 
 
+def fifo_cached(cache, key, build, maxsize):
+    """``cache[key]``, made by ``build()`` on a miss; when the dict holds
+    ``maxsize`` entries the oldest goes first. The port keeps its built
+    functions (with their device grids) per geometry this way."""
+    fn = cache.get(key)
+    if fn is None:
+        if len(cache) >= maxsize:
+            cache.pop(next(iter(cache)))
+        fn = cache[key] = build()
+    return fn
+
+
 def as_tensor(x, device, dtype=REAL):
     """``x`` (numpy array, scalar or tensor) as a contiguous ``dtype``
     tensor on ``device`` (a numpy view with negative strides, such as a

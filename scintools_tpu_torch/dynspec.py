@@ -6,19 +6,25 @@ Counterpart of ``scintools_tpu/dynspec.py``: ``BasicDyn`` (:2148),
 (:357, equal-wavelength only), ``_select_dyn`` (:441), ``calc_sspec``
 (:462, with ``lamsteps``), ``_select_sspec`` (:575), ``fit_arc`` (:596),
 ``norm_sspec`` (:689), ``prep_thetatheta`` (:1240, with the Hough seed
-of :1277-1296), ``_chunk`` (:1341), ``fit_thetatheta`` (:1416, the
-batched row branch :1443-1489 and the weighted global η ∝ f⁻² fit
-:1538-1581), ``thetatheta_chunks`` (:1787, the batched grid branch),
-``calc_wavefield`` (:1888), ``_retrieval_grid_inputs`` (:1915),
-``retrieve_wavefield`` (:1934) and ``gerchberg_saxton`` (:1974). State
-accretes on the instance as in the JAX package (``self.sspec``,
+of :1277-1296), ``_chunk`` (:1341), ``thetatheta_single`` (:1354),
+``fit_thetatheta`` (:1416, the batched row branch :1443-1489, the
+serial branch :1527-1536 and the weighted global η ∝ f⁻² fit
+:1538-1581), ``thetatheta_chunks`` (:1787, the batched grid branch and
+the row-by-row ``memmap`` branch), ``calc_wavefield`` (:1888),
+``_retrieval_grid_inputs`` (:1915), ``retrieve_wavefield`` (:1934),
+``gerchberg_saxton`` (:1974) and ``calc_asymmetry`` (:1990). Every
+shared method takes the reference's parameters in the reference's
+order; the port's own (``eig``, ``device``, ``mark``) come after them.
+State accretes on the instance as in the JAX package (``self.sspec``,
 ``self.lamsspec``, ``self.betaeta``, ``self.eta_evo``, ``self.ththeta``,
 ``self.chunks``, ``self.wavefield``, …) as numpy arrays; the
 computation runs on ``self.device``.
 
 Not in this slice: file loading and processing (``process=True``),
-velocity and trapezoid rescaling, plotting, the thin-screen search, and
-the ``pool``, ``memmap`` and ``mesh`` options of retrieval.
+velocity and trapezoid rescaling, plotting, the thin-screen search,
+``time_avg``, ``input_dyn``/``return_sspec`` and the ``mesh`` options;
+a value that is not ported raises ``NotImplementedError``. ``pool`` is
+accepted and ignored, as the JAX package does off its numpy backend.
 """
 
 from __future__ import annotations
@@ -43,8 +49,9 @@ _STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
 
 
 def _not_ported(**opts):
-    """Raise for the retrieval options this port does not take yet."""
-    given = sorted(k for k, v in opts.items() if v not in (None, False))
+    """Raise for the options this port does not take yet."""
+    given = sorted(k for k, v in opts.items()
+                   if not (v is None or v is False))
     if given:
         raise NotImplementedError(f"{', '.join(given)} not ported yet")
 
@@ -53,14 +60,20 @@ class Dynspec:
     """Dynamic spectrum analysis object on a torch device."""
 
     def __init__(self, filename=None, dyn=None, verbose=True, process=False,
-                 device=None):
+                 lamsteps=False, remove_short_subs=True, subint_thresh=2.33,
+                 mjd=None, backend=None, device=None):
+        """``remove_short_subs``, ``subint_thresh`` and ``mjd`` act on
+        file loading, which is not ported; ``backend`` is the JAX
+        package's and must stay None: the port runs on ``device``."""
+        _not_ported(backend=backend)
         self.device = resolve_device(device)
         if filename:
             raise NotImplementedError("file loading is not ported yet; "
                                       "pass dyn=BasicDyn(...)")
         if dyn is None:
             raise ValueError("No dynamic spectrum file or object")
-        self.load_dyn_obj(dyn, verbose=verbose, process=process)
+        self.load_dyn_obj(dyn, verbose=verbose, process=process,
+                          lamsteps=lamsteps)
 
     @classmethod
     def from_reference_state(cls, state, device=None):
@@ -88,11 +101,11 @@ class Dynspec:
         self.name = state.get("name", "reference")
         return self
 
-    def load_dyn_obj(self, dyn, verbose=True, process=False):
-        """Load from an adapter object such as :class:`BasicDyn`."""
-        if process:
-            raise NotImplementedError("default processing is not ported "
-                                      "yet; pass process=False")
+    def load_dyn_obj(self, dyn, verbose=True, process=True, lamsteps=False):
+        """Load from an adapter object such as :class:`BasicDyn`. The
+        default processing that ``process=True`` runs is not ported yet,
+        so that raises ``NotImplementedError`` once the data are
+        loaded."""
         self.name = dyn.name
         self.header = list(getattr(dyn, "header", []))
         self.times = np.asarray(dyn.times, dtype=float)
@@ -107,17 +120,26 @@ class Dynspec:
                      else np.ptp(self.times) + self.dt)
         self.mjd = dyn.mjd if dyn.mjd is not None else 60000.0
         self.dyn = np.array(dyn.dyn, dtype=float)
+        self.filename = getattr(dyn, "filename", None)
+        self.lamsteps = lamsteps
+        if process:
+            raise NotImplementedError("default processing is not ported "
+                                      "yet; pass process=False")
         if verbose:
             print(f"LOADED DYNSPEC OBJECT {dyn.name}")
 
     # ------------------------------------------------------------------
     # rescaling and spectra
     # ------------------------------------------------------------------
-    def scale_dyn(self, scale="lambda", spacing="auto", lamsteps=False,
-                  velocity=False, trap=False):
+    def scale_dyn(self, scale="lambda", window_frac=0.1, pars=None,
+                  parfile=None, window="hanning", spacing="auto", s=None,
+                  d=None, vism_ra=None, vism_dec=None, Omega=None, inc=None,
+                  vism_zeta=None, zeta=None, lamsteps=False, velocity=False,
+                  trap=False):
         """Resample onto an equal-wavelength grid (``self.lamdyn``,
         ``self.lam``, ``self.dlam``, ``self.nlam``) on the host.
-        Velocity and trapezoid rescaling are not ported yet."""
+        Velocity and trapezoid rescaling, which the parameters between
+        ``window_frac`` and ``zeta`` configure, are not ported yet."""
         if (velocity or trap or "velocity" in scale or "orbit" in scale
                 or "trap" in scale):
             raise NotImplementedError("velocity and trapezoid rescaling "
@@ -137,12 +159,18 @@ class Dynspec:
             return self.lamdyn
         return self.dyn
 
-    def calc_sspec(self, prewhite=False, halve=True, lamsteps=False,
-                   window="hanning", window_frac=0.1, velocity=False,
-                   trap=False):
+    def calc_sspec(self, prewhite=False, halve=True, plot=False,
+                   lamsteps=False, input_dyn=None, input_x=None,
+                   input_y=None, trap=False, window="hanning",
+                   window_frac=0.1, return_sspec=False, velocity=False):
         """Secondary spectrum in dB, computed on ``self.device``:
         ``self.sspec`` (``self.lamsspec`` and the β axis ``self.beta``
-        with ``lamsteps``), ``self.fdop`` and ``self.tdel``."""
+        with ``lamsteps``), ``self.fdop`` and ``self.tdel``. The port has
+        no plotting (``plot``, ``input_x``, ``input_y``); ``input_dyn``
+        and ``return_sspec`` are not ported yet."""
+        if plot:
+            raise NotImplementedError("the port has no plotting")
+        _not_ported(input_dyn=input_dyn, return_sspec=return_sspec)
         dyn = self._select_dyn(lamsteps=lamsteps, velocity=velocity,
                                trap=trap)
         dlam = self.dlam if lamsteps else None
@@ -177,14 +205,17 @@ class Dynspec:
                 startbin=3, cutmid=3, lamsteps=False, etamax=None,
                 etamin=None, low_power_diff=-1, high_power_diff=-0.5,
                 ref_freq=1400, constraint=(0, np.inf), nsmooth=5, efac=1,
-                noise_error=True, log_parabola=False, logsteps=False,
-                plot_spec=False, fit_spectrum=False,
-                subtract_artefacts=False, velocity=False, weighted=False):
+                filename=None, noise_error=True, display=True,
+                log_parabola=False, logsteps=False, plot_spec=False,
+                fit_spectrum=False, subtract_artefacts=False, velocity=False,
+                weighted=False, figsize=(9, 9), dpi=200, figN=None):
         """Arc-curvature measurement: ``self.betaeta`` (``lamsteps``) or
         ``self.eta``, their errors, the profile and its η grid. Explicit
         ``etamin``/``etamax``/``constraint`` in the non-lamsteps path are
         β values at ``ref_freq``, converted to η [s³] at this spectrum's
-        frequency. The port has no plotting (``plot``, ``plot_spec``)."""
+        frequency. The port has no plotting (``plot``, ``plot_spec``;
+        ``filename``, ``display``, ``figsize``, ``dpi`` and ``figN``
+        configure it)."""
         if plot or plot_spec:
             raise NotImplementedError("the port has no plotting")
         if not hasattr(self, "tdel"):
@@ -235,15 +266,20 @@ class Dynspec:
 
     def norm_sspec(self, eta=None, delmax=None, plot=False, startbin=1,
                    maxnormfac=5, minnormfac=0, cutmid=0, lamsteps=True,
-                   ref_freq=1400, velocity=False, numsteps=None,
-                   weighted=True, logsteps=False, interp_nan=False,
-                   fit_spectrum=False, powerspec_cut=False,
-                   subtract_artefacts=False):
+                   scrunched=True, plot_fit=True, ref_freq=1400,
+                   velocity=False, numsteps=None, filename=None,
+                   display=True, weighted=True, unscrunched=True,
+                   logsteps=False, powerspec=True, interp_nan=False,
+                   fit_spectrum=False, powerspec_cut=False, figsize=(9, 9),
+                   subtract_artefacts=False, dpi=200):
         """Normalise the Doppler axis by the arc at ``eta`` (fitted by
         :meth:`fit_arc` when None; in the non-lamsteps path an explicit
         ``eta`` is a β value at ``ref_freq``). Sets ``self.normsspecavg``,
         ``self.normsspec`` (masked), ``self.powerspectrum``, … and returns
-        the :class:`~.ops.normsspec.NormSspec`."""
+        the :class:`~.ops.normsspec.NormSspec`. The port has no plotting
+        (``plot``; ``scrunched``, ``plot_fit``, ``filename``,
+        ``display``, ``unscrunched``, ``powerspec``, ``figsize`` and
+        ``dpi`` configure it)."""
         if plot:
             raise NotImplementedError("the port has no plotting")
         if not hasattr(self, "tdel"):
@@ -383,34 +419,80 @@ class Dynspec:
         dspec2 -= np.nanmean(dspec2)
         return np.nan_to_num(dspec2), self.freqs[fs], self.times[ts]
 
-    def fit_thetatheta(self, verbose=False, eig="kernel"):
-        """Per-chunk η(f, t) searches, one fused batched search per
-        frequency row → weighted global η ∝ f⁻² fit (``self.ththeta``,
-        ``self.ththetaerr``; per-chunk ``eta_evo``, ``eta_evo_err`` and
-        the health bitmask ``eta_evo_ok``). ``eig="plain"`` runs the
-        eigensolver's plain PyTorch version on the card too (the
-        reference the kernel is held to)."""
+    def _thth_row_geometry(self, freq2):
+        """The η grid and θ edges of a chunk row at frequencies
+        ``freq2`` (η ∝ f⁻², θ ∝ f)."""
+        etas = np.logspace(np.log10(self.eta_min), np.log10(self.eta_max),
+                           self.neta) * (self.fref / freq2.mean()) ** 2
+        return etas, self.edges * (freq2.mean() / self.fref)
+
+    def thetatheta_single(self, cf=0, ct=0, fname=None, verbose=False,
+                          plot=False, arrays=False, eig="kernel"):
+        """η search of the fitting chunk (cf, ct) (indices clipped to the
+        grid) by :func:`~.thth.search.single_search`: the η grid walked as
+        one chain of the warm-start eigensolver on ``self.device``
+        (``eig`` as in :meth:`fit_thetatheta`). Returns the
+        :class:`~.thth.search.ChunkSearchResult`, or with ``arrays`` its
+        ``(etas, eigs, popt)``. The port has no plotting (``plot``;
+        ``fname`` names its file)."""
+        if plot:
+            raise NotImplementedError("the port has no plotting")
         if not hasattr(self, "cwf"):
-            raise RuntimeError("call prep_thetatheta first")
+            self.prep_thetatheta(verbose=verbose)
+        cf = min(cf, self.ncf_fit - 1)
+        ct = min(ct, self.nct_fit - 1)
+        dspec2, freq2, time2 = self._chunk(cf, ct, fit=True)
+        etas, edges = self._thth_row_geometry(freq2)
+        res = thth_search.single_search(
+            dspec2, freq2, time2, etas, edges, fw=self.fw, npad=self.npad,
+            coher=(self.thetatheta_proc != "incoherent"),
+            tau_mask=self.thth_tau_mask, device=self.device, eig=eig)
+        if arrays:
+            return res.etas, res.eigs, res.popt
+        return res
+
+    def fit_thetatheta(self, verbose=False, plot=False, pool=None,
+                       time_avg=False, mesh=None, eig="kernel"):
+        """Per-chunk η(f, t) searches → weighted global η ∝ f⁻² fit
+        (``self.ththeta``, ``self.ththetaerr``; per-chunk ``eta_evo``,
+        ``eta_evo_err`` and the health bitmask ``eta_evo_ok``), after
+        :meth:`prep_thetatheta` with its defaults when it has not run.
+        With two or more chunks per row, one fused batched search per
+        frequency row; with one, :meth:`thetatheta_single` per chunk, as
+        the JAX package does. ``eig="plain"`` runs the eigensolver's
+        plain PyTorch version on the card too (the reference the kernel
+        is held to). ``pool`` is accepted and ignored; ``plot``,
+        ``time_avg`` and ``mesh`` are not ported yet."""
+        if plot:
+            raise NotImplementedError("the port has no plotting")
+        _not_ported(time_avg=time_avg, mesh=mesh)
+        if eig not in ("kernel", "plain"):
+            raise ValueError(f"unknown eig {eig!r} (want 'kernel' or "
+                             "'plain')")
+        if not hasattr(self, "cwf"):
+            self.prep_thetatheta(verbose=verbose)
         self.eta_evo = np.zeros((self.ncf_fit, self.nct_fit))
         self.eta_evo_err = np.zeros((self.ncf_fit, self.nct_fit))
         self.eta_evo_ok = np.zeros((self.ncf_fit, self.nct_fit), dtype=int)
         self.f0s = np.zeros(self.ncf_fit)
         self.t0s = np.zeros(self.nct_fit)
         for cf in range(self.ncf_fit):
-            chunks, tlist, freq2 = [], [], None
-            for ct in range(self.nct_fit):
-                dspec2, freq2, time2 = self._chunk(cf, ct)
-                chunks.append(dspec2)
-                tlist.append(time2)
-            etas = np.logspace(np.log10(self.eta_min),
-                               np.log10(self.eta_max), self.neta) \
-                * (self.fref / freq2.mean()) ** 2
-            edges = self.edges * (freq2.mean() / self.fref)
-            results = thth_search.multi_chunk_search(
-                chunks, freq2, tlist, etas, edges, fw=self.fw,
-                npad=self.npad, coher=(self.thetatheta_proc != "incoherent"),
-                tau_mask=self.thth_tau_mask, eig=eig, device=self.device)
+            if self.nct_fit > 1:
+                chunks, tlist, freq2 = [], [], None
+                for ct in range(self.nct_fit):
+                    dspec2, freq2, time2 = self._chunk(cf, ct)
+                    chunks.append(dspec2)
+                    tlist.append(time2)
+                etas, edges = self._thth_row_geometry(freq2)
+                results = thth_search.multi_chunk_search(
+                    chunks, freq2, tlist, etas, edges, fw=self.fw,
+                    npad=self.npad,
+                    coher=(self.thetatheta_proc != "incoherent"),
+                    tau_mask=self.thth_tau_mask, eig=eig,
+                    device=self.device)
+            else:
+                results = [self.thetatheta_single(cf, 0, verbose=verbose,
+                                                  eig=eig)]
             for ct, res in enumerate(results):
                 self.eta_evo[cf, ct] = res.eta
                 self.eta_evo_err[cf, ct] = res.eta_sig
@@ -463,15 +545,36 @@ class Dynspec:
 
     def thetatheta_chunks(self, verbose=False, pool=None, memmap=False,
                           mesh=None):
-        """Retrieve the half-overlap chunk grid (``self.chunks``,
-        complex64 ``[ncf_ret, nct_ret, cwf, cwt]``) in one batched pass
-        with the dense ``"eigh"`` solve, as the JAX package does."""
-        _not_ported(pool=pool, memmap=memmap, mesh=mesh)
+        """Retrieve the half-overlap chunk grid (``self.chunks``
+        ``[ncf_ret, nct_ret, cwf, cwt]``) with the dense ``"eigh"``
+        solve, as the JAX package does: in one batched pass (complex64),
+        or with ``memmap`` row by row into a complex128 ``np.memmap`` on
+        the file ``memmap.dat`` of the working directory, so that one
+        frequency row of chunks is in memory at a time. ``pool`` is
+        accepted and ignored; ``mesh`` is not ported yet."""
+        _not_ported(mesh=mesh)
         if not hasattr(self, "ththeta"):
             self.fit_thetatheta(verbose=verbose)
-        chunks, edges_rows, etas_rows = self._retrieval_grid_inputs()
         nct = self.nct_ret
         dt, df = self._steps()
+        if memmap:
+            self.chunks = np.memmap(
+                "memmap.dat", dtype=complex, mode="w+",
+                shape=(self.ncf_ret, nct, self.cwf, self.cwt))
+            for cf in range(self.ncf_ret):
+                row = [self._chunk(cf, ct, fit=False) for ct in range(nct)]
+                freq = row[-1][1].mean()
+                eta = self.ththeta * (self.fref / freq) ** 2
+                self.chunks[cf] = thth_ret.chunk_retrieval_batch(
+                    np.stack([r[0] for r in row]),
+                    self.edges * (freq / self.fref), eta, dt, df,
+                    npad=self.npad, tau_mask=self.thth_tau_mask,
+                    device=self.device)
+                if verbose:
+                    print(f"retrieved row {cf + 1}/{self.ncf_ret} ({nct} "
+                          f"chunks, eta={eta:.4g})")
+            return
+        chunks, edges_rows, etas_rows = self._retrieval_grid_inputs()
         E = thth_ret.grid_retrieval_batch(
             chunks.reshape(-1, self.cwf, self.cwt),
             np.repeat(edges_rows, nct, axis=0), np.repeat(etas_rows, nct),
@@ -486,11 +589,13 @@ class Dynspec:
                        device_mosaic=False):
         """Mosaic the retrieval chunks into ``self.wavefield`` with the
         numpy greedy stitch (``device_mosaic=True``: the device one),
-        retrieving them first if needed; ``gs`` then runs
-        :meth:`gerchberg_saxton`."""
-        _not_ported(pool=pool, memmap=memmap, mesh=mesh, gs_mesh=gs_mesh)
+        retrieving them first if needed (``memmap`` as in
+        :meth:`thetatheta_chunks`); ``gs`` then runs
+        :meth:`gerchberg_saxton`. ``pool`` is accepted and ignored;
+        ``mesh`` and ``gs_mesh`` are not ported yet."""
+        _not_ported(mesh=mesh, gs_mesh=gs_mesh)
         if not hasattr(self, "chunks"):
-            self.thetatheta_chunks(verbose=verbose)
+            self.thetatheta_chunks(verbose=verbose, memmap=memmap)
         if device_mosaic:
             self.wavefield = thth_ret.mosaic_device(self.chunks,
                                                     device=self.device)
@@ -506,8 +611,10 @@ class Dynspec:
         chunk wavefields go from the batched retrieval to the device
         stitch without leaving the card. Sets ``self.wavefield`` and the
         per-chunk health grid ``self.wavefield_ok`` (quarantined chunks
-        are zero). ``method=None`` is the hand-written kernel route;
-        ``mark`` is the stage callback of
+        are zero). ``method=None`` is the hand-written kernel route
+        (``"plain"``, ``"eigh"`` and ``"power"`` as in
+        :func:`~.thth.retrieval.grid_retrieval_batch`); ``mark`` is the
+        stage callback of
         :func:`~.thth.retrieval.campaign_retrieval_batch`."""
         _not_ported(mesh=mesh, gs_mesh=gs_mesh)
         if not hasattr(self, "ththeta"):
@@ -528,8 +635,9 @@ class Dynspec:
         return self.wavefield
 
     def gerchberg_saxton(self, niter=1, verbose=False, pool=None, mesh=None):
-        """Gerchberg–Saxton iterations on ``self.wavefield``."""
-        _not_ported(pool=pool, mesh=mesh)
+        """Gerchberg–Saxton iterations on ``self.wavefield`` (``pool`` is
+        accepted and ignored; ``mesh`` is not ported yet)."""
+        _not_ported(mesh=mesh)
         if not hasattr(self, "wavefield"):
             self.calc_wavefield(verbose=verbose)
         self.wavefield = thth_ret.gerchberg_saxton(
@@ -538,6 +646,33 @@ class Dynspec:
             device=self.device)
         return self.wavefield
 
+
+    def calc_asymmetry(self, verbose=False, pool=None):
+        """Per fitting chunk, the L/R power asymmetry of the dominant
+        eigenvector of its reduced θ-θ at the fitted curvature
+        (``self.asymmetry``, NaN where the θ-θ has no valid square).
+        ``pool`` is accepted and ignored."""
+        if not hasattr(self, "ththeta"):
+            self.fit_thetatheta(verbose=verbose)
+        self.asymmetry = np.zeros((self.ncf_fit, self.nct_fit))
+        for cf in range(self.ncf_fit):
+            for ct in range(self.nct_fit):
+                dspec2, freq2, time2 = self._chunk(cf, ct, fit=True)
+                freq = freq2.mean()
+                eta = self.ththeta * (self.fref / freq) ** 2
+                CS, tau, fd = thth_search.chunk_conjugate_spectrum(
+                    dspec2, time2, freq2, npad=self.npad)
+                try:
+                    thth_red, edges_red = thth_core.thth_redmap(
+                        CS, tau, fd, eta, self.edges * (freq / self.fref),
+                        device=self.device)
+                except ValueError:
+                    self.asymmetry[cf, ct] = np.nan
+                    continue
+                _, V = thth_core.dominant_eig_power(thth_red)
+                self.asymmetry[cf, ct] = thth_ret.calc_asymmetry(V,
+                                                                 edges_red)
+        return self.asymmetry
 
 class BasicDyn:
     """Raw-array adapter."""

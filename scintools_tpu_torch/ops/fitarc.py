@@ -4,7 +4,8 @@ Counterpart of ``scintools_tpu/ops/fitarc.py``: ``ArcFit`` (:26),
 ``sspec_noise`` (:42), ``sspec_noise_batch`` (:54), ``_profile_from_norm``
 (:91), ``fit_arc_profile`` (:105), ``_prep_profile`` (:125),
 ``_peak_parabola`` (:141), ``fit_arc`` (:207) and ``fit_arc_batch``
-(:281). Normalise the secondary spectrum for a trial curvature,
+(:281, with its per-geometry cache of built functions, :23 and
+:362-413). Normalise the secondary spectrum for a trial curvature,
 delay-scrunch to a Doppler profile and fit a parabola to the profile
 peak over a √η grid. The serial :func:`fit_arc` interpolates the rows on
 the device and fits on the host; :func:`fit_arc_batch` computes every
@@ -20,9 +21,16 @@ import numpy as np
 import torch
 from scipy.signal import savgol_filter
 
-from ..backend import as_tensor, resolve_device
+from ..backend import as_tensor, fifo_cached, resolve_device
 from ..fit.models import fit_log_parabola, fit_parabola
 from .normsspec import make_arc_profile_batch_fn, normalise_sspec
+
+# fit_arc_batch's built functions and their device grids, keyed on the
+# geometry, the fit parameters and the device (FIFO of 8); every miss
+# adds one to ``builds``
+_ARC_FIT_CACHE = {}
+_ARC_FIT_CACHE_SIZE = 8
+ARC_FIT_CACHE_STATS = {"builds": 0}
 
 
 @dataclass
@@ -248,6 +256,36 @@ def fit_arc(sspec, yaxis, fdop, asymm=False, delmax=None, numsteps=1e4,
     return fits
 
 
+def _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps, nsmooth,
+                low_power_diff, high_power_diff, constraint, noise_error,
+                on_device, dev):
+    """The built function of :func:`fit_arc_batch` for one geometry and
+    set of fit parameters on ``dev``: the whole device fit
+    (``on_device``) or the folded profiles for the host tail. Built on
+    the first call and kept, with its device grids, in a FIFO of 8."""
+    fit_key = ((int(nsmooth), float(low_power_diff), float(high_power_diff),
+                tuple(map(float, constraint)), bool(noise_error))
+               if on_device else None)
+    key = (yaxis.tobytes(), fdop.tobytes(), float(delmax), int(startbin),
+           int(cutmid), int(numsteps), fit_key, bool(on_device), str(dev))
+
+    def build():
+        ARC_FIT_CACHE_STATS["builds"] += 1
+        if not on_device:
+            return make_arc_profile_batch_fn(
+                yaxis, fdop, delmax=delmax, startbin=startbin,
+                cutmid=cutmid, numsteps=numsteps, fold=True, device=dev)
+        from .fitarc_device import make_arc_fit_batch_fn
+
+        return make_arc_fit_batch_fn(
+            yaxis, fdop, delmax=delmax, startbin=startbin, cutmid=cutmid,
+            numsteps=numsteps, nsmooth=nsmooth,
+            low_power_diff=low_power_diff, high_power_diff=high_power_diff,
+            constraint=constraint, noise_error=noise_error, device=dev)
+
+    return fifo_cached(_ARC_FIT_CACHE, key, build, _ARC_FIT_CACHE_SIZE)
+
+
 def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
                   startbin=3, cutmid=3, etamax=None, etamin=None,
                   low_power_diff=-1, high_power_diff=-0.5,
@@ -264,7 +302,9 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
     per-epoch arrays. Returns a list of B :class:`ArcFit` (NaN η for an
     epoch the fit refuses). The profiles of all epochs come from one
     call of the arc-profile kernel on ``device`` (its plain version on
-    the CPU).
+    the CPU). The function this builds and its device grids are kept per
+    geometry, fit parameters and device (a FIFO of 8), so a survey's
+    later batches build nothing (``ARC_FIT_CACHE_STATS``).
 
     ``sspecs_device`` is the JAX package's name for spectra already on
     the device: given alone it stands for ``sspecs``; given with
@@ -312,16 +352,13 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
 
     s_dev = as_tensor(sspecs, dev)
     e_dev = as_tensor(etamin_b, dev, torch.float64)
+    fn = _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps,
+                     nsmooth, low_power_diff, high_power_diff, constraint,
+                     noise_error, on_device, dev)
 
     if on_device:
-        from .fitarc_device import (eta_crop_lengths, eta_grid,
-                                    make_arc_fit_batch_fn)
+        from .fitarc_device import eta_crop_lengths, eta_grid
 
-        fn = make_arc_fit_batch_fn(
-            yaxis, fdop, delmax=delmax, startbin=startbin, cutmid=cutmid,
-            numsteps=numsteps, nsmooth=nsmooth,
-            low_power_diff=low_power_diff, high_power_diff=high_power_diff,
-            constraint=constraint, noise_error=noise_error, device=dev)
         # a non-finite pixel would make the host crop reshape that
         # epoch's η grid; such epochs get L = 0 and come out NaN
         # (on the device: a host test would stall the queue mid-fit)
@@ -368,9 +405,6 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
             fits.append(fit)
         return fits
 
-    fn = make_arc_profile_batch_fn(yaxis, fdop, delmax=delmax,
-                                   startbin=startbin, cutmid=cutmid,
-                                   numsteps=numsteps, fold=True, device=dev)
     folded = fn(s_dev, e_dev).cpu().numpy().astype(float)
     noises = sspec_noise_batch(
         as_tensor(sspecs, "cpu", torch.float64), cutmid, n_rows=ind).numpy()

@@ -1,10 +1,10 @@
 """Chunk-batched θ-θ curvature search in PyTorch.
 
 Counterpart of ``scintools_tpu/thth/batch.py``: ``_geometry`` (:47),
-``make_multi_eval_fn`` (:55; the ``build_batch`` gather :92-127, then
-the kernel route :189-217), ``_chunk_cs_to_ri`` (:478),
-``_tau_keep_mask`` (:506), ``_health_and_quarantine`` (:513) and
-``make_fused_search_fn`` (:538).
+``make_multi_eval_fn`` (:55; the ``build_batch`` gather :92-127, the
+``'power'`` route :129-142, then the kernel route :189-217),
+``_chunk_cs_to_ri`` (:478), ``_tau_keep_mask`` (:506),
+``_health_and_quarantine`` (:513) and ``make_fused_search_fn`` (:538).
 
 All chunks of one frequency row share (tau, fd, edges, η grid), so the
 θ-θ gather indices depend only on the geometry and η: they are built
@@ -24,7 +24,7 @@ import torch
 from ..backend import resolve_device
 from ..ops.sspec import chunk_conjugate_spectrum_batch
 from ..robust import guards
-from .core import th_cents_from_edges, unit_checks
+from .core import dominant_eig_power, th_cents_from_edges, unit_checks
 from .eig import (batched_eig_warmstart, batched_eig_warmstart_plain,
                   pad_to_multiple)
 from .peakfit import fit_eig_peak_batch_device
@@ -37,19 +37,26 @@ def _geometry(tau, fd, edges):
     return tau_a, fd_a, th_cents_from_edges(edges_a)
 
 
-def make_multi_eval_fn(tau, fd, edges, squarings=10, warm_iters=24,
-                       eig="kernel", device=None):
+def make_multi_eval_fn(tau, fd, edges, iters=200, method="auto",
+                       squarings=10, warm_iters=24, eig="kernel",
+                       device=None):
     """Build ``fn(CS_ri[B, 2, ntau, nfd], etas[neta]) → |λ|[B, neta]``
     for conjugate spectra sharing one geometry, on ``device`` (``None``:
     the CUDA card, see :func:`backend.resolve_device`).
 
-    ``fn.gather(CS_ri, etas)`` is the masked θ-θ gather, returning the
-    padded (B, neta, 2, N, N) float32 batch; ``fn.solve(a_ri)`` the
-    eigensolver on it. ``eig='kernel'`` dispatches by device
-    (:func:`batched_eig_warmstart`); ``eig='plain'`` always runs the
-    plain PyTorch version (the reference the kernel is held to)."""
+    ``method="auto"`` walks each chunk's η grid with the warm-start
+    eigensolver: ``fn.gather(CS_ri, etas)`` is the masked θ-θ gather,
+    returning the padded (B, neta, 2, N, N) float32 batch;
+    ``fn.solve(a_ri)`` the eigensolver on it. ``eig='kernel'``
+    dispatches by device (:func:`batched_eig_warmstart`); ``eig='plain'``
+    always runs the plain PyTorch version (the reference the kernel is
+    held to). ``method="power"`` runs ``iters`` cold shifted power steps
+    on every (chunk, η) matrix instead (JAX ``'power'``)."""
     if eig not in ("kernel", "plain"):
         raise ValueError(f"unknown eig {eig!r} (want 'kernel' or 'plain')")
+    if method not in ("auto", "power"):
+        raise ValueError(f"unknown method {method!r} (want 'auto' or "
+                         "'power')")
     dev = resolve_device(device)
     tau_a, fd_a, th_cents = _geometry(tau, fd, edges)
     n_th = len(th_cents)
@@ -108,6 +115,15 @@ def make_multi_eval_fn(tau, fd, edges, squarings=10, warm_iters=24,
         a_ri[:, :, 0, :n_th, :n_th] = thth.real
         a_ri[:, :, 1, :n_th, :n_th] = thth.imag
         return a_ri
+
+    if method == "power":
+        def fn(CS_ri, etas):
+            thth = build_batch(CS_ri, etas).permute(3, 0, 1, 2)
+            lam, _ = dominant_eig_power(thth, iters=iters)
+            return lam.abs()
+
+        fn.build_batch, fn.n_th = build_batch, n_th
+        return fn
 
     solver = (batched_eig_warmstart if eig == "kernel"
               else batched_eig_warmstart_plain)

@@ -38,28 +38,133 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..backend import as_tensor, resolve_device
+from ..backend import as_tensor, fifo_cached, resolve_device
 from ..ops import xfft
 from ..ops.sspec import pad_chunk_batch
 from ..robust import guards
-from .core import fft_axis, unit_checks
+from .core import (dominant_eig_power, fft_axis, rev_map, th_cents_from_edges,
+                   thth_redmap, unit_checks)
+from .search import chunk_conjugate_spectrum, pad_chunk
 from .eig import (batched_eigvec_warmstart, batched_eigvec_warmstart_plain,
                   pad_to_multiple)
 
-METHODS = ("kernel", "plain", "eigh")
+METHODS = ("kernel", "plain", "eigh", "power")
 
 
 def resolve_retrieval_method(method):
-    """``None`` → ``"kernel"``; ``"power"`` is not ported yet."""
+    """``None`` → ``"kernel"``; else one of :data:`METHODS`."""
     if method is None:
         return "kernel"
-    if method == "power":
-        raise NotImplementedError("the 'power' retrieval formulation is "
-                                  "not ported yet")
     if method not in METHODS:
         raise ValueError(f"unknown retrieval method {method!r} "
                          f"(want one of {METHODS})")
     return method
+
+
+def _numpy(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def single_chunk_retrieval(dspec, edges, time, freq, eta, idx_t=0, idx_f=0,
+                           npad=3, tau_mask=0.0, verbose=False, device=None):
+    """Phase retrieval of one chunk on ``device``: the float64 host
+    conjugate spectrum → reduced θ-θ → dominant eigenpair (the power
+    iteration of :func:`.core.modeler`) → wavefield row at the middle θ
+    bin → inverse map → cropped ifft2. Returns ``(E[nf, nt] complex64
+    numpy, idx_f, idx_t)``. A chunk whose θ-θ has no valid square (a
+    non-finite or out-of-range η: the ``ValueError`` of
+    :func:`.core.thth_redmap`) comes back as zeros, so one bad chunk does
+    not end a retrieval; any other error propagates."""
+    dspec = np.asarray(dspec)
+    CS, tau, fd = chunk_conjugate_spectrum(dspec, time, freq, npad=npad,
+                                           tau_mask=tau_mask)
+    try:
+        thth_red, edges_red = thth_redmap(CS, tau, fd, eta, edges,
+                                          device=device)
+    except ValueError as e:
+        if verbose:
+            print(f"single_chunk_retrieval: chunk ({idx_f}, {idx_t}) "
+                  f"quarantined: {e}")
+        return np.zeros(dspec.shape, dtype=np.complex64), idx_f, idx_t
+    lam, V = dominant_eig_power(thth_red)
+    ththE = torch.zeros_like(thth_red)
+    ththE[ththE.shape[0] // 2, :] = torch.conj(V) * torch.sqrt(lam.abs())
+    recov_E = rev_map(ththE, tau, fd, eta, edges_red, hermetian=False)
+    model_E = torch.fft.ifft2(torch.fft.ifftshift(recov_E))[
+        : dspec.shape[0], : dspec.shape[1]]
+    model_E = model_E * (dspec.shape[0] * dspec.shape[1] / 4)
+    return model_E.cpu().numpy(), idx_f, idx_t
+
+
+def vlbi_auto_positions(n_dish):
+    """Indices of the auto-spectra in the VLBI pair ordering [I1, V12,
+    …, V1N, I2, V23, …, IN]."""
+    return ((n_dish * (n_dish + 1)) / 2
+            - np.cumsum(np.linspace(1, n_dish, n_dish)))
+
+
+def vlbi_pair_index(n_dish, d1, d2):
+    """Pair-list index of the (d1, d1+d2) station block of the composite
+    matrix."""
+    return int(((n_dish * (n_dish + 1)) // 2)
+               - (((n_dish - d1) * (n_dish - d1 + 1)) // 2) + d2)
+
+
+def vlbi_chunk_retrieval(dspec_list, edges, time, freq, eta, idx_t=0,
+                         idx_f=0, npad=3, n_dish=2, tau_mask=0.0,
+                         verbose=False, device=None):
+    """Multi-station composite θ-θ retrieval of one chunk:
+    ``dspec_list`` in the order [I1, V12, …, V1N, I2, V23, …, IN] →
+    per-dish wavefields ``([E_d[nf, nt] complex64 numpy], idx_f,
+    idx_t)``. The reduced θ-θ of each spectrum and the inverse maps run
+    on ``device``; the composite block-hermitian matrix's top eigenpair is
+    scipy's ``eigsh`` on the host, as in the JAX package."""
+    from scipy.sparse.linalg import eigsh
+
+    time = np.asarray(unit_checks(time, "time"), dtype=float)
+    freq = np.asarray(unit_checks(freq, "freq"), dtype=float)
+    eta = float(unit_checks(eta, "eta"))
+    if verbose:
+        print(f"vlbi_chunk_retrieval: chunk ({idx_f}, {idx_t}), "
+              f"{n_dish} dishes, eta={eta:.4g}")
+    fd = fft_axis(time, pad=npad, scale=1e3)
+    tau = fft_axis(freq, pad=npad, scale=1.0)
+    autos = vlbi_auto_positions(n_dish)
+    thth_red, edges_red = [], None
+    for i, ds in enumerate(dspec_list):
+        is_dspec = bool(np.isin(i, autos))
+        pad = pad_chunk(np.asarray(ds), npad,
+                        fill="mean" if is_dspec else "zero")
+        CS = np.fft.fftshift(np.fft.fft2(pad))
+        if tau_mask:
+            CS[np.abs(tau) < tau_mask] = 0
+        t_single, edges_red = thth_redmap(CS, tau, fd, eta, edges,
+                                          hermetian=is_dspec, device=device)
+        thth_red.append(t_single)
+    dev = thth_red[0].device
+    blocks = [_numpy(t).astype(complex) for t in thth_red]
+    size = blocks[0].shape[0]
+    comp = np.zeros((size * n_dish, size * n_dish), dtype=complex)
+    for d1 in range(n_dish):
+        for d2 in range(n_dish - d1):
+            blk = blocks[vlbi_pair_index(n_dish, d1, d2)]
+            s1 = slice(d1 * size, (d1 + 1) * size)
+            s2 = slice((d1 + d2) * size, (d1 + d2 + 1) * size)
+            comp[s1, s2] = np.conj(blk.T)
+            comp[s2, s1] = blk
+    w, V = eigsh(comp, 1, which="LA")
+    w, V = w[0], V[:, 0]
+    nf, nt = np.shape(dspec_list[0])
+    model_E = []
+    for d in range(n_dish):
+        ththE = torch.zeros((size, size), dtype=torch.complex64, device=dev)
+        ththE[size // 2, :] = torch.as_tensor(
+            np.conj(V[d * size:(d + 1) * size]) * np.sqrt(w),
+            dtype=torch.complex64, device=dev)
+        recov_E = rev_map(ththE, tau, fd, eta, edges_red, hermetian=False)
+        mE = torch.fft.ifft2(torch.fft.ifftshift(recov_E))[:nf, :nt]
+        model_E.append((mE * (nf * nt / 4)).cpu().numpy())
+    return model_E, idx_f, idx_t
 
 
 def _hermitian_sym(thth, tril, anti):
@@ -182,7 +287,8 @@ def _geometry(nf_chunk, nt_chunk, dt, df, npad, dev):
 
 
 def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
-                            method="kernel", warm_iters=64, device=None):
+                            method="kernel", iters=1024, warm_iters=64,
+                            device=None):
     """Build the batched retrieval on ``device`` (``None``: the card):
     ``fn(chunks[B, nf, nt], edges[B, n_edges], etas[B], tau_mask=0.0,
     group=None, mark=None) → (E[B, nf, nt] complex64, ok[B] int32)``,
@@ -262,6 +368,9 @@ def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
         if method == "eigh":
             lam, V = torch.linalg.eigh(thth)
             return lam[:, -1].abs(), V[:, :, -1]
+        if method == "power":
+            lam, V = dominant_eig_power(thth, iters=iters)
+            return lam.abs(), V
         solver = (batched_eigvec_warmstart if method == "kernel"
                   else batched_eigvec_warmstart_plain)
         lam, v = solver(pack(thth, group), n_th // 2, iters=warm_iters)
@@ -311,19 +420,15 @@ _RETRIEVAL_CACHE = {}
 _CACHE_SIZE = 16
 
 
-def _retrieval_fn(nf, nt, dt, df, n_edges, npad, method, warm_iters, dev):
+def _retrieval_fn(nf, nt, dt, df, n_edges, npad, method, iters, warm_iters,
+                  dev):
     """The retrieval function of one geometry, built once and kept in a
     FIFO-bounded dict."""
     key = (int(nf), int(nt), float(dt), float(df), int(n_edges), int(npad),
-           method, int(warm_iters), str(dev))
-    fn = _RETRIEVAL_CACHE.get(key)
-    if fn is None:
-        if len(_RETRIEVAL_CACHE) >= _CACHE_SIZE:
-            _RETRIEVAL_CACHE.pop(next(iter(_RETRIEVAL_CACHE)))
-        fn = _RETRIEVAL_CACHE[key] = make_chunk_retrieval_fn(
-            nf, nt, dt, df, n_edges, npad=npad, method=method,
-            warm_iters=warm_iters, device=dev)
-    return fn
+           method, int(iters), int(warm_iters), str(dev))
+    return fifo_cached(_RETRIEVAL_CACHE, key, lambda: make_chunk_retrieval_fn(
+        nf, nt, dt, df, n_edges, npad=npad, method=method, iters=iters,
+        warm_iters=warm_iters, device=dev), _CACHE_SIZE)
 
 
 def hbm_group(n):
@@ -341,8 +446,8 @@ def hbm_group(n):
 
 
 def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
-                         tau_mask=0.0, method="eigh", warm_iters=64,
-                         mesh=None, group=None, with_ok=False,
+                         tau_mask=0.0, method="eigh", iters=1024,
+                         warm_iters=64, mesh=None, group=None, with_ok=False,
                          device_out=False, device=None, mark=None):
     """Whole-grid retrieval: ``chunks[N, nf, nt]`` with per-chunk
     ``edges_per[N, n_edges]`` and ``etas_per[N]`` → complex wavefield
@@ -352,7 +457,8 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     that are cropped after. ``device_out=True`` returns the complex64
     tensors on ``device`` instead, ready for :func:`mosaic_device`.
     ``method``: ``"eigh"`` (the default here, as in the JAX package),
-    ``"kernel"`` or ``"plain"``; ``None`` means ``"kernel"``. ``mark``
+    ``"kernel"``, ``"plain"`` or ``"power"`` (``iters`` cold power steps
+    per chunk); ``None`` means ``"kernel"``. ``mark``
     gets ``upload`` once the chunks are on ``device``, then the stages
     of :func:`make_chunk_retrieval_fn`."""
     if mesh is not None:
@@ -376,7 +482,7 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     if mark is not None:
         mark("upload")
     fn = _retrieval_fn(nf, nt, dt, df, edges_per.shape[1], npad, method,
-                       warm_iters, dev)
+                       iters, warm_iters, dev)
     E, ok = fn(chunks,
                torch.as_tensor(edges_per, dtype=torch.float64, device=dev),
                torch.as_tensor(etas_per, dtype=torch.float64, device=dev),
@@ -388,8 +494,8 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
 
 
 def chunk_retrieval_batch(chunks, edges, eta, dt, df, npad=3, tau_mask=0.0,
-                          method="eigh", warm_iters=64, mesh=None,
-                          with_ok=False, device=None):
+                          method="eigh", iters=1024, warm_iters=64,
+                          mesh=None, with_ok=False, device=None):
     """One frequency row: ``chunks[B, nf, nt]`` sharing ``edges`` and
     ``eta`` → complex wavefield chunks (and ``ok`` with ``with_ok``);
     :func:`grid_retrieval_batch` with the row's geometry broadcast."""
@@ -398,8 +504,126 @@ def chunk_retrieval_batch(chunks, edges, eta, dt, df, npad=3, tau_mask=0.0,
     return grid_retrieval_batch(
         chunks, np.tile(edges, (B, 1)),
         np.full(B, float(unit_checks(eta, "eta"))), dt, df, npad=npad,
-        tau_mask=tau_mask, method=method, warm_iters=warm_iters, mesh=mesh,
-        with_ok=with_ok, device=device)
+        tau_mask=tau_mask, method=method, iters=iters, warm_iters=warm_iters,
+        mesh=mesh, with_ok=with_ok, device=device)
+
+
+def make_vlbi_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, n_dish,
+                           npad=3, device=None):
+    """Build the batched VLBI retrieval on ``device`` (``None``: the
+    card): ``fn(dspecs[B, P, nf, nt] complex64, edges[n_edges], eta,
+    tau_mask) → E[B, n_dish, nf, nt]`` complex64, P = n_dish(n_dish+1)/2
+    spectra per chunk in the order [I1, V12, …, V1N, I2, V23, …, IN].
+
+    One device pass: autos mean-padded, crosses zero-padded → fft2 →
+    per-pair θ-θ gather (hermitian for the autos, raw for the crosses)
+    on the masked fixed-shape reduced map → the composite
+    block-hermitian matrix → its dominant eigenpair by
+    ``torch.linalg.eigh`` (the JAX package's dense ``eigh``, outside any
+    kernel) → per-dish wavefield rows at the middle valid θ bin →
+    inverse map → cropped ifft2. The index maps are float64 floors on
+    the host (edges and η are shared by the batch)."""
+    dev = resolve_device(device)
+    g = _geometry(nf_chunk, nt_chunk, dt, df, npad, dev)
+    n_th = n_edges - 1
+    P = (n_dish * (n_dish + 1)) // 2
+    is_auto = np.isin(np.arange(P), vlbi_auto_positions(n_dish))
+    auto_t = torch.as_tensor(is_auto, device=dev)
+    tril = torch.ones((n_th, n_th), dtype=torch.bool, device=dev).tril()
+    anti = torch.eye(n_th, dtype=torch.bool, device=dev).flip(0)
+    NF, NT = (npad + 1) * nf_chunk, (npad + 1) * nt_chunk
+    tau_ax = torch.as_tensor(np.abs(fft_axis(np.arange(nf_chunk) * df,
+                                             pad=npad)), device=dev)
+    scale = nf_chunk * nt_chunk / 4
+
+    def fn(dspecs, edges, eta, tau_mask=0.0):
+        B = dspecs.shape[0]
+        edges = np.asarray(edges, dtype=float)
+        eta = float(eta)
+        mu = dspecs.mean(dim=(2, 3))
+        fill = torch.where(auto_t[None], mu, 0)
+        padded = fill[:, :, None, None].expand(B, P, NF, NT).clone()
+        padded[:, :, :nf_chunk, :nt_chunk] = dspecs
+        CS = torch.fft.fftshift(torch.fft.fft2(padded), dim=(-2, -1))
+        CS = CS.masked_fill((tau_ax < tau_mask)[:, None], 0)
+
+        c = (edges[1:] + edges[:-1]) / 2
+        cents = c - c[np.argmin(np.abs(c))]
+        th1 = cents[None, :] * np.ones((n_th, 1))
+        th2 = th1.T
+        tau_inv = np.floor((eta * (th1 ** 2 - th2 ** 2) - g.tau0
+                            + g.dtau / 2) / g.dtau).astype(int)
+        fd_inv = np.floor(((th1 - th2) - g.fd0 + g.dfd / 2)
+                          / g.dfd).astype(int)
+        pnts = ((tau_inv > 0) & (tau_inv < g.ntau) & (fd_inv < g.nfd)
+                & (fd_inv >= -g.nfd))
+        ti = torch.as_tensor(np.where(pnts, tau_inv, 0), device=dev)
+        fi = torch.as_tensor(np.where(pnts, fd_inv, 0) % g.nfd, device=dev)
+        w = torch.as_tensor(np.sqrt(np.abs(2 * eta * (th2 - th1))),
+                            dtype=torch.float32, device=dev)
+        thth = torch.where(torch.as_tensor(pnts, device=dev),
+                           CS[:, :, ti, fi], 0) * w        # (B, P, n, n)
+        sym = _hermitian_sym(thth, tril, anti)
+        thth = torch.nan_to_num(torch.where(auto_t[None, :, None, None],
+                                            sym, thth))
+        valid_np = ((cents ** 2 * eta < g.tau_max)
+                    & (np.abs(cents) < g.fd_max / 2))
+        valid = torch.as_tensor(valid_np, device=dev)
+        thth = thth * (valid[:, None] & valid[None, :])
+
+        N = n_dish * n_th
+        comp = torch.zeros((B, N, N), dtype=thth.dtype, device=dev)
+        for d1 in range(n_dish):
+            for d2 in range(n_dish - d1):
+                blk = thth[:, vlbi_pair_index(n_dish, d1, d2)]
+                s1 = slice(d1 * n_th, (d1 + 1) * n_th)
+                s2 = slice((d1 + d2) * n_th, (d1 + d2 + 1) * n_th)
+                comp[:, s1, s2] = torch.conj(blk.transpose(-1, -2))
+                comp[:, s2, s1] = blk
+        lam, V = torch.linalg.eigh(comp)
+        wgt = lam[:, -1].abs()
+        V = V[:, :, -1].reshape(B, n_dish, n_th) * valid
+        row = (torch.conj(V) * torch.sqrt(wgt)[:, None, None]).reshape(
+            B * n_dish, n_th)
+        valid_b = valid.expand(B * n_dish, n_th)
+        cents_b = torch.as_tensor(cents, device=dev).expand(B * n_dish, n_th)
+        etas_b = torch.full((B * n_dish,), eta, dtype=torch.float64,
+                            device=dev)
+        recov = _scatter_inverse(row, _row_hot(valid_b), cents_b, etas_b,
+                                 valid_b, g)
+        E = xfft.ifft2_cropped(recov, (nf_chunk, nt_chunk)) * scale
+        return torch.nan_to_num(E).reshape(B, n_dish, nf_chunk, nt_chunk)
+
+    return fn
+
+
+def vlbi_retrieval_batch(dspecs, edges, eta, dt, df, n_dish, npad=3,
+                         tau_mask=0.0, mesh=None, device=None):
+    """Batched VLBI retrieval on ``device``: ``dspecs[B, P, nf, nt]``
+    (P = n_dish(n_dish+1)/2 spectra per chunk, complex cross-spectra)
+    with shared ``edges`` and ``eta`` → per-dish wavefields
+    ``[B, n_dish, nf, nt]`` (complex64 numpy), one device pass for the
+    batch (:func:`make_vlbi_retrieval_fn`, built once per geometry)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet")
+    dev = resolve_device(device)
+    B, P, nf, nt = np.shape(dspecs)
+    if P != (n_dish * (n_dish + 1)) // 2:
+        raise ValueError(f"expected {(n_dish * (n_dish + 1)) // 2} "
+                         f"spectra per chunk for n_dish={n_dish}, got {P}")
+    edges = np.asarray(unit_checks(edges, "edges"), dtype=float)
+    key = ("vlbi", nf, nt, float(dt), float(df), len(edges), int(n_dish),
+           int(npad), str(dev))
+    fn = fifo_cached(_RETRIEVAL_CACHE, key, lambda: make_vlbi_retrieval_fn(
+        nf, nt, dt, df, len(edges), n_dish, npad=npad, device=dev),
+        _CACHE_SIZE)
+    d = (dspecs.to(device=dev, dtype=torch.complex64)
+         if isinstance(dspecs, torch.Tensor)
+         else torch.as_tensor(np.asarray(dspecs), dtype=torch.complex64,
+                              device=dev))
+    E = fn(d, edges, float(unit_checks(eta, "eta")),
+           float(unit_checks(tau_mask) or 0.0))
+    return E.cpu().numpy()
 
 
 # --------------------------------------------------------------------------
@@ -523,9 +747,9 @@ def mosaic_device(chunks, grid_shape=None, device=None):
 
 
 def campaign_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
-                             tau_mask=0.0, method=None, warm_iters=64,
-                             mesh=None, group=None, stitch=True, device=None,
-                             mark=None):
+                             tau_mask=0.0, method=None, iters=1024,
+                             warm_iters=64, mesh=None, group=None,
+                             stitch=True, device=None, mark=None):
     """A campaign's half-overlap chunk grids → per-epoch stitched
     wavefields. ``chunks[E, ncf, nct, cwf, cwt]``; ``edges_per``
     broadcastable to ``(E, ncf, n_edges)`` and ``etas_per`` to
@@ -545,8 +769,8 @@ def campaign_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
         chunks.reshape(n_ep * ncf * nct, cwf, cwt),
         np.repeat(edges_b.reshape(n_ep * ncf, n_edges), nct, axis=0),
         np.repeat(etas_b.reshape(n_ep * ncf), nct), dt, df, npad=npad,
-        tau_mask=tau_mask, method=method, warm_iters=warm_iters, mesh=mesh,
-        group=group, with_ok=True, device_out=stitch, device=device,
+        tau_mask=tau_mask, method=method, iters=iters, warm_iters=warm_iters,
+        mesh=mesh, group=group, with_ok=True, device_out=stitch, device=device,
         mark=mark)
     if not stitch:
         return E.reshape(n_ep, ncf, nct, cwf, cwt), ok.reshape(n_ep, ncf, nct)
@@ -555,6 +779,167 @@ def campaign_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     if mark is not None:
         mark("mosaic")
     return wf, ok.cpu().numpy().reshape(n_ep, ncf, nct)
+
+
+# --------------------------------------------------------------------------
+# global mosaic refinement
+# --------------------------------------------------------------------------
+
+def rot_mos(chunks, x):
+    """Overlap-add of ``chunks[ncf, nct, cwf, cwt]`` with explicit
+    per-chunk phases: ``x[k - 1]`` is the phase of chunk k (row-major;
+    chunk 0 fixed at 0). Numpy, complex128."""
+    chunks = np.asarray(chunks)
+    ncf, nct, cwf, cwt = chunks.shape
+    E = np.zeros(mosaic_shape(ncf, nct, cwf, cwt), dtype=complex)
+    masks = _masks_array(ncf, nct, cwf, cwt)
+    for cf in range(ncf):
+        for ct in range(nct):
+            rot = 0.0 if (cf == 0 and ct == 0) else x[nct * cf + ct - 1]
+            E[cf * cwf // 2: cf * cwf // 2 + cwf,
+              ct * cwt // 2: ct * cwt // 2 + cwt] += \
+                chunks[cf, ct] * masks[cf, ct] * np.exp(1j * rot)
+    return E
+
+
+def rot_init(chunks):
+    """Greedy initial phases for the global rotation fit: each chunk's
+    phase against the canvas stitched so far (ncf·nct − 1 values)."""
+    chunks = np.asarray(chunks)
+    ncf, nct, cwf, cwt = chunks.shape
+    E = np.zeros(mosaic_shape(ncf, nct, cwf, cwt), dtype=complex)
+    x = np.zeros(ncf * nct - 1)
+    for cf in range(ncf):
+        for ct in range(nct):
+            new = chunks[cf, ct]
+            old = E[cf * cwf // 2: cf * cwf // 2 + cwf,
+                    ct * cwt // 2: ct * cwt // 2 + cwt]
+            mask = chunk_mask(cf, ct, ncf, nct, cwf, cwt)
+            rot = np.angle((old * np.conj(new) * mask).mean())
+            E[cf * cwf // 2: cf * cwf // 2 + cwf,
+              ct * cwt // 2: ct * cwt // 2 + cwt] += \
+                new * mask * np.exp(1j * rot)
+            if cf > 0 or ct > 0:
+                x[cf * nct + ct - 1] = rot
+    return x
+
+
+def _torch_stack(masked, phases, amps, shape):
+    """Differentiable overlap-add: ``masked[ncf·nct, cwf, cwt]`` (the
+    masked chunks, row-major) with phases ``[0, *phases]`` and amplitudes
+    ``amps`` summed into the half-overlap canvas of ``shape`` by
+    ``fold`` (one pass for the real part, one for the imaginary)."""
+    n, cwf, cwt = masked.shape
+    phi = torch.cat([phases.new_zeros(1), phases])
+    c = masked * (amps * torch.exp(1j * phi))[:, None, None]
+
+    def fold(x):
+        return torch.nn.functional.fold(
+            x.reshape(1, n, cwf * cwt).transpose(1, 2), shape,
+            (cwf, cwt), stride=(cwf // 2, cwt // 2))[0, 0]
+
+    return torch.complex(fold(c.real), fold(c.imag))
+
+
+def mosaic_objective(chunks, dspec=None, noise=None, mode="rot",
+                     device=None):
+    """The objective of :func:`refine_mosaic` and its gradient by
+    ``torch.autograd``, in float64 / complex128 on ``device``:
+    ``f(x) → (value, gradient)`` (float, numpy). ``mode="rot"``: −Σ|E|²
+    over the ncf·nct − 1 phases; ``mode="full"``: Σ((|E|² − dspec)/noise)²
+    over the phases then the ncf·nct amplitudes (NaN pixels of
+    ``dspec`` weigh 0)."""
+    dev = resolve_device(device)
+    chunks = np.asarray(chunks)
+    ncf, nct, cwf, cwt = chunks.shape
+    nchunk = ncf * nct
+    shape = mosaic_shape(ncf, nct, cwf, cwt)
+    masked = torch.as_tensor(
+        (chunks * _masks_array(ncf, nct, cwf, cwt)).reshape(
+            nchunk, cwf, cwt), dtype=torch.complex128, device=dev)
+    if mode == "rot":
+        ones = torch.ones(nchunk, dtype=torch.float64, device=dev)
+
+        def value(x):
+            E = _torch_stack(masked, x, ones, shape)
+            return -(E.abs() ** 2).sum()
+    elif mode == "full":
+        if dspec is None:
+            raise ValueError("mode='full' requires the observed dspec")
+        d = np.asarray(dspec, dtype=float)[: shape[0], : shape[1]]
+        N = (np.ones_like(d) if noise is None
+             else np.asarray(noise, dtype=float)[: shape[0], : shape[1]])
+        d_t = torch.as_tensor(np.nan_to_num(d), device=dev)
+        w_t = torch.as_tensor(np.where(np.isfinite(d), 1.0 / N, 0.0),
+                              device=dev)
+
+        def value(p):
+            E = _torch_stack(masked, p[: nchunk - 1], p[nchunk - 1:], shape)
+            return (((E.abs() ** 2 - d_t) * w_t) ** 2).sum()
+    else:
+        raise ValueError("mode must be 'rot' or 'full'")
+
+    def f(x):
+        x = torch.tensor(np.asarray(x, dtype=float), device=dev,
+                         requires_grad=True)
+        v = value(x)
+        (g,) = torch.autograd.grad(v, x)
+        return float(v.detach()), g.cpu().numpy()
+
+    f.stack = lambda phases, amps: _torch_stack(
+        masked, torch.as_tensor(phases, dtype=torch.float64, device=dev),
+        torch.as_tensor(amps, dtype=torch.float64, device=dev), shape)
+    return f
+
+
+def refine_mosaic(chunks, dspec=None, noise=None, mode="rot", maxiter=200,
+                  x0=None, device=None):
+    """Global mosaic refinement by L-BFGS: ``mode="rot"`` maximises
+    Σ|E|² over the per-chunk phases; ``mode="full"`` fits phases and
+    amplitudes so that |E|² matches the observed ``dspec`` (weighted by
+    1/``noise``). The objective and its gradient
+    (:func:`mosaic_objective`, ``torch.autograd`` in float64 /
+    complex128 on ``device``) go to scipy's ``L-BFGS-B``; ``x0``
+    overrides the greedy initial phases of :func:`rot_init`. Returns
+    ``(E, res)``: the refined mosaic (complex128 numpy) and scipy's
+    result."""
+    from scipy.optimize import minimize
+
+    chunks = np.asarray(chunks)
+    nchunk = chunks.shape[0] * chunks.shape[1]
+    fun = mosaic_objective(chunks, dspec=dspec, noise=noise, mode=mode,
+                           device=device)
+    x0_phase = (rot_init(chunks) if x0 is None
+                else np.asarray(x0, dtype=float))
+    x0 = (x0_phase if mode == "rot"
+          else np.concatenate([x0_phase, np.ones(nchunk)]))
+    res = minimize(fun, x0, jac=True, method="L-BFGS-B",
+                   options={"maxiter": maxiter})
+    if mode == "rot":
+        return rot_mos(chunks, res.x), res
+    E = fun.stack(res.x[: nchunk - 1], res.x[nchunk - 1:])
+    return E.detach().cpu().numpy(), res
+
+
+def calc_asymmetry(eigenvector, edges_red):
+    """L/R eigenvector-power asymmetry A = (P₊ − P₋)/(P₊ + P₋) over the
+    θ > 0 and θ < 0 components."""
+    cents = th_cents_from_edges(edges_red)
+    V = _numpy(eigenvector)
+    p_pos = np.sum(np.abs(V[cents > 0]) ** 2)
+    p_neg = np.sum(np.abs(V[cents < 0]) ** 2)
+    return (p_pos - p_neg) / (p_pos + p_neg)
+
+
+def err_string(value, error):
+    """Scientific-notation value±error formatter."""
+    if not np.isfinite(value) or not np.isfinite(error) or error <= 0:
+        return f"{value}"
+    exp = int(np.floor(np.log10(np.abs(value)))) if value != 0 else 0
+    v = value / 10 ** exp
+    e = error / 10 ** exp
+    dig = max(0, 1 - int(np.floor(np.log10(e)))) if e > 0 else 2
+    return f"({v:.{dig}f}±{e:.{dig}f})e{exp}"
 
 
 # --------------------------------------------------------------------------
@@ -612,7 +997,12 @@ def gerchberg_saxton(wavefield, dyn, freqs=None, niter=1, rescale=True,
     return out.cpu().numpy()
 
 
-__all__ = ["campaign_retrieval_batch", "chunk_mask", "chunk_retrieval_batch",
-           "gerchberg_saxton", "grid_retrieval_batch", "hbm_group",
-           "make_chunk_retrieval_fn", "mask_func", "mosaic", "mosaic_device",
-           "mosaic_shape", "resolve_retrieval_method"]
+__all__ = ["calc_asymmetry", "campaign_retrieval_batch", "chunk_mask",
+           "chunk_retrieval_batch", "err_string", "gerchberg_saxton",
+           "grid_retrieval_batch", "hbm_group", "make_chunk_retrieval_fn",
+           "make_vlbi_retrieval_fn", "mask_func", "mosaic", "mosaic_device",
+           "mosaic_objective", "mosaic_shape", "refine_mosaic",
+           "resolve_retrieval_method", "rot_init", "rot_mos",
+           "single_chunk_retrieval", "vlbi_auto_positions",
+           "vlbi_chunk_retrieval", "vlbi_pair_index",
+           "vlbi_retrieval_batch"]

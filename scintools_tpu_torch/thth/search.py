@@ -1,13 +1,19 @@
-"""Chunked θ-θ curvature search: the fused route in PyTorch.
+"""Chunked θ-θ curvature search: the single-chunk and fused routes in
+PyTorch.
 
 Counterpart of ``scintools_tpu/thth/search.py``: ``chi_par``/``err_calc``
-(:33-48), ``ChunkSearchResult`` (:50), ``chunk_geometry`` (:93),
-``fit_eig_peak`` (:130, the scipy host oracle), ``_jitted_fused_eval``
-(:234, here a plain dict of built search functions keyed on the
-geometry bytes), ``_fused_results`` (:273) and ``multi_chunk_search``
-(:304). Every call, a single chunk included (B=1), runs the fused
-search of thth/batch.py; the JAX package's staged and single-chunk
-routes are not part of this port.
+(:33-48), ``ChunkSearchResult`` (:50), ``_host_health`` (:74),
+``chunk_geometry`` (:93), ``pad_chunk`` (:108),
+``chunk_conjugate_spectrum`` (:117), ``fit_eig_peak`` (:130, the scipy
+host oracle), ``_quarantine_host`` (:170), ``single_search`` (:182),
+``_jitted_fused_eval`` (:234, here a plain dict of built search
+functions keyed on the geometry bytes), ``_fused_results`` (:273) and
+``multi_chunk_search`` (:304). A single chunk goes to
+:func:`single_search`, as in the JAX package: a float64 host FFT, the
+eigenvalue curve as one chain of the warm-start eigensolver on the
+device, then the scipy peak fit; two or more chunks run the fused
+search of thth/batch.py. The JAX package's staged route
+(``fused=False``) is not part of this port.
 """
 
 from __future__ import annotations
@@ -15,10 +21,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 from scipy.optimize import curve_fit
 
-from ..backend import as_tensor, resolve_device
-from .core import fft_axis, unit_checks
+from ..backend import as_tensor, fifo_cached, resolve_device
+from ..robust import guards
+from .core import eval_calc_batch, fft_axis, unit_checks
 
 
 def chi_par(x, A, x0, C):
@@ -74,6 +82,44 @@ def chunk_geometry(nf=64, nt=64, npad=3, dt=2.0, df=0.05, f0=1400.0,
     return freqs, times, tau, fd, edges
 
 
+def _host_health(dspec, eigs, eta_fit, popt):
+    """The health bitmask of one chunk searched on the host route, as
+    the fused search computes it per lane: input finite, curve
+    non-degenerate, peak fit accepted."""
+    fit_ok = (popt is not None and np.all(np.isfinite(popt))
+              and np.isfinite(eta_fit))
+    in_ok = bool(np.isfinite(np.asarray(dspec)).all())
+    curve = torch.as_tensor(np.asarray(eigs, dtype=float)[None])
+    return int(guards.health_code(
+        input_ok=torch.tensor([in_ok]),
+        curve_ok=guards.curve_health(curve),
+        fit_ok=torch.tensor([bool(fit_ok)]))[0])
+
+
+def pad_chunk(dspec, npad, fill="mean"):
+    """Pad a dynamic-spectrum chunk with ``npad`` extra copies of its
+    mean (``fill="mean"``) or of zero."""
+    value = dspec.mean() if fill == "mean" else 0.0
+    return np.pad(dspec,
+                  ((0, npad * dspec.shape[0]), (0, npad * dspec.shape[1])),
+                  mode="constant", constant_values=value)
+
+
+def chunk_conjugate_spectrum(dspec, time, freq, npad=3, tau_mask=0.0):
+    """``(CS, tau, fd)`` of a padded chunk: the fftshifted complex
+    conjugate spectrum in numpy float64, as the reference computes it,
+    with the rows |τ| < ``tau_mask`` zeroed."""
+    time = np.asarray(unit_checks(time, "time"), dtype=float)
+    freq = np.asarray(unit_checks(freq, "freq"), dtype=float)
+    fd = fft_axis(time, pad=npad, scale=1e3)
+    tau = fft_axis(freq, pad=npad, scale=1.0)
+    dspec_pad = pad_chunk(np.asarray(dspec), npad)
+    CS = np.fft.fftshift(np.fft.fft2(dspec_pad))
+    if tau_mask:
+        CS[np.abs(tau) < float(unit_checks(tau_mask))] = 0
+    return CS, tau, fd
+
+
 def fit_eig_peak(etas, eigs, fw=0.1, full=False):
     """Parabola fit around the eigenvalue peak with scipy (the host
     oracle of thth/peakfit.py). With ``full=True`` also returns
@@ -112,6 +158,45 @@ def fit_eig_peak(etas, eigs, fw=0.1, full=False):
     return out(eta_fit, eta_sig, popt)
 
 
+def _quarantine_host(ok, eta_fit, eta_sig, popt):
+    """NaN the fit of an input- or spectrum-corrupt chunk, as the fused
+    search does per lane."""
+    if int(ok) & (guards.BAD_INPUT | guards.BAD_CS):
+        return np.nan, np.nan, None
+    return eta_fit, eta_sig, popt
+
+
+def single_search(dspec, freq, time, etas, edges, fw=0.1, npad=3,
+                  coher=True, tau_mask=0.0, verbose=False, device=None,
+                  eig="kernel"):
+    """Curvature search on one chunk: the float64 host conjugate
+    spectrum (its magnitude with ``coher=False``) → the eigenvalue curve
+    over ``etas`` as one chain of the warm-start eigensolver on
+    ``device`` (:func:`.core.eval_calc_batch`; ``eig`` as there) → the
+    scipy parabola fit → the health bitmask. Returns a
+    :class:`ChunkSearchResult`."""
+    etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
+    CS, tau, fd = chunk_conjugate_spectrum(dspec, time, freq, npad=npad,
+                                           tau_mask=tau_mask)
+    base = CS if coher else np.abs(CS)
+    eigs = eval_calc_batch(base, tau, fd, etas, edges, device=device,
+                           eig=eig)
+    eta_fit, eta_sig, popt, etas_c, eigs_c = fit_eig_peak(
+        etas, eigs, fw=fw, full=True)
+    ok = _host_health(dspec, eigs, eta_fit, popt)
+    eta_fit, eta_sig, popt = _quarantine_host(ok, eta_fit, eta_sig, popt)
+    freq = np.asarray(unit_checks(freq, "freq"), dtype=float)
+    time = np.asarray(unit_checks(time, "time"), dtype=float)
+    if verbose:
+        print(f"single_search: f={freq.mean():.1f} MHz "
+              f"t={time.mean():.0f} s → eta={eta_fit:.4g} "
+              f"+/- {eta_sig:.2g}")
+    return ChunkSearchResult(eta=eta_fit, eta_sig=eta_sig,
+                             freq_mean=float(freq.mean()),
+                             time_mean=float(time.mean()),
+                             eigs=eigs_c, etas=etas_c, popt=popt, ok=ok)
+
+
 _FUSED_CACHE = {}
 _CACHE_SIZE = 16
 
@@ -126,14 +211,9 @@ def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, eig,
     key = (tau.tobytes(), fd.tobytes(), edges.tobytes(), (int(nf), int(nt)),
            int(npad), bool(coher), float(tau_mask), float(fw), eig,
            str(device))
-    fn = _FUSED_CACHE.get(key)
-    if fn is None:
-        if len(_FUSED_CACHE) >= _CACHE_SIZE:
-            _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
-        fn = _FUSED_CACHE[key] = make_fused_search_fn(
-            tau, fd, edges, nf, nt, npad=npad, coher=coher,
-            tau_mask=tau_mask, fw=fw, eig=eig, device=device)
-    return fn
+    return fifo_cached(_FUSED_CACHE, key, lambda: make_fused_search_fn(
+        tau, fd, edges, nf, nt, npad=npad, coher=coher, tau_mask=tau_mask,
+        fw=fw, eig=eig, device=device), _CACHE_SIZE)
 
 
 def _fused_results(fn, stack, etas, freq, times):
@@ -163,7 +243,8 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     """Curvature search on a batch of same-geometry chunks (e.g. all
     time-chunks of one frequency row) in one fused pass on ``device``:
     mean-pad → conjugate spectrum → masked θ-θ gather → warm-start
-    eigen curve → closed-form parabola peak fit.
+    eigen curve → closed-form parabola peak fit. A single chunk takes
+    :func:`single_search` instead, as in the JAX package.
 
     dspecs : list of (nf, nt) chunk arrays; times : list of per-chunk
     time axes (same spacing). ``eig`` is ``"kernel"`` (the card's
@@ -172,6 +253,10 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     of ChunkSearchResult."""
     dev = resolve_device(device)
     etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
+    if len(dspecs) == 1:
+        return [single_search(dspecs[0], freq, times[0], etas, edges,
+                              fw=fw, npad=npad, coher=coher,
+                              tau_mask=tau_mask, device=dev, eig=eig)]
     stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
                       for d in dspecs])
     _, nf, nt = stack.shape
@@ -185,5 +270,6 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
 
 
-__all__ = ["ChunkSearchResult", "chi_par", "chunk_geometry", "err_calc",
-           "fit_eig_peak", "multi_chunk_search"]
+__all__ = ["ChunkSearchResult", "chi_par", "chunk_conjugate_spectrum",
+           "chunk_geometry", "err_calc", "fit_eig_peak",
+           "multi_chunk_search", "pad_chunk", "single_search"]

@@ -635,6 +635,60 @@ class TestFitArcBatch:
         assert got[0].eta == pytest.approx(ref[0].eta, rel=1e-4)
 
 
+class TestFitArcBatchCache:
+    """The per-geometry cache of ``fit_arc_batch`` (the JAX package's
+    FIFO of 8, scintools_tpu/ops/fitarc.py:362-413)."""
+
+    @staticmethod
+    def _eta(fits):
+        return np.array([[f.eta, f.etaerr, f.etaerr2, f.noise]
+                         for f in fits])
+
+    @pytest.mark.parametrize("on_device", [True, False])
+    def test_repeat_call_builds_nothing_and_keeps_the_bits(self, arc_epochs,
+                                                           on_device):
+        sspecs, tdel, fdop = arc_epochs
+        stats = tfa.ARC_FIT_CACHE_STATS
+        tfa._ARC_FIT_CACHE.clear()
+        kw = dict(numsteps=2000, on_device=on_device, device=CPU)
+        n0 = stats["builds"]
+        fresh = tfa.fit_arc_batch(sspecs, tdel, fdop, **kw)
+        assert stats["builds"] == n0 + 1
+        again = tfa.fit_arc_batch(sspecs, tdel, fdop, **kw)
+        assert stats["builds"] == n0 + 1
+        np.testing.assert_array_equal(self._eta(again), self._eta(fresh))
+        for a, f in zip(again, fresh):
+            np.testing.assert_array_equal(a.profile, f.profile)
+        # the JAX package keeps one entry for the same geometry too
+        jfa._ARC_PROFILE_CACHE.clear()
+        for _ in range(2):
+            jfa.fit_arc_batch(sspecs, tdel, fdop, numsteps=2000,
+                              on_device=on_device)
+        assert len(jfa._ARC_PROFILE_CACHE) == 1 == len(tfa._ARC_FIT_CACHE)
+
+    def test_a_changed_key_builds_and_the_ninth_evicts_the_first(
+            self, arc_epochs):
+        sspecs, tdel, fdop = arc_epochs
+        stats = tfa.ARC_FIT_CACHE_STATS
+        tfa._ARC_FIT_CACHE.clear()
+        n0 = stats["builds"]
+        tfa.fit_arc_batch(sspecs, tdel, fdop, numsteps=2000, device=CPU)
+        for kw in (dict(numsteps=2002), dict(nsmooth=7), dict(cutmid=5),
+                   dict(startbin=4), dict(delmax=tdel[100]),
+                   dict(on_device=False), dict(constraint=(1e-4, 1e-2))):
+            tfa.fit_arc_batch(sspecs, tdel, fdop,
+                              **dict(dict(numsteps=2000, device=CPU), **kw))
+        assert stats["builds"] == n0 + 8
+        assert len(tfa._ARC_FIT_CACHE) == 8
+        first = next(iter(tfa._ARC_FIT_CACHE))
+        tfa.fit_arc_batch(sspecs, tdel, fdop * 1.5, numsteps=2000,
+                          device=CPU)
+        assert stats["builds"] == n0 + 9
+        assert len(tfa._ARC_FIT_CACHE) == 8
+        assert first not in tfa._ARC_FIT_CACHE
+        tfa.fit_arc_batch(sspecs, tdel, fdop, numsteps=2000, device=CPU)
+        assert stats["builds"] == n0 + 10
+
 class TestDeviceTailPieces:
     def test_savgol_matches_scipy(self):
         """The fixed-shape masked savgol against scipy's mode='interp'

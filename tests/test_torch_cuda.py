@@ -1,6 +1,7 @@
 """Card-only checks of the PyTorch/CUDA port: the hand-written kernels
 (the eigensolver's three entries and the arc profile) against their
-plain PyTorch versions on the same CUDA tensors, and the search, the
+plain PyTorch versions on the same CUDA tensors, and the search (one
+chunk and a batch), the
 wavefield retrieval and the survey arc fit run on the card against the
 same calls on the CPU.
 
@@ -119,6 +120,63 @@ def test_search_on_card_matches_cpu(cuda):
         # cuFFT vs pocketfft and kernel vs plain: η to rel 1e-3
         assert g.eta == pytest.approx(c.eta, rel=1e-3)
 
+
+
+@pytest.mark.parametrize("n, neta", [(256, 200), (100, 24)])
+def test_one_chain_matches_plain(cuda, n, neta):
+    """B = 1, the single-chunk search's shape: one chain of ``neta`` η
+    (200 at N = 256; 24 at N = 100, padded to 128) in one launch at a
+    cluster size the card seats, within rtol 1e-4 of plain, with the
+    cold starts the kernel counted for its one chain."""
+    a = torch.from_numpy(teig.pack_padded(_drift(n=n, B=1, neta=neta),
+                                          n)).to(cuda)
+    before = teig.batched_eig_warmstart.launches
+    stats = {}
+    kern = teig.batched_eig_warmstart(a, n // 2, stats=stats)
+    torch.cuda.synchronize()
+    assert teig.batched_eig_warmstart.launches == before + 1
+    (plan,) = stats["plan"]
+    assert plan["chains"] == 1 and plan["cluster"] in teig.CLUSTERS
+    assert plan["resident"] >= 1
+    assert int(stats["cold_per_chain"][0]) == stats["cold"] >= 1
+    plain = teig.batched_eig_warmstart_plain(a, n // 2)
+    np.testing.assert_allclose(kern.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-4)
+
+
+def test_single_search_kernel_matches_plain(cuda):
+    """``single_search`` on the card walks the η grid with the kernel
+    (one launch) and lands where the plain eigensolver does: the curve
+    within rtol 1e-4, η within rel 1e-3."""
+    from scintools_tpu_torch.thth.search import single_search
+
+    rng = np.random.default_rng(5)
+    nf = nt = 64
+    dt, df = 2.0, 0.05
+    freqs = 1400.0 + np.arange(nf) * df
+    times = np.arange(nt) * dt
+    fd = fft_axis(times, pad=1, scale=1e3)
+    tau = fft_axis(freqs, pad=1)
+    eta_true = tau.max() / (fd.max() / 3) ** 2
+    fd_k = np.concatenate([[0.0], rng.uniform(-fd.max() / 3, fd.max() / 3,
+                                              12)])
+    amp = np.concatenate([[1.0], 0.3 * np.exp(1j * rng.uniform(
+        0, 2 * np.pi, 12))])
+    E = (amp[None] * np.exp(2j * np.pi * np.outer(
+        np.arange(nf) * df, eta_true * fd_k ** 2))) @ np.exp(
+            2j * np.pi * 1e-3 * np.outer(fd_k, times))
+    etas = np.linspace(0.5 * eta_true, 2 * eta_true, 40)
+    edges = np.linspace(-fd.max() / 2.2, fd.max() / 2.2, 64)
+    before = teig.batched_eig_warmstart.launches
+    kern = single_search(np.abs(E) ** 2, freqs, times, etas, edges, fw=0.3,
+                         npad=1, device=cuda)
+    assert teig.batched_eig_warmstart.launches == before + 1
+    plain = single_search(np.abs(E) ** 2, freqs, times, etas, edges, fw=0.3,
+                          npad=1, device=cuda, eig="plain")
+    assert kern.ok == plain.ok == 0
+    np.testing.assert_allclose(kern.eigs, plain.eigs, rtol=1e-4)
+    assert kern.eta == pytest.approx(plain.eta, rel=1e-3)
+    assert kern.eta == pytest.approx(eta_true, rel=0.05)
 
 def _aligned_corr(a, b):
     """Per-row |⟨a, b⟩| / (‖a‖‖b‖) of complex (M, n) arrays."""

@@ -331,6 +331,209 @@ class TestRetrievalVsJax:
         np.testing.assert_array_equal(ds.edges, dj.edges)
 
 
+@pytest.fixture(scope="module")
+def arc_small():
+    """The north star's synthetic at 128²: at the default prep (one chunk
+    of the whole spectrum, npad 3) it has 404 θ edges; a 512² spectrum
+    would have ~1800, beyond a CPU test."""
+    n, dt, df, f0 = 128, 2.0, 0.05, 1400.0
+    dyn = tw.make_arc_dynspec(n, n, dt, df, f0, 5e-4, n_images=96, seed=21)
+    return dyn, dt * np.arange(n), f0 + df * np.arange(n)
+
+
+def _shared_methods():
+    return sorted(n for n, v in vars(jdyn.Dynspec).items()
+                  if callable(v) and n in vars(tdyn.Dynspec))
+
+
+class TestFaultsFixed:
+    """Each fault of the façade against the reference, with one input
+    fed to both packages."""
+
+    def test_fit_thetatheta_without_prep(self, arc_small):
+        """No ``prep_thetatheta``: both façades prep with the defaults
+        (one chunk, the Hough seed), then take the one-chunk route.
+        ``ththeta`` at the seeded façade's rel 1e-2; the seeded range and
+        the geometry as ``test_prep_thetatheta_hough_seed`` holds them."""
+        dj, dp = _pair(arc_small)
+        for d in (dj, dp):
+            d.fit_thetatheta()
+        assert (dp.ncf_fit, dp.nct_fit, dp.npad) == (1, 1, 3)
+        assert dp.eta_min == pytest.approx(dj.eta_min, rel=1e-5)
+        assert dp.eta_max == pytest.approx(dj.eta_max, rel=1e-5)
+        assert dp.neta == dj.neta
+        np.testing.assert_array_equal(dp.edges, dj.edges)
+        np.testing.assert_array_equal(dp.eta_evo_ok, dj.eta_evo_ok)
+        assert np.isfinite(dp.ththeta)
+        assert dp.ththeta == pytest.approx(dj.ththeta, rel=1e-2)
+
+    def test_retrieval_without_prep_or_fit(self, arc_small):
+        """``retrieve_wavefield`` and ``calc_asymmetry`` on bare façades
+        fit first, and so prep first, as the reference does."""
+        dyn, times, freqs = arc_small
+        kw = dict(times=times, freqs=freqs)
+        ds = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, **kw), verbose=False,
+                          process=False, device="cpu")
+        wf = ds.retrieve_wavefield()
+        assert (ds.ncf_ret, ds.nct_ret) == (1, 1)
+        assert np.isfinite(ds.ththeta)
+        assert wf.shape == dyn.shape and np.isfinite(wf).all()
+        ds = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, **kw), verbose=False,
+                          process=False, device="cpu")
+        assert np.isfinite(ds.calc_asymmetry()).all()
+
+    def test_load_dyn_obj_processes_by_default(self, arc):
+        """``process=True`` is the default of ``load_dyn_obj`` in both:
+        the reference runs its default processing (the spectrum and ACF
+        appear); the port, which has no processing yet, raises once the
+        data are loaded. ``filename`` and ``lamsteps`` are set as in the
+        reference; ``Dynspec(...)`` keeps ``process=False``."""
+        import inspect
+
+        dyn, times, freqs = arc
+        kw = dict(name="arcsim", times=times, freqs=freqs)
+        for cls in (jdyn.Dynspec, tdyn.Dynspec):
+            sig = inspect.signature(cls.load_dyn_obj)
+            assert sig.parameters["process"].default is True
+            assert inspect.signature(cls).parameters["process"].default \
+                is False
+        dj = jdyn.Dynspec(dyn=jdyn.BasicDyn(dyn, **kw), verbose=False,
+                          backend="jax")
+        dp = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, **kw), verbose=False,
+                          device="cpu")
+        assert not hasattr(dj, "sspec") and not hasattr(dp, "sspec")
+        for d in (dj, dp):
+            assert d.filename is None and d.lamsteps is False
+        dj.load_dyn_obj(jdyn.BasicDyn(dyn, **kw), verbose=False)
+        assert hasattr(dj, "sspec") and hasattr(dj, "acf")
+        with pytest.raises(NotImplementedError, match="processing"):
+            dp.load_dyn_obj(tdyn.BasicDyn(dyn, **kw), verbose=False,
+                            lamsteps=True)
+        assert dp.lamsteps is True
+        np.testing.assert_array_equal(dp.dyn, dyn)
+
+    @pytest.mark.parametrize("name", _shared_methods())
+    def test_reference_parameters_come_first(self, name):
+        """Every method both façades define takes the reference's
+        parameters, in its order and with its defaults, before any of the
+        port's own."""
+        import inspect
+
+        ref = list(inspect.signature(getattr(jdyn.Dynspec, name))
+                   .parameters.values())
+        ours = list(inspect.signature(getattr(tdyn.Dynspec, name))
+                    .parameters.values())
+        assert [p.name for p in ours[:len(ref)]] == [p.name for p in ref]
+        for r, o in zip(ref, ours):
+            assert o.kind == r.kind, r.name
+            same = (o.default is r.default
+                    or np.array_equal(np.asarray(o.default, dtype=object),
+                                      np.asarray(r.default, dtype=object)))
+            assert same, (r.name, o.default, r.default)
+
+    def test_shared_methods_cover_the_port(self):
+        names = _shared_methods()
+        for n in ("__init__", "load_dyn_obj", "calc_sspec", "scale_dyn",
+                  "fit_arc", "norm_sspec", "fit_thetatheta",
+                  "thetatheta_single", "calc_asymmetry",
+                  "thetatheta_chunks", "calc_wavefield"):
+            assert n in names
+        dyn = np.ones((8, 8))
+        bd = tdyn.BasicDyn(dyn, times=np.arange(8.0), freqs=np.arange(8.0))
+        with pytest.raises(NotImplementedError, match="backend"):
+            tdyn.Dynspec(dyn=bd, verbose=False, backend="jax", device="cpu")
+        ds = tdyn.Dynspec(dyn=bd, verbose=False, device="cpu")
+        for call in (lambda: ds.calc_sspec(input_dyn=dyn),
+                     lambda: ds.calc_sspec(return_sspec=True),
+                     lambda: ds.calc_sspec(plot=True),
+                     lambda: ds.fit_thetatheta(time_avg=True),
+                     lambda: ds.fit_thetatheta(plot=True),
+                     lambda: ds.fit_thetatheta(mesh=object()),
+                     lambda: ds.thetatheta_single(plot=True)):
+            with pytest.raises(NotImplementedError):
+                call()
+
+
+class TestOneChunkPerRow:
+    """The façade's serial route (one chunk per frequency row) and the
+    single-chunk diagnostic against the JAX façade."""
+
+    _PREP_ROWS = dict(cwf=64, eta_min=0.1, eta_max=0.9, nedge=32,
+                      edges_lim=2.6, npad=1)
+
+    def test_fit_thetatheta_one_chunk_per_row(self, arc_square):
+        """η per row and ``ththeta`` rel 1e-2 (the single-chunk search's
+        gate against JAX ``single_search``)."""
+        dyn, times, freqs = arc_square
+        kw = dict(name="arcsim", times=times, freqs=freqs)
+        dj = jdyn.Dynspec(dyn=jdyn.BasicDyn(dyn, **kw), verbose=False,
+                          process=False, backend="jax")
+        dp = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, **kw), verbose=False,
+                          process=False, device="cpu")
+        for d in (dj, dp):
+            d.prep_thetatheta(**self._PREP_ROWS)
+        dj.fit_thetatheta()
+        dp.fit_thetatheta(pool=object())
+        assert dp.eta_evo.shape == dj.eta_evo.shape == (4, 1)
+        np.testing.assert_array_equal(dp.eta_evo_ok, dj.eta_evo_ok)
+        np.testing.assert_allclose(dp.eta_evo, dj.eta_evo, rtol=1e-2)
+        np.testing.assert_array_equal(dp.f0s, dj.f0s)
+        np.testing.assert_array_equal(dp.t0s, dj.t0s)
+        assert dp.ththeta == pytest.approx(dj.ththeta, rel=1e-2)
+
+    def test_thetatheta_single(self, jax_fit):
+        """η rel 1e-2; ``arrays=True`` gives ``(etas, eigs, popt)``; the
+        chunk indices clip to the grid."""
+        ds = tdyn.Dynspec.from_reference_state(_state(jax_fit),
+                                               device="cpu")
+        for cf, ct in ((0, 0), (0, 1), (5, 9)):
+            want = jax_fit.thetatheta_single(cf, ct)
+            got = ds.thetatheta_single(cf, ct)
+            assert got.ok == want.ok == 0
+            assert got.eta == pytest.approx(want.eta, rel=1e-2)
+            assert got.time_mean == want.time_mean
+        etas, eigs, popt = ds.thetatheta_single(0, 1, arrays=True)
+        assert len(etas) == len(eigs) and len(popt) == 3
+        plain = ds.thetatheta_single(0, 1, eig="plain")
+        assert plain.eta == got.eta
+
+
+class TestAsymmetryAndMemmap:
+    def test_calc_asymmetry(self, jax_fit):
+        """abs 1e-4 per chunk against the JAX façade at its ``ththeta``."""
+        want = jax_fit.calc_asymmetry()
+        ds = tdyn.Dynspec.from_reference_state(
+            dict(_state(jax_fit), ththeta=jax_fit.ththeta), device="cpu")
+        got = ds.calc_asymmetry(pool=object())
+        assert got.shape == want.shape == (1, 2)
+        assert np.isfinite(got).all() and np.all(np.abs(got) <= 1)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        ds.ththeta = np.nan
+        assert np.isnan(ds.calc_asymmetry()).all()
+
+    def test_memmap_matches_jax(self, arc_square, jax_retrieved, tmp_path,
+                                monkeypatch):
+        """The row-by-row route into ``memmap.dat``, each package in its
+        own working directory: stitched intensities at rel L2 5e-3 (and
+        corr > 0.9999), the port's chunks complex128 on the file."""
+        dj = _jax_dynspec(arc_square)
+        dj.ththeta = jax_retrieved.ththeta
+        (tmp_path / "jax").mkdir()
+        (tmp_path / "port").mkdir()
+        monkeypatch.chdir(tmp_path / "jax")
+        want = dj.calc_wavefield(memmap=True)
+        monkeypatch.chdir(tmp_path / "port")
+        ds = _port_from(jax_retrieved)
+        got = ds.calc_wavefield(memmap=True, pool=object())
+        assert isinstance(ds.chunks, np.memmap)
+        assert ds.chunks.dtype == np.complex128
+        assert (tmp_path / "port" / "memmap.dat").exists()
+        rel, corr = _intensity_gap(got, want)
+        assert rel < 5e-3 and corr > 0.9999, (rel, corr)
+        dense = _port_from(jax_retrieved).calc_wavefield()
+        np.testing.assert_allclose(got, dense, rtol=0,
+                                   atol=1e-6 * np.abs(dense).max())
+
 class TestRejectedInputs:
     def test_device_none_raises_without_a_card(self, arc):
         if torch.cuda.is_available():
@@ -388,13 +591,15 @@ class TestRejectedInputs:
         with pytest.raises(KeyError):
             tdyn.Dynspec.from_reference_state({"dyn": dyn}, device="cpu")
 
-    def test_unported_retrieval_options_raise(self, jax_fit):
+    def test_unported_retrieval_options_raise(self, jax_fit, tmp_path,
+                                              monkeypatch):
+        """``mesh`` and ``gs_mesh`` still raise; ``memmap``, ``pool`` and
+        ``method="power"`` now run (each is held to the JAX package in
+        its own test)."""
         ds = tdyn.Dynspec.from_reference_state(
             dict(_state(jax_fit), ththeta=jax_fit.ththeta), device="cpu")
         with pytest.raises(NotImplementedError):
-            ds.thetatheta_chunks(memmap=True)
-        with pytest.raises(NotImplementedError):
-            ds.thetatheta_chunks(pool=object())
+            ds.thetatheta_chunks(mesh=object())
         with pytest.raises(NotImplementedError):
             ds.calc_wavefield(mesh=object())
         with pytest.raises(NotImplementedError):
@@ -402,9 +607,14 @@ class TestRejectedInputs:
         with pytest.raises(NotImplementedError):
             ds.retrieve_wavefield(mesh=object())
         with pytest.raises(NotImplementedError):
-            ds.retrieve_wavefield(method="power")
-        with pytest.raises(NotImplementedError):
             ds.gerchberg_saxton(mesh=object())
+        monkeypatch.chdir(tmp_path)
+        ds.thetatheta_chunks(memmap=True, pool=object())
+        assert isinstance(ds.chunks, np.memmap)
+        assert (tmp_path / "memmap.dat").exists()
+        wf = ds.retrieve_wavefield(method="power")
+        assert wf.shape == ds.dyn.shape and np.isfinite(wf).all()
+        ds.gerchberg_saxton(pool=object())
 
 
 class TestNorthStarWorkload:

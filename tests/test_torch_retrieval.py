@@ -298,10 +298,8 @@ class TestChunkRetrievalVsJax:
 
     def test_method_names(self):
         assert tret.resolve_retrieval_method(None) == "kernel"
-        for m in ("kernel", "plain", "eigh"):
+        for m in ("kernel", "plain", "eigh", "power"):
             assert tret.resolve_retrieval_method(m) == m
-        with pytest.raises(NotImplementedError):
-            tret.resolve_retrieval_method("power")
         with pytest.raises(ValueError):
             tret.resolve_retrieval_method("pallas")
 
@@ -531,6 +529,193 @@ class TestGerchbergSaxton:
         got = tret.gerchberg_saxton(np.zeros((8, 8)), dyn, device="cpu")
         np.testing.assert_allclose(np.abs(got), 1.0, rtol=1e-6)
 
+
+# ---------------------------------------------------------------------
+# 7b. the rest of retrieval: one chunk, 'power', VLBI, refinement
+# ---------------------------------------------------------------------
+
+def _axes(arc, b=0):
+    chunks, edges, dt, df = arc
+    times = np.arange(64) * dt
+    freqs = 1400.0 + np.arange(64) * df
+    return chunks[b], edges, times, freqs
+
+
+class TestRestOfRetrievalVsJax:
+    def test_single_chunk_retrieval(self, arc):
+        """Phase-aligned corr > 0.9999 and |E|² rel L2 < 5e-3 against
+        the JAX host route; a NaN η (no valid θ-θ square) gives the
+        zero chunk in both."""
+        dspec, edges, times, freqs = _axes(arc)
+        want, f_j, t_j = jret.single_chunk_retrieval(
+            dspec, edges, times, freqs, ETA, idx_t=2, idx_f=1, npad=1,
+            backend="jax")
+        got, f_t, t_t = tret.single_chunk_retrieval(
+            dspec, edges, times, freqs, ETA, idx_t=2, idx_f=1, npad=1,
+            device="cpu")
+        assert (f_t, t_t) == (f_j, t_j) == (1, 2)
+        assert got.shape == want.shape == dspec.shape
+        assert _corr(got, want) > 0.9999
+        assert _intensity_gap(got, want)[0] < 5e-3
+        zero_j = jret.single_chunk_retrieval(dspec, edges, times, freqs,
+                                             np.nan, npad=1,
+                                             backend="jax")[0]
+        zero_t = tret.single_chunk_retrieval(dspec, edges, times, freqs,
+                                             np.nan, npad=1,
+                                             device="cpu")[0]
+        assert not np.any(zero_j) and not np.any(zero_t)
+        assert zero_t.shape == dspec.shape
+
+    def test_power_method(self, arc):
+        """``method="power"`` (1024 cold power steps per chunk) against
+        JAX ``chunk_retrieval_batch(method="power")``: corr > 0.9999."""
+        chunks, edges, dt, df = arc
+        want = jret.chunk_retrieval_batch(chunks[:3], edges, ETA, dt, df,
+                                          npad=1, method="power")
+        got, ok = tret.chunk_retrieval_batch(chunks[:3], edges, ETA, dt, df,
+                                             npad=1, method="power",
+                                             with_ok=True, device="cpu")
+        assert ok.tolist() == [guards.OK] * 3
+        for b in range(3):
+            assert _corr(got[b], want[b]) > 0.9999, b
+
+    @staticmethod
+    def _vlbi(arc, B=2):
+        """Two identical stations: I1 = I2 = V12 = the chunk."""
+        chunks, *_ = arc
+        return np.stack([np.stack([c, c.astype(complex), c])
+                         for c in chunks[:B]])
+
+    def test_vlbi_batch(self, arc):
+        """Per dish corr > 0.9999 against JAX ``vlbi_retrieval_batch``;
+        the two identical dishes agree with each other."""
+        _, edges, dt, df = arc
+        ds = self._vlbi(arc)
+        want = jret.vlbi_retrieval_batch(ds, edges, ETA, dt, df, 2, npad=1)
+        got = tret.vlbi_retrieval_batch(ds, edges, ETA, dt, df, 2, npad=1,
+                                        device="cpu")
+        assert got.shape == want.shape == (2, 2, 64, 64)
+        for b in range(2):
+            for d in range(2):
+                assert _corr(got[b, d], want[b, d]) > 0.9999, (b, d)
+            assert _corr(got[b, 0], got[b, 1]) > 0.9999
+        with pytest.raises(ValueError):
+            tret.vlbi_retrieval_batch(ds[:, :2], edges, ETA, dt, df, 2,
+                                      device="cpu")
+
+    def test_vlbi_chunk_retrieval(self, arc):
+        """The host composite route against JAX's, and against the batch
+        on the same chunk: per dish corr > 0.9999."""
+        dspec, edges, times, freqs = _axes(arc)
+        lst = [dspec, dspec.astype(complex), dspec]
+        want, *_ = jret.vlbi_chunk_retrieval(lst, edges, times, freqs, ETA,
+                                             npad=1, backend="jax")
+        got, f, t = tret.vlbi_chunk_retrieval(lst, edges, times, freqs, ETA,
+                                              idx_t=3, npad=1, device="cpu")
+        assert (f, t) == (0, 3) and len(got) == len(want) == 2
+        _, _, dt, df = arc
+        batch = tret.vlbi_retrieval_batch(self._vlbi(arc, B=1), edges, ETA,
+                                          dt, df, 2, npad=1, device="cpu")
+        for d in range(2):
+            assert _corr(got[d], want[d]) > 0.9999, d
+            assert _corr(got[d], batch[0, d]) > 0.9999, d
+        assert tret.vlbi_auto_positions(3).tolist() == \
+            jret.vlbi_auto_positions(3).tolist()
+        assert [tret.vlbi_pair_index(3, a, b) for a in range(3)
+                for b in range(3 - a)] == [jret.vlbi_pair_index(3, a, b)
+                                           for a in range(3)
+                                           for b in range(3 - a)]
+
+    def test_asymmetry_and_err_string(self, arc):
+        """``calc_asymmetry`` abs 1e-4 on the JAX modeler's own
+        eigenvector, and on the port's; ``err_string`` equal."""
+        from scintools_tpu.thth import core as jcore
+        from scintools_tpu.thth import search as jsearch
+        from scintools_tpu_torch.thth import core as tcore
+
+        dspec, edges, times, freqs = _axes(arc)
+        CS, tau, fd = jsearch.chunk_conjugate_spectrum(dspec, times, freqs,
+                                                       npad=1)
+        out = jcore.modeler(CS, tau, fd, ETA, edges, backend="jax")
+        want = jret.calc_asymmetry(out[6], out[4])
+        assert tret.calc_asymmetry(out[6], out[4]) == pytest.approx(
+            want, abs=1e-12)
+        got = tcore.modeler(CS, tau, fd, ETA, edges, device="cpu")
+        assert tret.calc_asymmetry(got[6], got[4]) == pytest.approx(
+            want, abs=1e-4)
+        for v, e in ((1.2345e-3, 6.7e-6), (5.0, 0.0), (np.nan, 1.0),
+                     (-42.0, 3.1), (0.0, 0.25)):
+            assert tret.err_string(v, e) == jret.err_string(v, e)
+
+
+class TestRefineMosaicVsJax:
+    @staticmethod
+    def _chunks(shape=(3, 3, 16, 16), seed=0):
+        rng = np.random.default_rng(seed)
+        return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+    def test_rot_init_and_rot_mos(self):
+        """rel 1e-6 (both numpy float64)."""
+        ch = self._chunks()
+        x = jret.rot_init(ch)
+        np.testing.assert_allclose(tret.rot_init(ch), x, rtol=1e-6,
+                                   atol=1e-12)
+        assert _rel(tret.rot_mos(ch, x), jret.rot_mos(ch, x)) < 1e-6
+
+    @pytest.mark.parametrize("mode", ["rot", "full"])
+    def test_objective_and_gradient_at_x0(self, mode):
+        """``torch.autograd`` against ``jax.value_and_grad`` of the JAX
+        package's overlap-add: rel 1e-4."""
+        import jax
+
+        ch = self._chunks()
+        masks = jnp.asarray(jret._masks_array(3, 3, 16, 16))
+        x0 = jret.rot_init(ch)
+        dspec = np.abs(jret.rot_mos(ch, x0)) ** 2 + 0.1
+        dspec[3, 4] = np.nan
+        if mode == "rot":
+            p0 = x0
+
+            def obj(x):
+                E = jret._jax_stack(jnp.asarray(ch), masks, x, jnp.ones(9),
+                                    jnp)
+                return -jnp.sum(jnp.abs(E) ** 2)
+        else:
+            p0 = np.concatenate([x0, np.linspace(0.8, 1.2, 9)])
+            d = jnp.asarray(np.nan_to_num(dspec))
+            w = jnp.asarray(np.isfinite(dspec).astype(float))
+
+            def obj(p):
+                E = jret._jax_stack(jnp.asarray(ch), masks, p[:8], p[8:],
+                                    jnp)
+                return jnp.sum(((jnp.abs(E) ** 2 - d) * w) ** 2)
+        v_j, g_j = jax.value_and_grad(obj)(jnp.asarray(p0))
+        v_t, g_t = tret.mosaic_objective(ch, dspec=dspec, mode=mode,
+                                         device="cpu")(p0)
+        assert v_t == pytest.approx(float(v_j), rel=1e-4)
+        assert _rel(g_t, np.asarray(g_j)) < 1e-4
+
+    @pytest.mark.parametrize("mode", ["rot", "full"])
+    def test_refine_mosaic(self, mode):
+        """The final objective of both L-BFGS runs at rel 1e-3, and no
+        worse than at x0."""
+        ch = self._chunks(seed=1)
+        dspec = np.abs(jret.rot_mos(ch, jret.rot_init(ch))) ** 2 + 0.1
+        E_j, res_j = jret.refine_mosaic(ch, dspec=dspec, mode=mode,
+                                        maxiter=20)
+        E_t, res_t = tret.refine_mosaic(ch, dspec=dspec, mode=mode,
+                                        maxiter=20, device="cpu")
+        assert E_t.shape == E_j.shape == tret.mosaic_shape(3, 3, 16, 16)
+        assert res_t.fun == pytest.approx(res_j.fun, rel=1e-3)
+        f = tret.mosaic_objective(ch, dspec=dspec, mode=mode, device="cpu")
+        x0 = tret.rot_init(ch)
+        if mode == "full":
+            x0 = np.concatenate([x0, np.ones(9)])
+        assert res_t.fun <= f(x0)[0]
+        with pytest.raises(ValueError):
+            tret.refine_mosaic(ch, mode="bogus", device="cpu")
+        with pytest.raises(ValueError):
+            tret.refine_mosaic(ch, mode="full", device="cpu")
 
 # ---------------------------------------------------------------------
 # 8. the card by default

@@ -217,12 +217,23 @@ class TestMultiChunkSearch:
             assert o.healthy and o.health == ["ok"]
 
     def test_single_chunk_runs_fused(self):
+        """A single chunk leaves the fused route for ``single_search``,
+        as in the JAX package (its float64 host FFT, then the η chain):
+        held to JAX ``single_search`` at the fused test's rel 1e-2, the
+        health code, curve grid and means equal."""
         chunks, tlist, freqs, etas, edges, eta_true, npad = _arc_chunks(
             nchunk=1)
+        ref = jsearch.single_search(chunks[0], freqs, tlist[0], etas,
+                                    edges, fw=0.3, npad=npad, backend="jax")
         res = tsearch.multi_chunk_search(chunks, freqs, tlist, etas, edges,
                                          fw=0.3, npad=npad, device="cpu")
         assert len(res) == 1
-        assert res[0].eta == pytest.approx(eta_true, rel=0.5)
+        assert np.isfinite(ref.eta) and res[0].ok == ref.ok == 0
+        assert res[0].eta == pytest.approx(ref.eta, rel=1e-2)
+        assert res[0].eta == pytest.approx(eta_true, rel=0.05)
+        np.testing.assert_array_equal(res[0].etas, ref.etas)
+        assert res[0].time_mean == ref.time_mean
+        assert res[0].freq_mean == ref.freq_mean
 
     def test_nan_lane_quarantined_neighbours_bitwise(self):
         chunks, tlist, freqs, etas, edges, _, npad = _arc_chunks(
@@ -259,3 +270,245 @@ class TestMultiChunkSearch:
         with pytest.raises(ValueError):
             tbatch.make_fused_search_fn(tau, fd, edges, 32, 32, npad=3,
                                         device="cpu")
+
+
+# ---------------------------------------------------------------------
+# the host θ-θ core and the single-chunk search
+# ---------------------------------------------------------------------
+
+def _one_chunk(seed=7, nchunk=1):
+    chunks, tlist, freqs, etas, edges, eta_true, npad = _arc_chunks(
+        nchunk=nchunk, seed=seed)
+    CS, tau, fd = jsearch.chunk_conjugate_spectrum(chunks[0], tlist[0],
+                                                   freqs, npad=npad)
+    return chunks, tlist, freqs, etas, edges, eta_true, npad, CS, tau, fd
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _rel(a, b):
+    """max |a − b| over max |b|."""
+    a, b = _np(a), _np(b)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+class TestCoreVsJax:
+    """``thth/core.py`` and the single-chunk search against the JAX
+    package (x64 on the CPU). The index maps are the same float64
+    floors, so masks, reduced edges and bins are equal; values differ by
+    the port's complex64."""
+
+    @pytest.mark.parametrize("scale", [0.5, 1.0, 1.7])
+    @pytest.mark.parametrize("hermetian", [True, False])
+    def test_thth_map_redmap_and_mask(self, scale, hermetian):
+        from scintools_tpu.thth import core as jcore
+
+        *_, edges, eta_true, _, CS, tau, fd = _one_chunk()
+        eta = scale * eta_true
+        np.testing.assert_array_equal(
+            tcore.redmap_mask(tau, fd, eta, edges),
+            jcore.redmap_mask(tau, fd, eta, edges))
+        want = np.asarray(jcore.thth_map(CS, tau, fd, eta, edges,
+                                         hermetian=hermetian,
+                                         backend="jax"))
+        got = tcore.thth_map(CS, tau, fd, eta, edges, hermetian=hermetian,
+                             device="cpu")
+        assert got.dtype == torch.complex64
+        np.testing.assert_array_equal(_np(got) != 0, want != 0)
+        assert _rel(got, want) < 1e-6
+        want_r, e_want = jcore.thth_redmap(CS, tau, fd, eta, edges,
+                                           hermetian=hermetian,
+                                           backend="jax")
+        got_r, e_got = tcore.thth_redmap(CS, tau, fd, eta, edges,
+                                         hermetian=hermetian, device="cpu")
+        np.testing.assert_array_equal(e_got, e_want)
+        assert got_r.shape == np.shape(want_r)
+        assert _rel(got_r, want_r) < 1e-6
+
+    def test_thth_redmap_raises_without_a_valid_square(self):
+        *_, edges, _, _, CS, tau, fd = _one_chunk()
+        for eta in (np.nan, 1e9):
+            with pytest.raises(ValueError):
+                tcore.thth_redmap(CS, tau, fd, eta, edges, device="cpu")
+        assert not tcore.thth_map(CS, tau, fd, np.nan, edges,
+                                  device="cpu").any()
+
+    @pytest.mark.parametrize("hermetian", [True, False])
+    def test_rev_map(self, hermetian):
+        """rel 1e-5 of the largest bin on a θ-θ with a zero diagonal
+        (the hermitian map's), so no bin divides a value by f_D = 0."""
+        from scintools_tpu.thth import core as jcore
+
+        *_, edges, eta_true, _, CS, tau, fd = _one_chunk()
+        thth, e_red = jcore.thth_redmap(CS, tau, fd, eta_true, edges,
+                                        backend="jax")
+        thth = np.asarray(thth)
+        want = np.asarray(jcore.rev_map(thth, tau, fd, eta_true, e_red,
+                                        hermetian=hermetian, backend="jax"))
+        got = tcore.rev_map(thth, tau, fd, eta_true, e_red,
+                            hermetian=hermetian, device="cpu")
+        assert got.shape == want.shape == (len(tau), len(fd))
+        assert _rel(got, want) < 1e-5
+
+    def test_dominant_eig_power(self):
+        from scintools_tpu.thth import core as jcore
+
+        *_, edges, eta_true, _, CS, tau, fd = _one_chunk()
+        thth = np.asarray(jcore.thth_redmap(CS, tau, fd, eta_true, edges,
+                                            backend="jax")[0])
+        lam_j, v_j = jcore.dominant_eig_power(thth, backend="jax")
+        lam_t, v_t = tcore.dominant_eig_power(thth, device="cpu")
+        assert float(lam_t) == pytest.approx(float(lam_j), rel=1e-5)
+        v_j = np.asarray(v_j)
+        corr = np.abs(np.vdot(v_j, _np(v_t))) / (
+            np.linalg.norm(v_j) * np.linalg.norm(_np(v_t)))
+        assert corr > 1 - 1e-5
+        # a batch iterates together: each matrix as alone
+        lam_b, _ = tcore.dominant_eig_power(
+            torch.as_tensor(np.stack([thth, 2 * thth])))
+        np.testing.assert_allclose(_np(lam_b), [float(lam_t),
+                                                2 * float(lam_t)],
+                                   rtol=1e-6)
+        assert tcore.eval_calc(CS, tau, fd, eta_true, edges,
+                               device="cpu") == pytest.approx(
+            jcore.eval_calc(CS, tau, fd, eta_true, edges, backend="jax"),
+            rel=1e-5)
+
+    def test_eval_calc_batch_power(self):
+        from scintools_tpu.thth import core as jcore
+
+        *_, etas, edges, _, _, CS, tau, fd = _one_chunk()
+        want = jcore.eval_calc_batch(CS, tau, fd, etas, edges,
+                                     backend="jax", method="power")
+        got = tcore.eval_calc_batch(CS, tau, fd, etas, edges, device="cpu",
+                                    method="power")
+        assert got.shape == want.shape == etas.shape
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+
+    def test_eval_calc_batch_auto_is_the_warm_start(self):
+        """``"auto"`` walks the η grid as one warm-start chain (the plain
+        version on the CPU): held to the JAX Pallas kernel in interpret
+        mode at rel 1e-4; ``make_eval_fn`` is its B = 1 wrapper, and a
+        repeated call reuses the built function."""
+        import jax.numpy as jnp
+        from scintools_tpu.thth import core as jcore
+
+        *_, etas, edges, _, _, CS, tau, fd = _one_chunk()
+        want = np.asarray(jcore.make_eval_fn(
+            tau, fd, edges, method="pallas", interpret=True)(
+                jnp.asarray(jcore.cs_to_ri(CS)), jnp.asarray(etas)))
+        got = tcore.eval_calc_batch(CS, tau, fd, etas, edges, device="cpu")
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        n = len(tcore._EVAL_CACHE)
+        again = tcore.eval_calc_batch(CS, tau, fd, etas, edges,
+                                      device="cpu")
+        assert len(tcore._EVAL_CACHE) == n
+        np.testing.assert_array_equal(again, got)
+        fn = tcore.make_eval_fn(tau, fd, edges, method="auto",
+                                device="cpu")
+        one = fn(torch.as_tensor(tcore.cs_to_ri(CS), dtype=torch.float32),
+                 etas)
+        np.testing.assert_array_equal(_np(one), got.astype(np.float32))
+        with pytest.raises(ValueError, match="unknown method"):
+            tcore.make_eval_fn(tau, fd, edges, method="square",
+                               device="cpu")
+
+    @pytest.mark.parametrize("hermetian", [True, False])
+    def test_modeler_and_chisq(self, hermetian):
+        """rel 1e-4. The reference's rank-1 model keeps its diagonal,
+        whose ``rev_map`` weight divides by f_D = 0: its f_D = τ = 0 bin
+        holds the dtype's largest value after ``nan_to_num`` (float64's
+        there, float32's here), so ``model`` is that value over the bin
+        count everywhere and χ² is inf in both packages. Every other bin
+        of ``recov`` is held at rel 1e-4; ``model`` over its dtype's
+        largest value likewise."""
+        from scintools_tpu.thth import core as jcore
+
+        chunks, *_, edges, eta_true, _, CS, tau, fd = _one_chunk()
+        want = jcore.modeler(CS, tau, fd, eta_true, edges,
+                             hermetian=hermetian, backend="jax")
+        got = tcore.modeler(CS, tau, fd, eta_true, edges,
+                            hermetian=hermetian, device="cpu")
+        assert len(got) == len(want) == 8 - hermetian
+        for k in (0, 1):
+            assert _rel(got[k], want[k]) < 1e-4
+        np.testing.assert_array_equal(got[4], want[4])
+        r_j, r_t = np.asarray(want[2]), _np(got[2])
+        huge = np.abs(r_j) > 1e300
+        np.testing.assert_array_equal(np.abs(r_t) > 1e38, huge)
+        assert huge.sum() == 1
+        assert _rel(np.where(huge, 0, r_t), np.where(huge, 0, r_j)) < 1e-4
+        m_j = np.asarray(want[3]) / np.finfo(np.float64).max
+        m_t = _np(got[3]) / np.finfo(np.float32).max
+        assert _rel(m_t, m_j) < 1e-4
+        if hermetian:
+            assert got[5] == pytest.approx(want[5], rel=1e-4)
+            dspec = chunks[0] - chunks[0].mean()
+            with np.errstate(over="ignore"):
+                want_c = jcore.chisq_calc(dspec, CS, tau, fd, eta_true,
+                                          edges, 1.0, backend="jax")
+            got_c = tcore.chisq_calc(dspec, CS, tau, fd, eta_true, edges,
+                                     1.0, device="cpu")
+            assert got_c == want_c == np.inf
+        else:
+            assert got[6] == pytest.approx(want[6], rel=1e-4)
+
+    def test_arc_geometry_helpers(self):
+        from scintools_tpu.thth import core as jcore
+
+        x = np.linspace(-3, 3, 11)
+        np.testing.assert_array_equal(tcore.len_arc(x, 0.3),
+                                      jcore.len_arc(x, 0.3))
+        for n in (16, 33):
+            np.testing.assert_array_equal(
+                tcore.arc_edges(0.3, 0.5, 0.2, 7.0, n),
+                jcore.arc_edges(0.3, 0.5, 0.2, 7.0, n))
+        y = np.linspace(0, 2, 5)
+        assert tcore.ext_find(x, y) == jcore.ext_find(x, y)
+
+    def test_pad_chunk_and_conjugate_spectrum(self):
+        """``pad_chunk`` equal; the float64 host spectrum to rel 1e-12
+        (both numpy)."""
+        chunks, tlist, freqs, *_ = _one_chunk()
+        for fill in ("mean", "zero"):
+            np.testing.assert_array_equal(
+                tsearch.pad_chunk(chunks[0], 2, fill=fill),
+                jsearch.pad_chunk(chunks[0], 2, fill=fill))
+        for tau_mask in (0.0, 0.5):
+            want = jsearch.chunk_conjugate_spectrum(
+                chunks[0], tlist[0], freqs, npad=1, tau_mask=tau_mask)
+            got = tsearch.chunk_conjugate_spectrum(
+                chunks[0], tlist[0], freqs, npad=1, tau_mask=tau_mask)
+            assert got[0].dtype == np.complex128
+            assert _rel(got[0], want[0]) < 1e-12
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[2], want[2])
+
+    @pytest.mark.parametrize("coher", [True, False])
+    def test_single_search(self, coher):
+        """η rel 1e-2 against JAX ``single_search`` (whose CPU route is
+        its power iteration; the port's the warm-start chain)."""
+        chunks, tlist, freqs, etas, edges, eta_true, npad, *_ = \
+            _one_chunk(seed=19)
+        want = jsearch.single_search(chunks[0], freqs, tlist[0], etas,
+                                     edges, fw=0.3, npad=npad, coher=coher,
+                                     backend="jax")
+        got = tsearch.single_search(chunks[0], freqs, tlist[0], etas, edges,
+                                    fw=0.3, npad=npad, coher=coher,
+                                    device="cpu")
+        assert got.ok == want.ok
+        assert np.isfinite(got.eta)
+        assert got.eta == pytest.approx(want.eta, rel=1e-2)
+        assert got.popt is not None and len(got.eigs) == len(got.etas)
+
+    def test_single_search_quarantines_a_corrupt_chunk(self):
+        chunks, tlist, freqs, etas, edges, _, npad, *_ = _one_chunk()
+        bad = faults.inject_nan_pixels(chunks[0], frac=0.05, seed=2)
+        want = jsearch.single_search(bad, freqs, tlist[0], etas, edges,
+                                     npad=npad, backend="jax")
+        got = tsearch.single_search(bad, freqs, tlist[0], etas, edges,
+                                    npad=npad, device="cpu")
+        assert got.ok == want.ok and got.ok & tguards.BAD_INPUT
+        assert not np.isfinite(got.eta) and got.popt is None
