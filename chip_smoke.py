@@ -1,6 +1,7 @@
-"""Drive the PyTorch/CUDA port on one card: the θ-θ curvature search,
-the wavefield retrieval, the Hough seed of the façade and the survey
-arc fit.
+"""Drive the PyTorch/CUDA port on one card: the θ-θ curvature search
+(standard and thin-screen), the wavefield retrieval, the Hough seed of
+the façade, the survey arc fit, and a psrflux file from write to θ-θ
+fit.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -69,7 +70,43 @@ Phases, each of which exits non-zero on failure:
    device tail, with ``torch.profiler`` over one fit (device time and
    busy share) and over its profile stage alone (every launch from the
    spectra to the fold); 6.3 held to the float64 host tail and to the
-   truth, and a bitwise rerun.
+   truth, and a bitwise rerun;
+7. the single-chunk search and the rest of retrieval on the façade of
+   phase 4 (7.1–7.7, see ``single_chunk_phase``);
+8. the thin-screen and traced-geometry searches at the north star's
+   width (8×8 chunks of 512², npad 1, 200 η, phase 4's η range, a
+   (8, 200, 255, 255) complex64 two-curve stack per row): 8.1 the
+   façade's ``prep_thetatheta(fitting_proc="thin")`` → ``fit_thetatheta``
+   (one fused thin function per row), its σ curves within rtol 2e-3 and
+   η within 2e-3 of the staged route, the evaluator at 600 steps within
+   5e-3 of the float64 host SVD on 2 chunks × 10 η, ``ththeta`` within 5%
+   of η_true, the builds counted and row 0's stages (spectra, gather,
+   Gram, power iteration) timed by CUDA events; 8.2
+   ``fit_thetatheta(time_avg=True)``: no build, the same ``eta_evo``, and
+   ``ththeta`` the float64 host formula bit for bit; 8.3
+   ``make_fused_grid_eval_fn`` and ``make_thin_grid_eval_fn`` over all 64
+   chunks, each with its row's scaled edges and η, within rtol 2e-3 of
+   the per-row evaluators. No hand-written kernel runs in phase 8: the
+   thin and grid evaluators take the cold power iteration in both
+   packages;
+9. a psrflux file from write to θ-θ fit: 9.1 a 1024 × 1025 observation
+   of the north star's synthetic with a short leading subint, 16 zeroed
+   channels at each band edge, 4 zeroed RFI channels, 1% NaN pixels and
+   5 spikes of 50σ, written by ``write_file`` (52 MB) into a temporary
+   directory and read back equal; 9.2 ``Dynspec(filename,
+   process=True)`` (biharmonic refill) and, on a second instance,
+   ``default_processing`` (linear ``griddata`` refill), ``zap``,
+   ``correct_dyn`` and ``cut_dyn(tcuts=3, fcuts=3)``, each stage timed:
+   trim removed exactly the edges, the short subint is gone, no NaN is
+   left, the ACF peaks at 1 at its centre and is point-symmetric, the
+   spectra are finite, every spike is zapped; 9.3 ``calc_acf`` of phase
+   4's 4096² façade (an 8192² real round trip) within 1e-5 of the dense
+   route; 9.4 ``prep_thetatheta(cwf=256, cwt=256, npad=1)`` with an
+   explicit η range and ``fit_thetatheta`` on the processed file (the
+   eig_warmstart kernel): ``eta_evo_ok`` 0 outside the damaged chunks,
+   ``ththeta`` within 5% of η_true and 1e-3 of the plain eigensolver's;
+   9.5 ``sort_dyn`` over the file and a truncated copy: one good, one
+   bad with its reason.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -91,8 +128,9 @@ north-star run and read just after it, then zeroed again just before
 the façade and read just after ``fit_thetatheta``, again for the Hough
 seed's façade; for the eigenvector entry zeroed just before the timed
 ``retrieve_wavefield`` and read just after it; for the arc profile just
-before and after one ``fit_arc_batch`` (then timed over three more); for
-the cold-only entry
+before and after one ``fit_arc_batch`` (then timed over three more);
+for eig_warmstart again just before and after the psrflux file's
+``fit_thetatheta`` (9.4); for the cold-only entry
 (no path of the package calls it) around its own call in phase 2. Each
 must be > 0. It prints a ``{"kernels": [...]}`` line (``launches`` is
 the sum over the paths that run the kernel, with each path's count
@@ -632,20 +670,24 @@ def main():
     arc = survey_arc_phase(dev, ptxas)
     lap("6 survey arc fit")
     one = single_chunk_phase(ds, prob, bd, eta_true, ret.pop("rgap"), dev)
+    thin = thin_grid_phase(prob, bd, eta_true, dev)
+    flux = psrflux_phase(ds, eta_true, dev)
 
     launches_h = hough.pop("launches")
     launches_1 = one.pop("launches_single_chunk")
     launches_r = one.pop("launches_one_chunk_rows")
+    launches_p = flux.pop("launches")
     print(json.dumps({"kernels": [{
         "name": "eig_warmstart", "route": "cuda",
         "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
         "replaces": "scintools_tpu/thth/pallas_eig.py:217",
         "launches": launches_ns + launches_f + launches_h + launches_1
-        + launches_r,
+        + launches_r + launches_p,
         "launches_north_star": launches_ns, "launches_facade": launches_f,
         "launches_hough_facade": launches_h,
         "launches_single_chunk": launches_1,
         "launches_one_chunk_rows": launches_r,
+        "launches_psrflux_fit": launches_p,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -664,7 +706,8 @@ def main():
         "north_star_ms": ns_ms, "north_star_stage_ms": stages,
         "north_star_device_busy_share": share,
         "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
-        "single_chunk_and_retrieval": one, "phase_s": PHASE_S}),
+        "single_chunk_and_retrieval": one, "thin_and_grid": thin,
+        "psrflux": flux, "phase_s": PHASE_S}),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1345,6 +1388,461 @@ def single_chunk_phase(ds, prob, bd, eta_true, rgap, dev):
     out.update(memmap_s=walls[True], memmap_in_memory_s=walls[False],
                memmap_max_abs_diff=diff)
     lap("7.7 memmap")
+    return out
+
+
+def thin_grid_phase(prob, bd, eta_true, dev):
+    """Phase 8 at the north star's width (8×8 chunks of 512², npad 1,
+    200 η, N = 255, phase 4's η range): 8.1 the façade's thin-screen fit
+    (one fused thin function per frequency row) against the staged route
+    and, on 2 chunks × 10 η, the evaluator at 600 steps against the
+    float64 host SVD, with its stages timed; 8.2 ``time_avg`` against
+    the host formula; 8.3 the traced-geometry grid evaluators over all
+    64 chunks against the per-row evaluators. No hand-written kernel
+    runs here: both packages take the cold power iteration. Returns its
+    numbers."""
+    from scintools_tpu_torch import Dynspec
+    from scintools_tpu_torch.thth import batch as TB
+    from scintools_tpu_torch.thth import core as C
+    from scintools_tpu_torch.thth import search as S
+
+    out = {}
+    print("[8.1] thin-screen fit_thetatheta at full width", flush=True)
+    prep = dict(fitting_proc="thin", cwf=512, cwt=512, npad=1,
+                eta_min=0.5 * eta_true, eta_max=2 * eta_true, neta=N_ETA,
+                nedge=256, edges_lim=prob["th_lim"])
+    builds0 = S.FUSED_CACHE_STATS["builder_calls"]
+    t0 = time.perf_counter()
+    ds = Dynspec(dyn=bd, process=False, verbose=False)
+    ds.prep_thetatheta(**prep)
+    ds.fit_thetatheta()
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    builds = S.FUSED_CACHE_STATS["builder_calls"] - builds0
+    evo, th81 = ds.eta_evo.copy(), ds.ththeta
+    th_err = (th81 - eta_true) / eta_true
+    med = float(np.nanmedian(np.abs(evo - eta_true) / eta_true))
+    print(f"    wall {wall_first:.3f} s with {builds} builds (one per row); "
+          f"ththeta {ds.ththeta:.6g} ({th_err:+.4%} from truth), median "
+          f"eta_evo error {med:.4%}, eta_evo_ok nonzero "
+          f"{int((ds.eta_evo_ok != 0).sum())}", flush=True)
+    check(builds == ds.ncf_fit, "thin fit: not one build per row")
+    check(np.isfinite(ds.ththeta) and abs(th_err) < 0.05,
+          "thin ththeta not within 5% of truth")
+
+    # the fused rows against the staged route (float64 host FFT, the
+    # device evaluator, the scipy fit), every row
+    n_arc, worst_curve, worst_eta, stage_ms = [], 0.0, 0.0, {}
+    t_staged = time.perf_counter()
+    for cf in range(ds.ncf_fit):
+        row = [ds._chunk(cf, ct) for ct in range(ds.nct_fit)]
+        chunks, tlist, freq2 = [r[0] for r in row], [r[2] for r in row], \
+            row[0][1]
+        etas, edges = ds._thth_row_geometry(freq2)
+        arclet = edges[np.abs(edges) < ds.arclet_lim]
+        n_arc.append(len(arclet))
+        args = (chunks, freq2, tlist, etas, edges, arclet, ds.center_cut)
+        fused = S.multi_chunk_search_thin(*args, fw=ds.fw, npad=ds.npad)
+        staged = S.multi_chunk_search_thin(*args, fw=ds.fw, npad=ds.npad,
+                                           fused=False)
+        for f, st in zip(fused, staged):
+            check(f.eigs.shape == st.eigs.shape and np.isfinite(f.eta)
+                  == np.isfinite(st.eta), "fused and staged thin routes "
+                  "differ in shape or refusal")
+            worst_curve = max(worst_curve, float(np.max(
+                np.abs(f.eigs - st.eigs) / np.abs(st.eigs))))
+            if np.isfinite(st.eta):
+                worst_eta = max(worst_eta, abs(f.eta / st.eta - 1))
+        if cf == 0:
+            row0 = (chunks, tlist, freq2, etas, edges, arclet)
+    t_staged = time.perf_counter() - t_staged
+    print(f"    fused vs staged, all {ds.ncf_fit} rows: σ curves max rel "
+          f"{worst_curve:.3e}, η max rel {worst_eta:.3e} (gates 2e-3); "
+          f"arclet edges per row {n_arc}; both routes {t_staged:.3f} s",
+          flush=True)
+    check(worst_curve <= 2e-3 and worst_eta <= 2e-3,
+          "fused thin search differs from the staged route")
+
+    # row 0's stages by CUDA events: rfft2 spectra, gather, Gram, power
+    chunks, tlist, freq2, etas, edges, arclet = row0
+    tau = C.fft_axis(freq2, pad=ds.npad)
+    fd = C.fft_axis(tlist[0], pad=ds.npad, scale=1e3)
+    ev = TB.make_thin_eval_fn(tau, fd, edges, arclet, ds.center_cut,
+                              device=dev)
+    stack = torch.as_tensor(np.stack(chunks), dtype=torch.float32,
+                            device=dev)
+    for _ in range(2):                       # warm-up, then the timed run
+        marks = Marks()
+        cs_ri = TB._chunk_cs_to_ri(stack, ds.npad, None, True, power=True)[0]
+        marks("spectra")
+        a = ev.build(cs_ri, etas)
+        marks("gather")
+        gram, scale = ev.gram(a)
+        marks("gram")
+        sig = ev.solve(gram, scale)
+        marks("power")
+        stage_ms = marks.totals()
+    total = sum(stage_ms.values())
+    print(f"    row 0 ({len(chunks)} chunks, two-curve stack "
+          f"{tuple(a.shape)} complex64, {a.numel() * 8 / 1e9:.2f} GB): "
+          + ", ".join(f"{k} {v:.3f} ms ({v / total:.1%})"
+                      for k, v in stage_ms.items()), flush=True)
+    del a, gram, scale, sig, cs_ri
+
+    # the evaluator at 600 steps against the float64 host SVD
+    sel = np.linspace(0, len(etas) - 1, 10).round().astype(int)
+    ev600 = TB.make_thin_eval_fn(tau, fd, edges, arclet, ds.center_cut,
+                                 iters=600, device=dev)
+    worst_svd = 0.0
+    for b in range(2):
+        CS, _, _ = S.chunk_conjugate_spectrum(chunks[b], tlist[b], freq2,
+                                              npad=ds.npad)
+        got = ev600(torch.as_tensor(C.cs_to_ri(CS)[None], dtype=torch.float32,
+                                    device=dev), etas[sel]).cpu().numpy()[0]
+        ref = np.array([C.singularvalue_calc(CS, tau, fd, e, edges, e,
+                                             arclet, ds.center_cut)
+                        for e in etas[sel]])
+        worst_svd = max(worst_svd, float(np.max(np.abs(got - ref) / ref)))
+    print(f"    2 chunks x 10 η at 600 steps vs the float64 host SVD: max "
+          f"rel {worst_svd:.3e} (gate 5e-3)", flush=True)
+    check(worst_svd <= 5e-3, "thin evaluator differs from the host SVD")
+    lap("8.1 thin fit")
+
+    # 8.2 time_avg: a second fit of the same geometry builds nothing and
+    # gives the same eta_evo; ththeta is the host formula, bit for bit
+    builds0 = S.FUSED_CACHE_STATS["builder_calls"]
+    t0 = time.perf_counter()
+    ds.fit_thetatheta(time_avg=True)
+    torch.cuda.synchronize()
+    wall_again = time.perf_counter() - t0
+    rebuilt = S.FUSED_CACHE_STATS["builder_calls"] - builds0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        eta_avg = np.nanmean(ds.eta_evo, 1)
+        count = np.nansum(ds.eta_evo, 1) / eta_avg
+        err = np.nanstd(ds.eta_evo, 1) / np.sqrt(count - 1)
+        ok = np.isfinite(eta_avg) & np.isfinite(err)
+        A = (np.sum(eta_avg[ok] / (ds.f0s * err)[ok] ** 2)
+             / np.sum(1 / (ds.f0s ** 2 * err)[ok] ** 2))
+    same_evo = bool(np.array_equal(ds.eta_evo, evo, equal_nan=True))
+    print(f"[8.2] time_avg: wall {wall_again:.3f} s, {rebuilt} builds, "
+          f"eta_evo bitwise as 8.1 {same_evo}; ththeta {ds.ththeta:.9g}, "
+          f"host formula {A / ds.fref ** 2:.9g}", flush=True)
+    check(rebuilt == 0, "a repeated thin fit rebuilt its functions")
+    check(ds.ththeta == A / ds.fref ** 2, "time_avg ththeta is not the "
+          "host formula")
+    lap("8.2 time_avg")
+    out.update(fit_wall_s=wall_first, fit_wall_cached_s=wall_again,
+               builds=builds, ththeta=th81, ththeta_rel_err=th_err,
+               ththeta_time_avg=ds.ththeta,
+               eta_evo_median_err=med, fused_vs_staged_curve_rel=worst_curve,
+               fused_vs_staged_eta_rel=worst_eta, vs_host_svd_rel=worst_svd,
+               row0_stage_ms=stage_ms, arclet_edges_per_row=n_arc)
+
+    # 8.3 the grid evaluators over all 64 chunks, each with its row's
+    # scaled edges and η, against the per-row evaluators
+    print("[8.3] traced-geometry grid evaluators, all chunks", flush=True)
+    rows = [[ds._chunk(cf, ct) for ct in range(ds.nct_fit)]
+            for cf in range(ds.ncf_fit)]
+    geo = [ds._thth_row_geometry(r[0][1]) for r in rows]
+    nct = ds.nct_fit
+    stack = torch.as_tensor(np.stack([c[0] for r in rows for c in r]),
+                            dtype=torch.float32, device=dev)
+    etas_b = np.repeat(np.stack([g[0] for g in geo]), nct, axis=0)
+    edges_b = np.repeat(np.stack([g[1] for g in geo]), nct, axis=0)
+    arclets = [g[1][np.abs(g[1]) < ds.arclet_lim] for g in geo]
+    arclet_b = np.repeat(TB.pad_arclet_edges(arclets, np.abs(ds.edges).max()),
+                         nct, axis=0)
+    nf, nt = ds.cwf, ds.cwt
+    grid = TB.make_fused_grid_eval_fn(tau, fd, len(ds.edges), nf, nt,
+                                      npad=ds.npad, fw=ds.fw, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (eigs, eta_g, _, _, ok_g), grid_ms = timed(
+        lambda: grid(stack, edges_b, etas_b))
+    grid_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cs = TB._chunk_cs_to_ri(stack, ds.npad, None, True)[0]
+    worst_grid, row_ms = 0.0, 0.0
+    for cf, (etas_r, edges_r) in enumerate(geo):
+        multi = TB.make_multi_eval_fn(tau, fd, edges_r, method="power",
+                                      device=dev)
+        ref, ms = timed(lambda: multi(cs[cf * nct:(cf + 1) * nct], etas_r))
+        row_ms += ms
+        got = eigs[cf * nct:(cf + 1) * nct]
+        worst_grid = max(worst_grid, ((got - ref).abs() / ref.abs())
+                         .max().item())
+    del eigs, cs
+    print(f"    fused grid: {stack.shape[0]} chunks in one call, "
+          f"{grid_ms:.3f} ms (peak {grid_peak:.2f} GiB allocated), per-row "
+          f"'power' evaluators {row_ms:.3f} ms; |λ| max rel {worst_grid:.3e} "
+          f"(gate 2e-3); ok nonzero {int((ok_g != 0).sum())}", flush=True)
+    check(worst_grid <= 2e-3, "grid evaluator differs from the per-row one")
+    cs = TB._chunk_cs_to_ri(stack, ds.npad, None, True, power=True)[0]
+    thin_grid = TB.make_thin_grid_eval_fn(tau, fd, len(ds.edges),
+                                          arclet_b.shape[1], ds.center_cut,
+                                          device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    sig_g, thin_ms = timed(lambda: thin_grid(cs, edges_b, arclet_b, etas_b))
+    thin_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    worst_thin, thin_row_ms = 0.0, 0.0
+    for cf, ((etas_r, edges_r), arc_r) in enumerate(zip(geo, arclets)):
+        tev = TB.make_thin_eval_fn(tau, fd, edges_r, arc_r, ds.center_cut,
+                                   device=dev)
+        ref, ms = timed(lambda: tev(cs[cf * nct:(cf + 1) * nct], etas_r))
+        thin_row_ms += ms
+        got = sig_g[cf * nct:(cf + 1) * nct]
+        worst_thin = max(worst_thin, ((got - ref).abs() / ref.abs())
+                         .max().item())
+    print(f"    thin grid: {thin_ms:.3f} ms (peak {thin_peak:.2f} GiB "
+          f"allocated), per-row thin evaluators {thin_row_ms:.3f} ms; σ max "
+          f"rel {worst_thin:.3e} (gate 2e-3)", flush=True)
+    check(worst_thin <= 2e-3, "thin grid evaluator differs from the per-row "
+          "one")
+    del sig_g, cs, stack
+    lap("8.3 grid evaluators")
+    out.update(grid_ms=grid_ms, grid_rows_ms=row_ms, grid_peak_gib=grid_peak,
+               grid_vs_rows_rel=worst_grid, thin_grid_ms=thin_ms,
+               thin_grid_rows_ms=thin_row_ms, thin_grid_peak_gib=thin_peak,
+               thin_grid_vs_rows_rel=worst_thin)
+    return out
+
+
+def stage_walls(obj, names, walls):
+    """Shadow the methods ``names`` of the instance ``obj`` with wrappers
+    that add each call's wall (host clock, card synchronised) to
+    ``walls[name]``."""
+    for name in names:
+        def wrapped(*a, _fn=getattr(obj, name), _name=name, **k):
+            t0 = time.perf_counter()
+            r = _fn(*a, **k)
+            torch.cuda.synchronize()
+            walls[_name] = walls.get(_name, 0.0) + time.perf_counter() - t0
+            return r
+        setattr(obj, name, wrapped)
+
+
+def faulty_file_spectrum(nf=1024, nt=1024, edge=16, seed=2024):
+    """Phase 9's observation: the north star's synthetic (η_true 5e-4, 96
+    images, seed 21, dt 2 s, df 0.05 MHz from 1400 MHz) at ``nf`` × ``nt``
+    with the faults of a telescope file: a leading subint of 1 s, ``edge``
+    zeroed channels at each band edge, 4 zeroed RFI channels in the top
+    chunk row, 1% NaN pixels and 5 spikes of 50σ in chunk (0, 0). Returns
+    ``(dyn[nf, nt + 1], times, freqs, rfi, spikes)``."""
+    from scintools_tpu_torch import workloads as W
+
+    rng = np.random.default_rng(seed)
+    dyn = W.make_arc_dynspec(nt, nf, 2.0, 0.05, 1400.0, 5e-4, 96, seed=21)
+    dyn = np.concatenate([0.5 * dyn[:, :1], dyn], axis=1)
+    times = np.concatenate([[0.0], 1.0 + 2.0 * np.arange(nt)])
+    freqs = 1400.0 + 0.05 * np.arange(nf)
+    dyn[:edge] = 0
+    dyn[nf - edge:] = 0
+    rfi = edge + 600 + np.arange(4)
+    dyn[rfi] = 0
+    dyn[rng.random(dyn.shape) < 0.01] = np.nan
+    spikes = [(edge + 20 + 40 * k, 1 + 30 + 45 * k) for k in range(5)]
+    level = np.nanmedian(dyn) + 50 * np.nanstd(dyn)
+    for f, t in spikes:
+        dyn[f, t] = level
+    return dyn, times, freqs, rfi, spikes
+
+
+def psrflux_phase(ds4, eta_true, dev):
+    """Phase 9: a psrflux file from write to θ-θ fit. 9.1 write a
+    1024 × 1024 observation with injected faults (``faulty_file_spectrum``)
+    by ``write_file`` and read it back; 9.2 ``Dynspec(filename,
+    process=True)`` and, on a second instance, ``default_processing``,
+    ``zap``, ``correct_dyn`` and ``cut_dyn``, each stage timed; 9.3
+    ``calc_acf`` of phase 4's 4096² façade ``ds4`` against the dense
+    route; 9.4 the θ-θ fit of the processed file (the eig_warmstart
+    kernel) against truth and the plain eigensolver; 9.5 ``sort_dyn``
+    over the file and a truncated copy. Returns its numbers (key
+    ``launches``: eig_warmstart in 9.4)."""
+    import shutil
+    import tempfile
+
+    from scintools_tpu_torch import BasicDyn, Dynspec
+    from scintools_tpu_torch.dynspec import sort_dyn
+    from scintools_tpu_torch.io.psrflux import load_psrflux
+    from scintools_tpu_torch.ops import acf as A
+    from scintools_tpu_torch.thth import core as C
+    from scintools_tpu_torch.thth import eig as E
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_psrflux_")
+    try:
+        edge = 16
+        dyn, times, freqs, rfi, spikes = faulty_file_spectrum(edge=edge)
+        nf, nt1 = dyn.shape
+        path = os.path.join(tmp, "obs.dynspec")
+        t0 = time.perf_counter()
+        src = Dynspec(dyn=BasicDyn(dyn, name="obs.dynspec", times=times,
+                                   freqs=freqs, mjd=60000.0),
+                      process=False, verbose=False)
+        src.write_file(path, verbose=False)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_psrflux(path)
+        read_s = time.perf_counter() - t0
+        same = (np.array_equal(back.dyn, dyn, equal_nan=True)
+                and np.array_equal(back.freqs, freqs)
+                and np.allclose(back.times, times, rtol=0, atol=1e-9))
+        mb = os.path.getsize(path) / 1e6
+        print(f"[9.1] psrflux file {nf} x {nt1} ({mb:.1f} MB): write "
+              f"{write_s:.3f} s, np.loadtxt read {read_s:.3f} s; read back "
+              f"equal {same}", flush=True)
+        check(same, "the file read back differs from the written spectrum")
+        lap("9.1 write and read")
+
+        # 9.2 the reference default on load, then the default processing
+        walls_a, walls_b = {}, {}
+        da = Dynspec.__new__(Dynspec)
+        stage_walls(da, ("remove_short_subs", "trim_edges", "refill",
+                         "calc_acf", "calc_sspec"), walls_a)
+        t0 = time.perf_counter()
+        da.__init__(filename=path, process=True, verbose=False)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        db = Dynspec.__new__(Dynspec)
+        stage_walls(db, ("load_file", "trim_edges", "refill", "calc_acf",
+                         "calc_sspec"), walls_b)
+        db.__init__(filename=path, process=False, verbose=False)
+        db.default_processing()
+        walls_b = dict(walls_b)          # cut_dyn's own calls come later
+        trimmed = (np.array_equal(da.freqs, freqs[edge:nf - edge])
+                   and da.dyn.shape == (nf - 2 * edge, nt1 - 1))
+        short_gone = (da.nsub == nt1 - 1 and da.dt == 2.0
+                      and np.allclose(da.times, 2.0 * np.arange(nt1 - 1),
+                                      rtol=0, atol=1e-9))
+        for name, d in (("biharmonic", da), ("linear", db)):
+            nfr, ntr = d.dyn.shape
+            acf = d.acf
+            peak = acf[nfr, ntr]
+            sym = float(np.abs(acf[1:, 1:] - acf[1:, 1:][::-1, ::-1]).max())
+            print(f"[9.2] {name} refill: dyn {d.dyn.shape} finite "
+                  f"{bool(np.isfinite(d.dyn).all())}; ACF {acf.shape} peak "
+                  f"{peak:.6f} at the centre (max {acf.max():.6f}), point "
+                  f"asymmetry {sym:.3e}; sspec {d.sspec.shape} finite "
+                  f"{bool(np.isfinite(d.sspec).all())}", flush=True)
+            check(np.isfinite(d.dyn).all(), f"{name} refill left NaN")
+            check(abs(peak - 1) < 1e-6 and acf.max() == peak,
+                  f"{name}: the ACF does not peak at 1 at its centre")
+            check(sym <= 1e-5, f"{name}: the ACF is not point-symmetric")
+            check(np.isfinite(d.sspec).all(), f"{name}: sspec not finite")
+        print(f"    trim removed exactly the {edge}+{edge} edge channels "
+              f"{trimmed}; the short subint removed {short_gone}", flush=True)
+        check(trimmed, "trim_edges did not remove exactly the edges")
+        check(short_gone, "remove_short_subs did not remove the short "
+              "subint")
+        for name, call in (("zap", db.zap), ("correct_dyn", db.correct_dyn),
+                           ("cut_dyn", lambda: db.cut_dyn(tcuts=3, fcuts=3))):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls_b[name] = time.perf_counter() - t0
+            if name == "zap":
+                zapped = all(np.isnan(db.dyn[f - edge, t - 1])
+                             for f, t in spikes)
+                n_zapped = int(np.isnan(db.dyn).sum())
+        cut_ok = (db.cutdyn.shape[:2] == (4, 4)
+                  and np.isfinite(db.cutacf).all())
+        print(f"    zap NaN'd every spike {zapped} ({n_zapped} pixels); "
+              f"correct_dyn finite "
+              f"{bool(np.isfinite(db.dyn).all())}; cut_dyn tiles "
+              f"{db.cutdyn.shape}, cutsspec {db.cutsspec.shape}", flush=True)
+        check(zapped, "zap missed an injected spike")
+        check(np.isfinite(db.dyn).all() and cut_ok,
+              "correct_dyn or cut_dyn gave non-finite output")
+        print("    stage walls s, process=True: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in walls_a.items())
+            + f"; all {wall_a:.3f}", flush=True)
+        print("    stage walls s, second instance: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in walls_b.items()), flush=True)
+        out.update(file_mb=mb, write_s=write_s, read_s=read_s,
+                   process_true_s=wall_a, process_true_stage_s=walls_a,
+                   second_instance_stage_s=walls_b)
+        lap("9.2 load and process")
+
+        # 9.3 the ACF of the 4096² façade at full width
+        nf4, nt4 = ds4.dyn.shape
+        t0 = time.perf_counter()
+        ds4.calc_acf()
+        acf_s = time.perf_counter() - t0
+        _, acf_ms = timed(lambda: A.autocovariance(ds4.dyn, device=dev))
+        dense, dense_ms = timed(lambda: A.autocovariance(
+            ds4.dyn, variant="dense", device=dev))
+        gap = float(np.abs(ds4.acf - dense.cpu().numpy()).max())
+        del dense
+        print(f"[9.3] calc_acf on the {nf4}x{nt4} façade ({2 * nf4}² round "
+              f"trip): wall {acf_s:.3f} s; autocovariance on the card "
+              f"{acf_ms:.3f} ms real, {dense_ms:.3f} ms dense; max |Δ| "
+              f"{gap:.3e} of the peak 1 (gate 1e-5)", flush=True)
+        check(gap <= 1e-5, "the real ACF route differs from the dense one")
+        out.update(acf_4096_wall_s=acf_s, acf_4096_ms=acf_ms,
+                   acf_4096_dense_ms=dense_ms, acf_4096_vs_dense=gap)
+        lap("9.3 ACF 4096")
+
+        # 9.4 the θ-θ fit of the processed file (the eig_warmstart kernel)
+        # the north star's edge limit at this chunk size
+        tau = C.fft_axis(da.freqs[:256], pad=1)
+        fd = C.fft_axis(da.times[:256], pad=1, scale=1e3)
+        th_lim = 0.95 * min(np.sqrt(tau.max() / (2 * eta_true)), fd.max() / 2)
+        da.prep_thetatheta(cwf=256, cwt=256, npad=1, eta_min=0.5 * eta_true,
+                           eta_max=2 * eta_true, nedge=256, edges_lim=th_lim)
+        E.batched_eig_warmstart.launches = 0
+        t0 = time.perf_counter()
+        da.fit_thetatheta()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = E.batched_eig_warmstart.launches
+        th_kern, ok_grid = da.ththeta, da.eta_evo_ok.copy()
+        da.fit_thetatheta(eig="plain")
+        th_plain = da.ththeta
+        rel_true = (th_kern - eta_true) / eta_true
+        rel_plain = abs(th_kern / th_plain - 1)
+        rows = (rfi - edge) // da.cwf
+        damaged = np.zeros_like(ok_grid, dtype=bool)
+        damaged[rows[rows < da.ncf_fit]] = True
+        for f, t in spikes:
+            cf, ct = (f - edge) // da.cwf, (t - 1) // da.cwt
+            if cf < da.ncf_fit and ct < da.nct_fit:
+                damaged[cf, ct] = True
+        print(f"[9.4] fit_thetatheta on the processed file: "
+              f"{da.ncf_fit}x{da.nct_fit} chunks of {da.cwf}², {da.neta} η, "
+              f"wall {fit_s:.3f} s, eig_warmstart launches {launches}; "
+              f"ththeta {th_kern:.6g} ({rel_true:+.4%} from truth), plain "
+              f"{th_plain:.6g} (rel {rel_plain:.3e}); eta_evo_ok {ok_grid.tolist()}"
+              f", damaged chunks {damaged.astype(int).tolist()}", flush=True)
+        check(launches > 0, "the file's fit never launched eig_warmstart")
+        check(bool((ok_grid[~damaged] == 0).all()), "undamaged chunks "
+              "flagged")
+        check(np.isfinite(th_kern) and abs(rel_true) < 0.05,
+              "the file's ththeta not within 5% of truth")
+        check(rel_plain <= 1e-3, "the file's ththeta differs from the plain "
+              "eigensolver's")
+        out.update(launches=launches, fit_s=fit_s, ththeta=th_kern,
+                   ththeta_rel_err=rel_true, ththeta_rel_vs_plain=rel_plain,
+                   eta_evo_ok=ok_grid.tolist())
+        lap("9.4 file fit")
+
+        # 9.5 sort_dyn over the file and a truncated copy
+        cut = os.path.join(tmp, "cut.dynspec")
+        with open(path, "rb") as fh:
+            data = fh.read()
+        with open(cut, "wb") as fh:
+            fh.write(data[:len(data) // 2])
+        t0 = time.perf_counter()
+        good, bad = sort_dyn([path, cut], verbose=False)
+        sort_s = time.perf_counter() - t0
+        good_l = open(good).read().split()
+        bad_l = open(bad).read().splitlines()
+        print(f"[9.5] sort_dyn over 2 files: {sort_s:.3f} s; good {good_l}; "
+              f"bad {bad_l[1:]}", flush=True)
+        check(good_l == [path] and len(bad_l) == 2
+              and bad_l[1].startswith(cut + "\t malformed"),
+              "sort_dyn lists are wrong")
+        out.update(sort_s=sort_s)
+        lap("9.5 sort_dyn")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -17,12 +17,14 @@ with the JAX package ``scintools_tpu``, whose layout and function
 names it keeps.
 """
 
-from .dynspec import BasicDyn, Dynspec
+from .dynspec import BasicDyn, Dynspec, MatlabDyn, sort_dyn
+from .io.psrflux import load_psrflux, write_psrflux
 from .ops.sspec import secondary_spectrum
 from .thth.retrieval import (campaign_retrieval_batch, gerchberg_saxton,
                              grid_retrieval_batch, mosaic_device)
-from .thth.search import multi_chunk_search
+from .thth.search import multi_chunk_search, multi_chunk_search_thin
 
-__all__ = ["BasicDyn", "Dynspec", "campaign_retrieval_batch",
-           "gerchberg_saxton", "grid_retrieval_batch", "mosaic_device",
-           "multi_chunk_search", "secondary_spectrum"]
+__all__ = ["BasicDyn", "Dynspec", "MatlabDyn", "campaign_retrieval_batch",
+           "gerchberg_saxton", "grid_retrieval_batch", "load_psrflux",
+           "mosaic_device", "multi_chunk_search", "multi_chunk_search_thin",
+           "secondary_spectrum", "sort_dyn", "write_psrflux"]

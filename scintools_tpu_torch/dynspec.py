@@ -1,46 +1,65 @@
-"""Dynspec façade of the port: secondary spectra, arc curvature, θ-θ
-curvature fit and wavefield retrieval.
+"""Dynspec façade of the port: psrflux files and their processing,
+secondary spectra and ACFs, arc curvature, θ-θ curvature fits (standard,
+incoherent and thin-screen) and wavefield retrieval.
 
-Counterpart of ``scintools_tpu/dynspec.py``: ``BasicDyn`` (:2148),
-``Dynspec.__init__`` (:73), ``load_dyn_obj`` (:105), ``scale_dyn``
-(:357, equal-wavelength only), ``_select_dyn`` (:441), ``calc_sspec``
-(:462, with ``lamsteps``), ``_select_sspec`` (:575), ``fit_arc`` (:596),
-``norm_sspec`` (:689), ``prep_thetatheta`` (:1240, with the Hough seed
-of :1277-1296), ``_chunk`` (:1341), ``thetatheta_single`` (:1354),
-``fit_thetatheta`` (:1416, the batched row branch :1443-1489, the
-serial branch :1527-1536 and the weighted global η ∝ f⁻² fit
-:1538-1581), ``thetatheta_chunks`` (:1787, the batched grid branch and
-the row-by-row ``memmap`` branch), ``calc_wavefield`` (:1888),
-``_retrieval_grid_inputs`` (:1915), ``retrieve_wavefield`` (:1934),
-``gerchberg_saxton`` (:1974) and ``calc_asymmetry`` (:1990). Every
-shared method takes the reference's parameters in the reference's
-order; the port's own (``eig``, ``device``, ``mark``) come after them.
-State accretes on the instance as in the JAX package (``self.sspec``,
+Counterpart of ``scintools_tpu/dynspec.py``: ``Dynspec.__init__`` (:73),
+``load_file`` (:90), ``load_dyn_obj`` (:105), ``_adopt`` (:129),
+``_as_raw`` (:145), ``write_file`` (:151), ``__add__`` (:161),
+``remove_short_subs`` (:176), ``trim_edges`` (:193, with ``_trim_freq``
+and ``_trim_time``), ``crop_dyn`` (:246), ``zap`` (:269), ``refill``
+(:276, every method), ``correct_dyn`` (:298), ``scale_dyn`` (:357,
+equal-wavelength only), ``_select_dyn`` (:441), ``calc_sspec`` (:462),
+``calc_acf`` (:511), ``cut_dyn`` (:533, without ``plot``),
+``_select_sspec`` (:575), ``fit_arc`` (:596), ``norm_sspec`` (:689),
+``prep_thetatheta`` (:1240, with the Hough seed of :1277-1296 and the
+thin-screen limits of :1303-1324), ``_chunk`` (:1341),
+``thetatheta_single`` (:1354), ``fit_thetatheta`` (:1416, the batched row
+branch :1443-1489, the serial branch :1527-1536 and the weighted global
+η ∝ f⁻² fit :1538-1581, ``time_avg`` included), ``thetatheta_chunks``
+(:1787, the batched grid branch and the row-by-row ``memmap`` branch),
+``calc_wavefield`` (:1888), ``_retrieval_grid_inputs`` (:1915),
+``retrieve_wavefield`` (:1934), ``gerchberg_saxton`` (:1974),
+``calc_asymmetry`` (:1990), ``auto_processing``, ``default_processing``
+and ``info`` (:2033-2061), ``BasicDyn`` (:2148), ``MatlabDyn`` (:2177)
+and ``sort_dyn`` (:2646). Every shared method takes the reference's
+parameters in the reference's order; the port's own (``eig``,
+``device``, ``mark``) come after them. State accretes on the instance as
+in the JAX package (``self.dyn``, ``self.acf``, ``self.sspec``,
 ``self.lamsspec``, ``self.betaeta``, ``self.eta_evo``, ``self.ththeta``,
-``self.chunks``, ``self.wavefield``, …) as numpy arrays; the
-computation runs on ``self.device``.
+``self.chunks``, ``self.wavefield``, …) as numpy arrays. The FFTs, the
+median refill's sort and the θ-θ work run on ``self.device``; the steps
+that are host numpy in the JAX package (parsing, trimming, the
+biharmonic and ``griddata`` refills, the SVD flux model) stay on the
+host.
 
-Not in this slice: file loading and processing (``process=True``),
-velocity and trapezoid rescaling, plotting, the thin-screen search,
-``time_avg``, ``input_dyn``/``return_sspec`` and the ``mesh`` options;
-a value that is not ported raises ``NotImplementedError``. ``pool`` is
-accepted and ignored, as the JAX package does off its numpy backend.
+Not ported: velocity and trapezoid rescaling, plotting and the ``mesh``
+options raise ``NotImplementedError``; ``SimDyn`` and ``HoloDyn`` are
+not here. ``pool`` is accepted and ignored, as the JAX package does off
+its numpy backend.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from .backend import resolve_device
+from .io.psrflux import RawDynSpec, concatenate_time, load_psrflux, \
+    write_psrflux
+from .ops import acf as acf_ops
 from .ops import fitarc as fitarc_ops
+from .ops import inpaint as inpaint_ops
 from .ops import normsspec as normsspec_ops
 from .ops import scale as scale_ops
 from .ops import sspec as sspec_ops
+from .ops.interp import interp_nan_2d
 from .ops.scale import SPEED_OF_LIGHT
 from .robust.guards import BAD_CS, BAD_INPUT
 from .thth import core as thth_core
 from .thth import retrieval as thth_ret
 from .thth import search as thth_search
+from .utils.misc import is_valid, svd_model
 
 _STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
                "nct_fit", "ncf_ret", "nct_ret", "npad", "fw", "fref",
@@ -62,18 +81,20 @@ class Dynspec:
     def __init__(self, filename=None, dyn=None, verbose=True, process=False,
                  lamsteps=False, remove_short_subs=True, subint_thresh=2.33,
                  mjd=None, backend=None, device=None):
-        """``remove_short_subs``, ``subint_thresh`` and ``mjd`` act on
-        file loading, which is not ported; ``backend`` is the JAX
-        package's and must stay None: the port runs on ``device``."""
+        """Load the psrflux file ``filename`` (:meth:`load_file`) or the
+        adapter object ``dyn`` (:meth:`load_dyn_obj`). ``backend`` is the
+        JAX package's and must stay None: the port runs on ``device``."""
         _not_ported(backend=backend)
         self.device = resolve_device(device)
         if filename:
-            raise NotImplementedError("file loading is not ported yet; "
-                                      "pass dyn=BasicDyn(...)")
-        if dyn is None:
+            self.load_file(filename, verbose=verbose, process=process,
+                           lamsteps=lamsteps, subint_thresh=subint_thresh,
+                           remove_short_subs=remove_short_subs, mjd=mjd)
+        elif dyn is not None:
+            self.load_dyn_obj(dyn, verbose=verbose, process=process,
+                              lamsteps=lamsteps)
+        else:
             raise ValueError("No dynamic spectrum file or object")
-        self.load_dyn_obj(dyn, verbose=verbose, process=process,
-                          lamsteps=lamsteps)
 
     @classmethod
     def from_reference_state(cls, state, device=None):
@@ -81,9 +102,10 @@ class Dynspec:
         plain numpy/float values named as the JAX ``Dynspec`` holds them
         after ``prep_thetatheta`` (``dyn, times, freqs, dt, df, cwf,
         cwt, ncf_fit, nct_fit, ncf_ret, nct_ret, npad, fw, fref, eta_min,
-        eta_max, neta, edges, thth_tau_mask, thetatheta_proc``) — ready
-        for :meth:`fit_thetatheta`. An optional ``ththeta`` (the fitted
-        curvature) makes it ready for retrieval without a fit."""
+        eta_max, neta, edges, thth_tau_mask, thetatheta_proc``, and
+        ``arclet_lim`` and ``center_cut`` when the proc is ``"thin"``) —
+        ready for :meth:`fit_thetatheta`. An optional ``ththeta`` (the
+        fitted curvature) makes it ready for retrieval without a fit."""
         missing = [k for k in _STATE_KEYS if k not in state]
         if missing:
             raise KeyError(f"reference state lacks {missing}")
@@ -96,16 +118,39 @@ class Dynspec:
         if "ththeta" in state:
             self.ththeta = float(state["ththeta"])
         if self.thetatheta_proc == "thin":
-            raise NotImplementedError("the thin-screen search is not "
-                                      "ported yet")
+            missing = [k for k in ("arclet_lim", "center_cut")
+                       if k not in state]
+            if missing:
+                raise KeyError(f"thin reference state lacks {missing}")
+            self.arclet_lim = float(state["arclet_lim"])
+            self.center_cut = float(state["center_cut"])
         self.name = state.get("name", "reference")
         return self
 
+    # ------------------------------------------------------------------
+    # loading and writing
+    # ------------------------------------------------------------------
+    def load_file(self, filename, verbose=True, process=False,
+                  lamsteps=False, remove_short_subs=True, subint_thresh=2.33,
+                  mjd=None):
+        """Load a psrflux file (host numpy); drop short leading subints
+        when the subint spacing varies; with ``process``, run
+        :meth:`auto_processing`."""
+        ds = load_psrflux(filename, mjd=mjd)
+        self._adopt(ds)
+        if remove_short_subs and np.std(np.diff(self.times)) != 0:
+            self.remove_short_subs(threshold=subint_thresh)
+        self.lamsteps = lamsteps
+        if process:
+            self.auto_processing(lamsteps=lamsteps)
+        if verbose:
+            print(f"LOADED {filename}")
+            self.info()
+
     def load_dyn_obj(self, dyn, verbose=True, process=True, lamsteps=False):
-        """Load from an adapter object such as :class:`BasicDyn`. The
-        default processing that ``process=True`` runs is not ported yet,
-        so that raises ``NotImplementedError`` once the data are
-        loaded."""
+        """Load from an adapter object such as :class:`BasicDyn`; with
+        ``process`` (the default here, as in the reference), run
+        :meth:`default_processing`."""
         self.name = dyn.name
         self.header = list(getattr(dyn, "header", []))
         self.times = np.asarray(dyn.times, dtype=float)
@@ -123,10 +168,219 @@ class Dynspec:
         self.filename = getattr(dyn, "filename", None)
         self.lamsteps = lamsteps
         if process:
-            raise NotImplementedError("default processing is not ported "
-                                      "yet; pass process=False")
+            self.default_processing(lamsteps=lamsteps)
         if verbose:
             print(f"LOADED DYNSPEC OBJECT {dyn.name}")
+            self.info()
+
+    def _adopt(self, ds):
+        self.name = ds.name
+        self.header = list(ds.header)
+        self.times = np.asarray(ds.times, dtype=float)
+        self.freqs = np.asarray(ds.freqs, dtype=float)
+        self.nchan = ds.nchan
+        self.nsub = ds.nsub
+        self.bw = ds.bw
+        self.df = ds.df
+        self.freq = ds.freq
+        self.dt = ds.dt
+        self.tobs = ds.tobs
+        self.mjd = ds.mjd
+        self.dyn = np.array(ds.dyn, dtype=float)
+        self.filename = ds.filename
+
+    def _as_raw(self):
+        return RawDynSpec(dyn=self.dyn, times=self.times, freqs=self.freqs,
+                          mjd=self.mjd, name=self.name, header=self.header,
+                          dt=self.dt, df=self.df, bw=self.bw,
+                          freq=self.freq, tobs=self.tobs)
+
+    def write_file(self, filename=None, verbose=True, note=None):
+        """Write a psrflux file (by default beside the loaded one, as
+        ``<name>.processed.<ext>``)."""
+        if filename is None:
+            ext = self.filename.split(".")[-1]
+            filename = (".".join(self.filename.split(".")[:-1])
+                        + ".processed." + ext)
+        write_psrflux(self._as_raw(), filename, note=note)
+        if verbose:
+            print(f"Wrote dynamic spectrum file as {filename}")
+
+    def __add__(self, other):
+        """Time-concatenate, zero-filling the MJD gap; the sum lives on
+        this instance's device."""
+        cat = concatenate_time(self._as_raw(), other._as_raw())
+        return Dynspec(dyn=BasicDyn(
+            cat.dyn, name=cat.name, header=cat.header, times=cat.times,
+            freqs=cat.freqs, nchan=cat.nchan, nsub=cat.nsub, bw=cat.bw,
+            df=cat.df, freq=cat.freq, tobs=cat.tobs, dt=cat.dt,
+            mjd=cat.mjd), verbose=False, process=False, device=self.device)
+
+    # ------------------------------------------------------------------
+    # processing (host numpy, as in the JAX package; the median refill
+    # sorts on the device)
+    # ------------------------------------------------------------------
+    def remove_short_subs(self, threshold=2.33):
+        """Remove short leading subints."""
+        diffs = np.abs(np.diff(self.times))
+        while (len(diffs) > 1
+               and diffs[0] - np.mean(diffs[1:])
+               <= -threshold * np.std(diffs[1:])
+               and np.std(diffs[1:]) >= 0
+               and diffs[0] != np.mean(diffs[1:])):
+            self.dyn = np.delete(self.dyn, 0, axis=1)
+            self.times = np.delete(self.times, 0)
+            diffs = np.abs(np.diff(self.times))
+        self.mjd += np.min(self.times) / 86400
+        self.times = self.times - np.min(self.times)
+        self.nsub = len(self.times)
+        self.dt = round(float(np.mean(np.diff(self.times))), 3)
+        self.tobs = round(float(max(self.times) + self.dt), 3)
+
+    def trim_edges(self, bandwagon_frac=0.5, remove_short_sub=True):
+        """Trim all-zero band and time edges; an edge row more than
+        ``bandwagon_frac`` zeros is zeroed first. ``remove_short_sub`` is
+        accepted and unused, as in the reference."""
+        self.dyn = np.nan_to_num(self.dyn)
+
+        def zap_edge_rows(dyn, idx, frac, axis):
+            line = dyn[idx, :] if axis == 0 else dyn[:, idx]
+            if np.sum(line == 0) > frac * line.size:
+                if axis == 0:
+                    dyn[idx, :] = 0
+                else:
+                    dyn[:, idx] = 0
+            return dyn
+
+        for axis, trim, n in ((0, self._trim_freq, lambda: self.dyn.shape[0]),
+                              (1, self._trim_time, lambda: self.dyn.shape[1])):
+            for idx in (0, -1):
+                self.dyn = zap_edge_rows(self.dyn, idx, bandwagon_frac, axis)
+                while n() > 1 and np.sum(np.abs(
+                        self.dyn[idx, :] if axis == 0
+                        else self.dyn[:, idx])) == 0:
+                    trim(idx)
+                    self.dyn = zap_edge_rows(self.dyn, idx, bandwagon_frac,
+                                             axis)
+
+        self.mjd += np.min(self.times) / 86400
+        self.times = self.times - np.min(self.times)
+        self.nchan = len(self.freqs)
+        self.bw = round(float(max(self.freqs) - min(self.freqs)
+                              + self.df), 3)
+        self.freq = round(float(np.mean(self.freqs)), 3)
+        self.nsub = len(self.times)
+        self.dt = round(float(np.mean(np.diff(self.times))), 3)
+        self.tobs = round(float(max(self.times) + self.dt), 3)
+        self.df = self.bw / self.nchan
+
+    def _trim_freq(self, idx):
+        self.dyn = np.delete(self.dyn, idx, axis=0)
+        self.freqs = np.delete(self.freqs, idx)
+
+    def _trim_time(self, idx):
+        self.dyn = np.delete(self.dyn, idx, axis=1)
+        self.times = np.delete(self.times, idx)
+
+    def crop_dyn(self, fmin=0, fmax=np.inf, tmin=0, tmax=np.inf):
+        """Crop in frequency (MHz) and time (minutes)."""
+        keep = (self.freqs >= fmin) & (self.freqs <= fmax)
+        self.dyn = self.dyn[keep, :]
+        self.freqs = self.freqs[keep]
+        self.nchan = len(self.freqs)
+        self.bw = round(float(max(self.freqs) - min(self.freqs)
+                              + self.df), 2)
+        self.freq = round(float(np.mean(self.freqs)), 2)
+
+        tmin, tmax = tmin * 60, tmax * 60
+        if tmax < self.tobs:
+            self.tobs = tmax - tmin
+        else:
+            self.tobs = self.tobs - tmin
+        keep = (self.times >= tmin) & (self.times <= tmax)
+        self.dyn = self.dyn[:, keep]
+        self.nsub = self.dyn.shape[1]
+        self.times = self.times[keep]
+        self.mjd += np.min(self.times) / 86400
+        self.times = self.times - np.min(self.times)
+
+    def zap(self, sigma=7):
+        """Set to NaN the pixels more than ``sigma`` median absolute
+        deviations from the median."""
+        d = np.abs(self.dyn - np.median(self.dyn[~np.isnan(self.dyn)]))
+        mdev = np.median(d[~np.isnan(d)])
+        s = d / mdev
+        self.dyn[s > sigma] = np.nan
+
+    def refill(self, method="biharmonic", zeros=True, kernel_size=5,
+               linear=True):
+        """Fill the NaNs (and, with ``zeros``, every exact zero):
+        ``"biharmonic"`` by a sparse biharmonic solve, ``"median"`` by
+        the kernel median (sorted on ``self.device``), ``"linear"``,
+        ``"cubic"`` or ``"nearest"`` by ``griddata`` (with ``linear``);
+        what is left takes the mean of the valid pixels."""
+        if zeros:
+            self.dyn[self.dyn == 0] = np.nan
+        if method == "biharmonic":
+            nanmask = np.isnan(self.dyn)
+            if nanmask.any():
+                filled = inpaint_ops.inpaint_biharmonic(self.dyn, nanmask)
+                self.dyn[nanmask] = filled[nanmask]
+        elif method == "median":
+            self.dyn = inpaint_ops.refill_median(
+                self.dyn, kernel_size=kernel_size, device=self.device)
+        elif method in ("linear", "cubic", "nearest") and linear:
+            self.dyn = interp_nan_2d(self.dyn, method=method)
+        meanval = np.mean(self.dyn[is_valid(self.dyn)])
+        self.dyn[np.isnan(self.dyn)] = meanval
+
+    def correct_dyn(self, svd=True, nmodes=1, frequency=True, time=True,
+                    lamsteps=False, nsmooth=None, velocity=False):
+        """Flux correction on the host: divide out the rank-``nmodes``
+        SVD model (``self.svd_model_arr``), or the mean bandpass and
+        time profile (``savgol``-smoothed over ``nsmooth``). With
+        ``lamsteps`` it corrects ``self.lamdyn``; ``velocity`` is not
+        ported."""
+        from scipy.signal import savgol_filter
+
+        if velocity:
+            raise NotImplementedError("velocity rescaling is not ported "
+                                      "yet")
+        if hasattr(self, "svd_model_arr"):
+            print("Warning: An svd_model exists. "
+                  "Check before applying twice")
+        if lamsteps:
+            if not hasattr(self, "lamdyn"):
+                self.scale_dyn(lamsteps=True)
+            dyn = self.lamdyn
+        else:
+            dyn = self.dyn
+
+        dyn = np.nan_to_num(dyn)
+        if svd:
+            dyn, model = svd_model(dyn, nmodes=nmodes)
+            self.svd_model_arr = model
+        else:
+            if frequency:
+                bandpass = np.nanmean(np.where(dyn == 0, np.nan, dyn),
+                                      axis=1)
+                bandpass[bandpass == 0] = np.mean(bandpass)
+                self.bandpass = bandpass
+                if nsmooth is not None:
+                    bandpass = savgol_filter(bandpass, nsmooth, 1)
+                dyn = dyn / bandpass[:, None]
+            if time:
+                tprof = np.nanmean(np.where(dyn == 0, np.nan, dyn), axis=0)
+                tprof[tprof == 0] = np.mean(tprof)
+                if nsmooth is not None:
+                    tprof = savgol_filter(tprof, nsmooth, 1)
+                dyn = dyn / tprof[None, :]
+            dyn = np.nan_to_num(dyn)
+
+        if lamsteps:
+            self.lamdyn = dyn
+        else:
+            self.dyn = dyn
 
     # ------------------------------------------------------------------
     # rescaling and spectra
@@ -165,26 +419,98 @@ class Dynspec:
                    window_frac=0.1, return_sspec=False, velocity=False):
         """Secondary spectrum in dB, computed on ``self.device``:
         ``self.sspec`` (``self.lamsspec`` and the β axis ``self.beta``
-        with ``lamsteps``), ``self.fdop`` and ``self.tdel``. The port has
-        no plotting (``plot``, ``input_x``, ``input_y``); ``input_dyn``
-        and ``return_sspec`` are not ported yet."""
+        with ``lamsteps``), ``self.fdop`` and ``self.tdel``. With
+        ``input_dyn`` (a spectrum of its own) or ``return_sspec`` nothing
+        is stored and ``(fdop, tdel or beta, sec)`` is returned. The
+        port has no plotting (``plot``; ``input_x`` and ``input_y`` label
+        its axes)."""
         if plot:
             raise NotImplementedError("the port has no plotting")
-        _not_ported(input_dyn=input_dyn, return_sspec=return_sspec)
-        dyn = self._select_dyn(lamsteps=lamsteps, velocity=velocity,
-                               trap=trap)
+        if input_dyn is None:
+            dyn = self._select_dyn(lamsteps=lamsteps, velocity=velocity,
+                                   trap=trap)
+        else:
+            dyn = input_dyn
         dlam = self.dlam if lamsteps else None
-        self.fdop, _, sec = sspec_ops.secondary_spectrum(
+        fdop, _, sec = sspec_ops.secondary_spectrum(
             dyn, self.dt, self.df, window=window, window_frac=window_frac,
             prewhite=prewhite, halve=halve, dlam=dlam, device=self.device)
+        sec = sec.cpu().numpy()
         nf, nt = np.shape(dyn)
-        _, self.tdel, beta = sspec_ops.sspec_axes(nf, nt, self.dt, self.df,
-                                                  halve=halve, dlam=dlam)
+        _, tdel, beta = sspec_ops.sspec_axes(nf, nt, self.dt, self.df,
+                                             halve=halve, dlam=dlam)
+        if input_dyn is not None or return_sspec:
+            return fdop, (beta if lamsteps else tdel), sec
+        self.fdop, self.tdel = fdop, tdel
         if lamsteps:
-            self.lamsspec = sec.cpu().numpy()
+            self.lamsspec = sec
             self.beta = beta
         else:
-            self.sspec = sec.cpu().numpy()
+            self.sspec = sec
+
+    def calc_acf(self, method="direct", input_dyn=None, normalise=True,
+                 window_frac=0.1):
+        """2-D autocovariance on ``self.device``: ``"direct"`` of
+        ``self.dyn`` (or ``input_dyn``, whose ACF is returned and not
+        stored) by the real Wiener–Khinchin round trip, ``"sspec"`` from
+        the full-frame secondary spectrum. Sets ``self.acf``."""
+        if method == "direct":
+            dyn = self.dyn if input_dyn is None else input_dyn
+            arr = acf_ops.autocovariance(np.asarray(dyn, dtype=float),
+                                         normalise=normalise,
+                                         device=self.device)
+        elif method == "sspec":
+            _, _, ss = self.calc_sspec(prewhite=False, halve=False,
+                                       return_sspec=True,
+                                       window_frac=window_frac)
+            arr = acf_ops.acf_from_sspec(ss, normalise=normalise,
+                                         device=self.device)
+        else:
+            raise ValueError(
+                'Method not understood. Choose "direct" or "sspec"')
+        arr = arr.cpu().numpy()
+        if input_dyn is not None:
+            return arr
+        self.acf = arr
+
+    def cut_dyn(self, tcuts=0, fcuts=0, plot=False, filename=None, dpi=200,
+                lamsteps=False, maxfdop=np.inf, figsize=(8, 13),
+                display=True):
+        """Tile the spectrum into (fcuts + 1) × (tcuts + 1) pieces with
+        each tile's secondary spectrum and ACF: ``self.cutdyn``,
+        ``self.cutsspec``, ``self.cutacf``, the tiles' axes
+        ``self.cut_times``, ``self.cut_freqs`` and the spectra's axes
+        ``self.cut_sspec_x``, ``self.cut_sspec_y``. The port has no
+        plotting (``plot``; ``filename``, ``dpi``, ``maxfdop``,
+        ``figsize`` and ``display`` configure it)."""
+        if plot:
+            raise NotImplementedError("the port has no plotting")
+        nchan, nsub = len(self.freqs), len(self.times)
+        fnum = int(np.floor(nchan / (fcuts + 1)))
+        tnum = int(np.floor(nsub / (tcuts + 1)))
+        cutdyn = np.empty((fcuts + 1, tcuts + 1, fnum, tnum))
+        nrfft = int(2 ** (np.ceil(np.log2(fnum)) + 1) / 2)
+        ncfft = int(2 ** (np.ceil(np.log2(tnum)) + 1))
+        cutsspec = np.empty((fcuts + 1, tcuts + 1, nrfft, ncfft))
+        cutacf = np.empty((fcuts + 1, tcuts + 1, 2 * fnum, 2 * tnum))
+        sspec_x = sspec_y = None
+        for ii in range(fcuts + 1):
+            for jj in range(tcuts + 1):
+                tile = self.dyn[ii * fnum:(ii + 1) * fnum,
+                                jj * tnum:(jj + 1) * tnum]
+                cutdyn[ii][jj] = tile
+                sspec_x, sspec_y, cutsspec[ii][jj] = self.calc_sspec(
+                    input_dyn=tile, lamsteps=lamsteps)
+                cutacf[ii][jj] = self.calc_acf(input_dyn=tile)
+        self.cutdyn = cutdyn
+        self.cutsspec = cutsspec
+        self.cutacf = cutacf
+        self.cut_times = [self.times[jj * tnum:(jj + 1) * tnum]
+                          for jj in range(tcuts + 1)]
+        self.cut_freqs = [self.freqs[ii * fnum:(ii + 1) * fnum]
+                          for ii in range(fcuts + 1)]
+        self.cut_sspec_x = np.asarray(sspec_x)
+        self.cut_sspec_y = np.asarray(sspec_y)
 
     # ------------------------------------------------------------------
     # arc curvature
@@ -323,13 +649,13 @@ class Dynspec:
         """Chunk geometry + η range + edges for θ-θ (η in s³, edges
         mHz). A bound not given (``eta_min``, ``eta_max``) comes from the
         Hough seed: :meth:`fit_arc` on the λ-scaled spectrum, η ± twice
-        its larger error."""
+        its larger error. ``fitting_proc="thin"`` takes the edges out to
+        the whole Doppler range and sets ``self.arclet_lim`` (the
+        arclets' |θ| bound, ``arclet_lim``, default the edges' limit) and
+        ``self.center_cut`` (``center_cut``, default 0)."""
         procs = ["standard", "thin", "incoherent"]
         if fitting_proc not in procs:
             raise ValueError(f"fitting_proc must be one of {procs}")
-        if fitting_proc == "thin":
-            raise NotImplementedError("the thin-screen search is not "
-                                      "ported yet")
         self.thetatheta_proc = fitting_proc
         self.npad = npad
         self.fw = fw
@@ -383,7 +709,10 @@ class Dynspec:
         if "neta" in kwargs:
             self.neta = int(kwargs["neta"])
 
-        fd_cut = (fd.max() / 2) * (self.fref / self.freqs.max())
+        if self.thetatheta_proc == "thin":
+            fd_cut = fd.max() * (self.fref / self.freqs.max())
+        else:
+            fd_cut = (fd.max() / 2) * (self.fref / self.freqs.max())
         edges_lim = min(kwargs.get("edges_lim", fd_cut), fd_cut)
         if tau_lim is not None:
             edges_lim = min(edges_lim, np.sqrt(tau_lim / self.eta_max))
@@ -397,6 +726,9 @@ class Dynspec:
                 edges_lim, fd, tau,
                 self.eta_max * (self.fref / self.freqs.min()),
                 2) * (self.freqs.min() / self.fref)
+        if self.thetatheta_proc == "thin":
+            self.arclet_lim = kwargs.get("arclet_lim", edges_lim)
+            self.center_cut = kwargs.get("center_cut", 0)
         self.thth_tau_mask = kwargs.get("tau_mask", 0.0)
 
         if verbose:
@@ -426,15 +758,26 @@ class Dynspec:
                            self.neta) * (self.fref / freq2.mean()) ** 2
         return etas, self.edges * (freq2.mean() / self.fref)
 
+    def _thin_search(self, dspecs, freq2, tlist, etas, edges):
+        """The thin-screen search of one row's chunks: the arclet edges
+        are the row's scaled edges within ``self.arclet_lim``."""
+        return thth_search.multi_chunk_search_thin(
+            dspecs, freq2, tlist, etas, edges,
+            edges[np.abs(edges) < self.arclet_lim], self.center_cut,
+            fw=self.fw, npad=self.npad, tau_mask=self.thth_tau_mask,
+            device=self.device)
+
     def thetatheta_single(self, cf=0, ct=0, fname=None, verbose=False,
                           plot=False, arrays=False, eig="kernel"):
         """η search of the fitting chunk (cf, ct) (indices clipped to the
         grid) by :func:`~.thth.search.single_search`: the η grid walked as
         one chain of the warm-start eigensolver on ``self.device``
-        (``eig`` as in :meth:`fit_thetatheta`). Returns the
-        :class:`~.thth.search.ChunkSearchResult`, or with ``arrays`` its
-        ``(etas, eigs, popt)``. The port has no plotting (``plot``;
-        ``fname`` names its file)."""
+        (``eig`` as in :meth:`fit_thetatheta`); with the thin proc by
+        :func:`~.thth.search.single_search_thin`, its arclet edges the
+        chunk's frequency-scaled edges within ``self.arclet_lim``.
+        Returns the :class:`~.thth.search.ChunkSearchResult`, or with
+        ``arrays`` its ``(etas, eigs, popt)``. The port has no plotting
+        (``plot``; ``fname`` names its file)."""
         if plot:
             raise NotImplementedError("the port has no plotting")
         if not hasattr(self, "cwf"):
@@ -443,10 +786,14 @@ class Dynspec:
         ct = min(ct, self.nct_fit - 1)
         dspec2, freq2, time2 = self._chunk(cf, ct, fit=True)
         etas, edges = self._thth_row_geometry(freq2)
-        res = thth_search.single_search(
-            dspec2, freq2, time2, etas, edges, fw=self.fw, npad=self.npad,
-            coher=(self.thetatheta_proc != "incoherent"),
-            tau_mask=self.thth_tau_mask, device=self.device, eig=eig)
+        if self.thetatheta_proc == "thin":
+            res = self._thin_search([dspec2], freq2, [time2], etas, edges)[0]
+        else:
+            res = thth_search.single_search(
+                dspec2, freq2, time2, etas, edges, fw=self.fw,
+                npad=self.npad,
+                coher=(self.thetatheta_proc != "incoherent"),
+                tau_mask=self.thth_tau_mask, device=self.device, eig=eig)
         if arrays:
             return res.etas, res.eigs, res.popt
         return res
@@ -461,11 +808,14 @@ class Dynspec:
         frequency row; with one, :meth:`thetatheta_single` per chunk, as
         the JAX package does. ``eig="plain"`` runs the eigensolver's
         plain PyTorch version on the card too (the reference the kernel
-        is held to). ``pool`` is accepted and ignored; ``plot``,
-        ``time_avg`` and ``mesh`` are not ported yet."""
+        is held to); the thin-screen search has no kernel and runs its
+        device power iteration under either value. ``time_avg`` fits the
+        rows' time-averaged η, weighted by their scatter over time, in
+        place of every chunk's. ``pool`` is accepted and ignored;
+        ``plot`` and ``mesh`` are not ported."""
         if plot:
             raise NotImplementedError("the port has no plotting")
-        _not_ported(time_avg=time_avg, mesh=mesh)
+        _not_ported(mesh=mesh)
         if eig not in ("kernel", "plain"):
             raise ValueError(f"unknown eig {eig!r} (want 'kernel' or "
                              "'plain')")
@@ -484,12 +834,16 @@ class Dynspec:
                     chunks.append(dspec2)
                     tlist.append(time2)
                 etas, edges = self._thth_row_geometry(freq2)
-                results = thth_search.multi_chunk_search(
-                    chunks, freq2, tlist, etas, edges, fw=self.fw,
-                    npad=self.npad,
-                    coher=(self.thetatheta_proc != "incoherent"),
-                    tau_mask=self.thth_tau_mask, eig=eig,
-                    device=self.device)
+                if self.thetatheta_proc == "thin":
+                    results = self._thin_search(chunks, freq2, tlist, etas,
+                                                edges)
+                else:
+                    results = thth_search.multi_chunk_search(
+                        chunks, freq2, tlist, etas, edges, fw=self.fw,
+                        npad=self.npad,
+                        coher=(self.thetatheta_proc != "incoherent"),
+                        tau_mask=self.thth_tau_mask, eig=eig,
+                        device=self.device)
             else:
                 results = [self.thetatheta_single(cf, 0, verbose=verbose,
                                                   eig=eig)]
@@ -510,17 +864,8 @@ class Dynspec:
             print(f"fit_thetatheta: {n_quar} chunk(s) quarantined "
                   "(non-finite input/CS power; see eta_evo_ok)")
 
-        f0s = self.f0s[:, None]
-        # zero per-chunk errors get infinite weight, as in the reference
-        with np.errstate(divide="ignore", invalid="ignore"):
-            tofit = np.isfinite(self.eta_evo) & np.isfinite(self.eta_evo_err)
-            A = (np.sum(self.eta_evo[tofit]
-                        / (f0s * self.eta_evo_err)[tofit] ** 2)
-                 / np.sum(1 / ((f0s ** 2) * self.eta_evo_err)[tofit] ** 2))
-            A_err = np.sqrt(1 / np.sum(
-                2 / ((f0s ** 2) * self.eta_evo_err)[tofit] ** 2))
-        self.ththeta = A / self.fref ** 2
-        self.ththetaerr = A_err / self.fref ** 2
+        self.ththeta, self.ththetaerr = global_eta_fit(
+            self.eta_evo, self.eta_evo_err, self.f0s, self.fref, time_avg)
 
     # ------------------------------------------------------------------
     # wavefield retrieval
@@ -674,6 +1019,65 @@ class Dynspec:
                                                                  edges_red)
         return self.asymmetry
 
+    # ------------------------------------------------------------------
+    # pipelines and info
+    # ------------------------------------------------------------------
+    def auto_processing(self, lamsteps=False, remove_short_sub=True):
+        """trim → biharmonic refill → ACF → (λ rescale) → spectrum."""
+        self.trim_edges(remove_short_sub=remove_short_sub)
+        self.refill()
+        self.calc_acf()
+        if lamsteps:
+            self.scale_dyn()
+        self.calc_sspec(lamsteps=lamsteps)
+
+    def default_processing(self, lamsteps=False):
+        """trim → linear refill → ACF → (λ rescale) → spectrum."""
+        self.trim_edges()
+        self.refill(method="linear")
+        self.calc_acf()
+        if lamsteps:
+            self.scale_dyn()
+        self.calc_sspec(lamsteps=lamsteps)
+
+    def info(self):
+        """Print the observation's properties."""
+        print("\t OBSERVATION PROPERTIES\n")
+        print(f"filename:\t\t\t{self.name}")
+        print(f"MJD:\t\t\t\t{self.mjd}")
+        print(f"Centre frequency (MHz):\t\t{self.freq}")
+        print(f"Bandwidth (MHz):\t\t{self.bw}")
+        print(f"Channel bandwidth (MHz):\t{self.df}")
+        print(f"Integration time (s):\t\t{self.tobs}")
+        print(f"Subintegration time (s):\t{self.dt}")
+
+
+def global_eta_fit(eta_evo, eta_evo_err, f0s, fref, time_avg=False):
+    """The weighted global η ∝ f⁻² fit of the per-chunk η (host float64,
+    the reference's formula): ``(ththeta, ththetaerr)`` at ``fref``.
+    With ``time_avg`` each row's η is first averaged over time and
+    weighted by its scatter. Zero errors get infinite weight, as in the
+    reference."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if time_avg:
+            eta_avg = np.nanmean(eta_evo, 1)
+            eta_count = np.nansum(eta_evo, 1) / eta_avg
+            avg_err = np.nanstd(eta_evo, 1) / np.sqrt(eta_count - 1)
+            tofit = np.isfinite(eta_avg) & np.isfinite(avg_err)
+            A = (np.sum(eta_avg[tofit] / (f0s * avg_err)[tofit] ** 2)
+                 / np.sum(1 / (f0s ** 2 * avg_err)[tofit] ** 2))
+            A_err = np.sqrt(1 / np.sum(2 / ((f0s ** 2) * avg_err)[tofit]
+                                       ** 2))
+        else:
+            f0s = f0s[:, None]
+            tofit = np.isfinite(eta_evo) & np.isfinite(eta_evo_err)
+            A = (np.sum(eta_evo[tofit] / (f0s * eta_evo_err)[tofit] ** 2)
+                 / np.sum(1 / ((f0s ** 2) * eta_evo_err)[tofit] ** 2))
+            A_err = np.sqrt(1 / np.sum(
+                2 / ((f0s ** 2) * eta_evo_err)[tofit] ** 2))
+    return A / fref ** 2, A_err / fref ** 2
+
+
 class BasicDyn:
     """Raw-array adapter."""
 
@@ -701,3 +1105,92 @@ class BasicDyn:
                      else float(np.ptp(times)) + self.dt)
         self.mjd = mjd
         self.dyn = dyn
+
+
+class MatlabDyn:
+    """Adapter for the Matlab ``.mat`` dynamic spectra of Coles et al.
+    (variables ``spi`` and ``dlam``)."""
+
+    def __init__(self, matfilename):
+        from scipy.io import loadmat
+
+        self.matfile = loadmat(matfilename)
+        if "spi" not in self.matfile:
+            raise NameError('No variable named "spi" found in mat file')
+        if "dlam" not in self.matfile:
+            raise NameError('No variable named "dlam" found in mat file')
+        self.dyn = self.matfile["spi"]
+        dlam = float(np.asarray(self.matfile["dlam"]).squeeze())
+        self.name = matfilename.split()[0]
+        self.header = [str(self.matfile.get("__header__", "")),
+                       f"Dynspec loaded from Matfile {matfilename}"]
+        self.dt = 2.7 * 60
+        self.freq = 1400
+        self.nsub = int(np.shape(self.dyn)[0])
+        self.nchan = int(np.shape(self.dyn)[1])
+        lams = np.linspace(1, 1 + dlam, self.nchan)
+        freqs = 1.0 / lams
+        self.freqs = self.freq * np.linspace(np.min(freqs), np.max(freqs),
+                                             self.nchan)
+        self.bw = max(self.freqs) - min(self.freqs)
+        self.times = self.dt * np.arange(self.nsub)
+        self.df = self.bw / self.nchan
+        self.tobs = float(self.times[-1] - self.times[0])
+        self.mjd = 60000.0
+        self.dyn = np.transpose(self.dyn)
+
+
+def sort_dyn(dynfiles, outdir=None, min_nsub=10, min_nchan=50, min_tsub=10,
+             min_freq=0, max_freq=5000, verbose=True, max_frac_bw=2,
+             device=None):
+    """Sort psrflux files into ``good_files.txt`` and ``bad_files.txt``
+    (with the reason) in ``outdir`` (default: the first file's
+    directory); returns their paths. A file that does not parse is one
+    bad file; a good one is trimmed, refilled, SVD-corrected and gives a
+    spectrum with a finite value (on ``device``, ``None``: the card)."""
+    if outdir is None:
+        outdir = os.path.split(dynfiles[0])[0]
+    bad_path = os.path.join(outdir, "bad_files.txt")
+    good_path = os.path.join(outdir, "good_files.txt")
+    with open(bad_path, "w") as bad_files, \
+            open(good_path, "w") as good_files:
+        bad_files.write("FILENAME\t REASON\n")
+        for i, dynfile in enumerate(dynfiles):
+            if verbose:
+                print(f"{i + 1}/{len(dynfiles)}\t"
+                      f"{os.path.split(dynfile)[1]}")
+            try:
+                dyn = Dynspec(filename=dynfile, verbose=False,
+                              process=False, device=device)
+            except (OSError, ValueError, IndexError, KeyError) as e:
+                bad_files.write(f"{dynfile}\t malformed: "
+                                f"{type(e).__name__}: {str(e)[:120]}\n")
+                continue
+            if dyn.freq > max_freq or dyn.freq < min_freq:
+                msg = (f"freq<{min_freq} " if dyn.freq < min_freq
+                       else f"freq>{max_freq}")
+                bad_files.write(f"{dynfile}\t{msg}\n")
+                continue
+            if dyn.bw / dyn.freq > max_frac_bw:
+                bad_files.write(f"{dynfile}\t frac_bw>{max_frac_bw}\n")
+                continue
+            dyn.trim_edges()
+            if dyn.nchan < min_nchan or dyn.nsub < min_nsub:
+                msg = ""
+                if dyn.nchan < min_nchan:
+                    msg += f"nchan<{min_nchan} "
+                if dyn.nsub < min_nsub:
+                    msg += f"nsub<{min_nsub}"
+                bad_files.write(f"{dynfile}\t {msg}\n")
+                continue
+            if dyn.tobs < 60 * min_tsub:
+                bad_files.write(f"{dynfile}\t tobs<{min_tsub}\n")
+                continue
+            dyn.refill()
+            dyn.correct_dyn()
+            dyn.calc_sspec()
+            if np.isnan(dyn.sspec).all():
+                bad_files.write(f"{dynfile}\t sspec_isnan\n")
+                continue
+            good_files.write(f"{dynfile}\n")
+    return good_path, bad_path

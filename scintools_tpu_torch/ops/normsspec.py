@@ -34,6 +34,7 @@ import torch
 
 from ..backend import REAL, as_tensor, resolve_device
 from .arc_profile import arc_profile
+from .interp import interp_nan_2d
 
 
 @dataclass
@@ -195,11 +196,11 @@ def normalise_sspec(sspec, tdel, fdop, eta, delmax=None, startbin=1,
     ``sspec[ntdel, nfdop]`` with delay axis ``tdel`` (µs or m⁻¹) and
     Doppler axis ``fdop`` (mHz); ``eta`` in the matching curvature
     convention. The row interpolation runs on ``device``; the rest is
-    host numpy. Returns :class:`NormSspec`. ``interp_nan`` and
-    ``fit_spectrum`` are not ported yet."""
-    if interp_nan or fit_spectrum:
-        raise NotImplementedError("interp_nan and fit_spectrum are not "
-                                  "ported yet")
+    host numpy. ``interp_nan`` fills the normalised spectrum's NaNs by
+    linear ``griddata`` on the host. Returns :class:`NormSspec`.
+    ``fit_spectrum`` is not ported yet."""
+    if fit_spectrum:
+        raise NotImplementedError("fit_spectrum is not ported yet")
     sspec = np.array(sspec, dtype=float)
     tdel_full = np.asarray(tdel, dtype=float)
     fdop = np.asarray(fdop, dtype=float)
@@ -242,7 +243,13 @@ def normalise_sspec(sspec, tdel, fdop, eta, delmax=None, startbin=1,
     s_dev = as_tensor(sspec, dev, dtype=torch.float64)
     norm, mask = scaled_row_interp(s_dev, fdop, tdel_c, eta, fdopnew,
                                    device=dev)
-    mnorm = np.ma.array(norm.cpu().numpy(), mask=mask.cpu().numpy())
+    norm, mask = norm.cpu().numpy(), mask.cpu().numpy()
+    if interp_nan:
+        norm = interp_nan_2d(norm)
+        mask = mask & ~np.isfinite(norm) | (np.abs(fdopnew)[None, :]
+                                            * np.sqrt(tdel_c / eta)[:, None]
+                                            > np.max(np.abs(fdop)))
+    mnorm = np.ma.array(norm, mask=mask)
     if logsteps:
         # the delay power spectrum comes from a parallel *linear*-grid
         # interpolation so log-spaced oversampling of the arc core does

@@ -2,8 +2,9 @@
 
 Counterpart of ``scintools_tpu/ops/xfft.py``: ``hermitian_full_from_half``
 (:111), ``hermitian_half_gather`` (:125), ``fft2_full`` (:141, ``rfft``
-and ``fft2`` variants), ``ifft2_cropped`` (:186), ``halfrow_power``
-(:262) and the dense branch of ``Plan.power`` (:548-559). The JAX package routes these through a declarative plan and
+and ``fft2`` variants), ``ifft2_cropped`` (:186), ``wiener_khinchin``
+(:236), ``halfrow_power`` (:262) and the dense branch of ``Plan.power``
+(:548-559). The JAX package routes these through a declarative plan and
 a formulation registry; the port has no registry in this slice, so the
 variant is an explicit argument.
 """
@@ -63,6 +64,26 @@ def ifft2_cropped(X, crop):
     r, c = crop
     Y = torch.fft.ifft(X, dim=-2)[..., :r, :]
     return torch.fft.ifft(Y, dim=-1)[..., :c]
+
+
+def wiener_khinchin(x, pad_to, variant="real"):
+    """Circular autocovariance ``F⁻¹|F x|²`` of ``x`` over the trailing
+    axes zero-padded to ``pad_to``, in raw layout. ``'real'`` (a real
+    ``x``): the axis-1 rfft of the data rows, the axis-0 fft, |·|², then
+    the real inverse ``irfft2``, so the discarded Hermitian half is
+    never computed; ``'dense'`` is the complex ``fft2 → |·|² → ifft2``
+    oracle (complex inputs always take it)."""
+    if variant not in ("real", "dense"):
+        raise ValueError(f"unknown variant {variant!r} "
+                         "(want 'real' or 'dense')")
+    N1, N2 = pad_to
+    if variant == "real" and not x.is_complex():
+        H = torch.fft.rfft(x, n=N2, dim=-1)        # data rows only
+        H = torch.fft.fft(H, n=N1, dim=-2)
+        P = (H * torch.conj(H)).real
+        return torch.fft.irfft2(P, s=(N1, N2))
+    arr = torch.fft.fft2(x, s=(N1, N2))
+    return torch.fft.ifft2(arr.abs() ** 2).real
 
 
 def halfrow_power(x, pad_to):

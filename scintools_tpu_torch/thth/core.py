@@ -7,8 +7,11 @@ plain floats only — no astropy), ``fft_axis`` (:47),
 (:117), ``thth_redmap`` (:128), ``rev_map`` (:151),
 ``dominant_eig_power`` (:225), ``eval_calc`` (:258), ``cs_to_ri``
 (:274), ``make_eval_fn`` (:283), ``eval_calc_batch`` (:410),
-``modeler`` (:440), ``chisq_calc`` (:468), ``min_edges`` (:532),
-``len_arc`` (:546), ``arc_edges`` (:553) and ``ext_find`` (:570).
+``modeler`` (:440), ``chisq_calc`` (:468), ``two_curve_map`` (:480),
+``singularvalue_calc`` (:520), ``min_edges`` (:532), ``len_arc``
+(:546), ``arc_edges`` (:553) and ``ext_find`` (:570). The two-curve
+map and its singular value stay host numpy in float64/complex128, as
+in the JAX package: they are the oracle of the thin-screen search.
 Units: tau µs, fd mHz, eta s³ (µs/mHz²), edges mHz.
 
 The index maps and masks are built in float64 on the host with the
@@ -325,6 +328,60 @@ def chisq_calc(dspec, CS, tau, fd, eta, edges, N, mask=None, device=None):
                         device=model.device)
     m = torch.as_tensor(mask, device=model.device)
     return float(((model - d)[m] ** 2).sum()) / N
+
+
+def two_curve_map(CS, tau, fd, eta1, edges1, eta2, edges2):
+    """θ-θ with distinct main-arc (``eta1``, ``edges1``) and arclet
+    (``eta2``, ``edges2``) curvatures, cropped to the valid θ of each:
+    ``(thth[n2, n1], edges1_red, edges2_red)``. Host numpy in
+    complex128; the device route is :func:`.batch.make_thin_eval_fn`."""
+    tau = np.asarray(unit_checks(tau, "tau"), dtype=float)
+    fd = np.asarray(unit_checks(fd, "fd"), dtype=float)
+    eta1 = float(unit_checks(eta1, "eta1"))
+    eta2 = float(unit_checks(eta2, "eta2"))
+    edges1 = np.asarray(unit_checks(edges1, "edges1"), dtype=float)
+    edges2 = np.asarray(unit_checks(edges2, "edges2"), dtype=float)
+
+    c1 = (edges1[1:] + edges1[:-1]) / 2
+    c2 = (edges2[1:] + edges2[:-1]) / 2
+    th1 = np.ones((len(c2), len(c1))) * c1
+    th2 = np.ones((len(c2), len(c1))) * c2[:, None]
+    dtau = np.diff(tau).mean()
+    dfd = np.diff(fd).mean()
+    # the offsets are tau[1] and fd[1], and the bounds len - 1, as in
+    # the reference's two-curve map (the standard map uses [0] and len)
+    tau_inv = ((eta1 * th1 ** 2 - eta2 * th2 ** 2 - tau[1] + dtau / 2)
+               // dtau).astype(int)
+    fd_inv = ((th1 - th2 - fd[1] + dfd / 2) // dfd).astype(int)
+    thth = np.zeros(tau_inv.shape, dtype=complex)
+    pnts = ((tau_inv > 0) & (tau_inv < tau.shape[0] - 1)
+            & (fd_inv < fd.shape[0] - 1))
+    thth[pnts] = np.asarray(CS)[tau_inv[pnts], fd_inv[pnts]]
+    thth *= np.sqrt(np.abs(2 * eta1 * th1 - 2 * eta2 * th2))
+
+    th2_max = np.sqrt(tau.max() / eta2)
+    th1_max = np.sqrt(tau.max() / eta1)
+    p1 = np.abs(c1) < th1_max
+    p2 = np.abs(c2) < th2_max
+    e1 = np.zeros(p1.sum() + 1)
+    e1[:-1] = edges1[:-1][p1]
+    e1[-1] = edges1[1:][p1].max()
+    e2 = np.zeros(p2.sum() + 1)
+    e2[:-1] = edges2[:-1][p2]
+    e2[-1] = edges2[1:][p2].max()
+    return thth[p2, :][:, p1], e1, e2
+
+
+def singularvalue_calc(CS, tau, fd, eta, edges, etaArclet, edgesArclet,
+                       centerCut):
+    """Largest singular value of the two-curvature θ-θ with the main-arc
+    columns |θ| < ``centerCut`` zeroed (host numpy SVD, float64)."""
+    thth_red, e1, _ = two_curve_map(CS, tau, fd, eta, edges, etaArclet,
+                                    edgesArclet)
+    cents1 = (e1[1:] + e1[:-1]) / 2
+    thth_red = np.array(thth_red)
+    thth_red[:, np.abs(cents1) < float(unit_checks(centerCut))] = 0
+    return np.linalg.svd(thth_red, compute_uv=False)[0]
 
 
 def len_arc(x, eta):

@@ -12,8 +12,16 @@ functions keyed on the geometry bytes), ``_fused_results`` (:273) and
 :func:`single_search`, as in the JAX package: a float64 host FFT, the
 eigenvalue curve as one chain of the warm-start eigensolver on the
 device, then the scipy peak fit; two or more chunks run the fused
-search of thth/batch.py. The JAX package's staged route
-(``fused=False``) is not part of this port.
+search of thth/batch.py. The single-curve search has no staged route
+(the JAX package's ``fused=False``) in this port.
+
+The thin-screen search (:func:`single_search_thin`,
+:func:`multi_chunk_search_thin`; :412-551) has three routes: the fused device search
+(``thth/batch.py:make_fused_thin_search_fn``, built once per geometry
+and counted in ``FUSED_CACHE_STATS``), the staged route ``fused=False``
+(the float64 host FFT, the device thin evaluator, the scipy peak fit)
+and ``eig="svd"``, the per-η float64 host SVD loop that the JAX package
+runs on its numpy backend: the oracle, taken only when asked for.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from scipy.optimize import curve_fit
 
 from ..backend import as_tensor, fifo_cached, resolve_device
 from ..robust import guards
-from .core import eval_calc_batch, fft_axis, unit_checks
+from .core import (cs_to_ri, eval_calc_batch, fft_axis,
+                   singularvalue_calc, unit_checks)
 
 
 def chi_par(x, A, x0, C):
@@ -181,24 +190,35 @@ def single_search(dspec, freq, time, etas, edges, fw=0.1, npad=3,
     base = CS if coher else np.abs(CS)
     eigs = eval_calc_batch(base, tau, fd, etas, edges, device=device,
                            eig=eig)
+    res = _host_fit_result(dspec, eigs, etas, fw, freq, time)
+    if verbose:
+        print(f"single_search: f={res.freq_mean:.1f} MHz "
+              f"t={res.time_mean:.0f} s → eta={res.eta:.4g} "
+              f"+/- {res.eta_sig:.2g}")
+    return res
+
+
+def _host_fit_result(dspec, eigs, etas, fw, freq, time):
+    """The scipy peak fit of one chunk's curve, its health bitmask and
+    quarantine, as a :class:`ChunkSearchResult`."""
     eta_fit, eta_sig, popt, etas_c, eigs_c = fit_eig_peak(
         etas, eigs, fw=fw, full=True)
     ok = _host_health(dspec, eigs, eta_fit, popt)
     eta_fit, eta_sig, popt = _quarantine_host(ok, eta_fit, eta_sig, popt)
-    freq = np.asarray(unit_checks(freq, "freq"), dtype=float)
-    time = np.asarray(unit_checks(time, "time"), dtype=float)
-    if verbose:
-        print(f"single_search: f={freq.mean():.1f} MHz "
-              f"t={time.mean():.0f} s → eta={eta_fit:.4g} "
-              f"+/- {eta_sig:.2g}")
-    return ChunkSearchResult(eta=eta_fit, eta_sig=eta_sig,
-                             freq_mean=float(freq.mean()),
-                             time_mean=float(time.mean()),
-                             eigs=eigs_c, etas=etas_c, popt=popt, ok=ok)
+    return ChunkSearchResult(
+        eta=eta_fit, eta_sig=eta_sig,
+        freq_mean=float(np.asarray(unit_checks(freq, "freq"),
+                                   dtype=float).mean()),
+        time_mean=float(np.asarray(unit_checks(time, "time"),
+                                   dtype=float).mean()),
+        eigs=eigs_c, etas=etas_c, popt=popt, ok=ok)
 
 
 _FUSED_CACHE = {}
 _CACHE_SIZE = 16
+# ``builder_calls`` counts the fused search functions built (a cache
+# miss each): a repeated search of one geometry builds nothing
+FUSED_CACHE_STATS = {"builder_calls": 0}
 
 
 def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, eig,
@@ -208,12 +228,49 @@ def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, eig,
     from .batch import make_fused_search_fn
 
     nf, nt = shape
-    key = (tau.tobytes(), fd.tobytes(), edges.tobytes(), (int(nf), int(nt)),
-           int(npad), bool(coher), float(tau_mask), float(fw), eig,
-           str(device))
-    return fifo_cached(_FUSED_CACHE, key, lambda: make_fused_search_fn(
-        tau, fd, edges, nf, nt, npad=npad, coher=coher, tau_mask=tau_mask,
-        fw=fw, eig=eig, device=device), _CACHE_SIZE)
+    key = ("fused", tau.tobytes(), fd.tobytes(), edges.tobytes(),
+           (int(nf), int(nt)), int(npad), bool(coher), float(tau_mask),
+           float(fw), eig, str(device))
+
+    def build():
+        FUSED_CACHE_STATS["builder_calls"] += 1
+        return make_fused_search_fn(
+            tau, fd, edges, nf, nt, npad=npad, coher=coher,
+            tau_mask=tau_mask, fw=fw, eig=eig, device=device)
+
+    return fifo_cached(_FUSED_CACHE, key, build, _CACHE_SIZE)
+
+
+def _fused_thin_eval(tau, fd, edges, edges_arclet, center_cut, shape, npad,
+                     coher, tau_mask, fw, device):
+    """The fused thin-screen search function for one geometry, keyed as
+    :func:`_fused_eval` plus the arclet edges and the centre cut."""
+    from .batch import make_fused_thin_search_fn
+
+    nf, nt = shape
+    key = ("fused_thin", tau.tobytes(), fd.tobytes(), edges.tobytes(),
+           edges_arclet.tobytes(), float(center_cut), (int(nf), int(nt)),
+           int(npad), bool(coher), float(tau_mask), float(fw), str(device))
+
+    def build():
+        FUSED_CACHE_STATS["builder_calls"] += 1
+        return make_fused_thin_search_fn(
+            tau, fd, edges, edges_arclet, center_cut, nf, nt, npad=npad,
+            coher=coher, tau_mask=tau_mask, fw=fw, device=device)
+
+    return fifo_cached(_FUSED_CACHE, key, build, _CACHE_SIZE)
+
+
+def _thin_eval(tau, fd, edges, edges_arclet, center_cut, device):
+    """The staged route's thin evaluator for one geometry, cached as
+    :func:`_fused_thin_eval`."""
+    from .batch import make_thin_eval_fn
+
+    key = ("thin", tau.tobytes(), fd.tobytes(), edges.tobytes(),
+           edges_arclet.tobytes(), float(center_cut), str(device))
+    return fifo_cached(_FUSED_CACHE, key, lambda: make_thin_eval_fn(
+        tau, fd, edges, edges_arclet, center_cut, device=device),
+        _CACHE_SIZE)
 
 
 def _fused_results(fn, stack, etas, freq, times):
@@ -270,6 +327,89 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
 
 
+def single_search_thin(dspec, freq, time, etas, edges, edgesArclet,
+                       centerCut, fw=0.1, npad=3, coher=True, tau_mask=0.0,
+                       verbose=False, device=None, eig="power"):
+    """Two-curvature (thin-screen) search on one chunk: the largest
+    singular value of the two-curve θ-θ per η, then the peak fit. The
+    one-chunk case of :func:`multi_chunk_search_thin` (``eig`` as
+    there)."""
+    res = multi_chunk_search_thin(
+        [dspec], freq, [time], etas, edges, edgesArclet, centerCut, fw=fw,
+        npad=npad, coher=coher, tau_mask=tau_mask, device=device,
+        eig=eig)[0]
+    if verbose:
+        print(f"single_search_thin: f={res.freq_mean:.1f} MHz → "
+              f"eta={res.eta:.4g} +/- {res.eta_sig:.2g}")
+    return res
+
+
+def multi_chunk_search_thin(dspecs, freq, times, etas, edges, edgesArclet,
+                            centerCut, fw=0.1, npad=3, coher=True,
+                            tau_mask=0.0, device=None, fused=True,
+                            eig="power"):
+    """Thin-screen search on a batch of same-geometry chunks on
+    ``device`` (``None``: the CUDA card). ``eig="power"`` (the default)
+    takes the device evaluator, :func:`.batch.make_thin_eval_fn`: with
+    ``fused=True`` raw chunks in, the whole search as one chained device
+    function (built once per geometry); with ``fused=False`` the staged
+    route, the float64 host FFT, the device evaluator and the scipy
+    peak fit. ``eig="svd"`` is the host oracle: per chunk and η, the
+    float64 SVD of the cropped two-curve θ-θ
+    (:func:`.core.singularvalue_calc`), then the scipy fit. The
+    conjugate-spectrum base is |CS|² with ``coher=False``. Returns a
+    list of :class:`ChunkSearchResult`."""
+    if eig not in ("power", "svd"):
+        raise ValueError(f"unknown eig {eig!r} (want 'power' or 'svd')")
+    dev = resolve_device(device)
+    etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
+    edges_a = np.asarray(unit_checks(edges, "edges"), dtype=float)
+    arclet_a = np.asarray(unit_checks(edgesArclet, "edges_arclet"),
+                          dtype=float)
+    cut = float(unit_checks(centerCut, "center_cut"))
+    if eig == "power" and fused:
+        stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
+                          for d in dspecs])
+        _, nf, nt = stack.shape
+        time0 = np.asarray(unit_checks(times[0], "time"), dtype=float)
+        freq_a = np.asarray(unit_checks(freq, "freq"), dtype=float)
+        fd = fft_axis(time0, pad=npad, scale=1e3)
+        tau = fft_axis(freq_a, pad=npad, scale=1.0)
+        fn = _fused_thin_eval(tau, fd, edges_a, arclet_a, cut, (nf, nt),
+                              npad, coher,
+                              float(unit_checks(tau_mask) or 0.0), fw, dev)
+        return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
+
+    bases = []
+    for dspec, time in zip(dspecs, times):
+        CS, tau, fd = chunk_conjugate_spectrum(dspec, time, freq, npad=npad,
+                                               tau_mask=tau_mask)
+        bases.append(CS if coher else np.abs(CS) ** 2)
+    if eig == "svd":
+        curves = []
+        for base in bases:
+            curve = np.empty(len(etas))
+            for i, eta in enumerate(etas):
+                try:
+                    curve[i] = singularvalue_calc(base, tau, fd, eta,
+                                                  edges_a, eta, arclet_a,
+                                                  cut)
+                except (ValueError, IndexError):
+                    # an η whose crop leaves no valid θ (ValueError, which
+                    # LinAlgError is) or whose Doppler index falls below
+                    # -len (IndexError): NaN, as the JAX package's loop
+                    curve[i] = np.nan
+            curves.append(curve)
+    else:
+        fn = _thin_eval(tau, fd, edges_a, arclet_a, cut, dev)
+        cs_ri = torch.as_tensor(np.stack([cs_to_ri(b) for b in bases]),
+                                dtype=torch.float32, device=dev)
+        curves = fn(cs_ri, etas).cpu().numpy().astype(float)
+    return [_host_fit_result(d, c, etas, fw, freq, t)
+            for d, c, t in zip(dspecs, curves, times)]
+
+
 __all__ = ["ChunkSearchResult", "chi_par", "chunk_conjugate_spectrum",
            "chunk_geometry", "err_calc", "fit_eig_peak",
-           "multi_chunk_search", "pad_chunk", "single_search"]
+           "multi_chunk_search", "multi_chunk_search_thin", "pad_chunk",
+           "single_search", "single_search_thin"]

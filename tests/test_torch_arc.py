@@ -466,11 +466,23 @@ class TestSerialPath:
                 assert g.etaerr == pytest.approx(r.etaerr, rel=1e-9)
 
     def test_unported_options_raise(self, arc_epochs):
+        """``fit_spectrum`` still raises; ``interp_nan`` is ported (the
+        normalised spectrum's NaNs filled by ``griddata`` on the host)
+        and holds to the JAX package's at the serial path's 1e-9."""
         sspecs, tdel, fdop = arc_epochs
-        for opt in ("interp_nan", "fit_spectrum"):
-            with pytest.raises(NotImplementedError):
-                tns.normalise_sspec(sspecs[0], tdel, fdop, 2e-4, device=CPU,
-                                    **{opt: True})
+        with pytest.raises(NotImplementedError):
+            tns.normalise_sspec(sspecs[0], tdel, fdop, 2e-4, device=CPU,
+                                fit_spectrum=True)
+        kw = dict(interp_nan=True, cutmid=3, numsteps=400)
+        got = tns.normalise_sspec(sspecs[0], tdel, fdop, 2e-4, device=CPU,
+                                  **kw)
+        ref = jns.normalise_sspec(sspecs[0], tdel, fdop, 2e-4, backend="jax",
+                                  **kw)
+        np.testing.assert_array_equal(got.mask, ref.mask)
+        np.testing.assert_allclose(got.normsspec, ref.normsspec, rtol=1e-9,
+                                   equal_nan=True)
+        np.testing.assert_allclose(got.normsspecavg, ref.normsspecavg,
+                                   rtol=1e-9)
 
 
 class TestFitArcBatch:

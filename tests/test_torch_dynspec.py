@@ -383,11 +383,12 @@ class TestFaultsFixed:
         assert np.isfinite(ds.calc_asymmetry()).all()
 
     def test_load_dyn_obj_processes_by_default(self, arc):
-        """``process=True`` is the default of ``load_dyn_obj`` in both:
-        the reference runs its default processing (the spectrum and ACF
-        appear); the port, which has no processing yet, raises once the
-        data are loaded. ``filename`` and ``lamsteps`` are set as in the
-        reference; ``Dynspec(...)`` keeps ``process=False``."""
+        """``process=True`` is the default of ``load_dyn_obj`` in both,
+        and runs the default processing (trim, linear refill, ACF, λ
+        rescale with ``lamsteps``, spectrum): the port's state holds to
+        the JAX façade's (host steps rtol 1e-12, ACF and spectrum within
+        1e-5 of the peak). ``filename`` and ``lamsteps`` are set as in
+        the reference; ``Dynspec(...)`` keeps ``process=False``."""
         import inspect
 
         dyn, times, freqs = arc
@@ -404,13 +405,24 @@ class TestFaultsFixed:
         assert not hasattr(dj, "sspec") and not hasattr(dp, "sspec")
         for d in (dj, dp):
             assert d.filename is None and d.lamsteps is False
-        dj.load_dyn_obj(jdyn.BasicDyn(dyn, **kw), verbose=False)
-        assert hasattr(dj, "sspec") and hasattr(dj, "acf")
-        with pytest.raises(NotImplementedError, match="processing"):
-            dp.load_dyn_obj(tdyn.BasicDyn(dyn, **kw), verbose=False,
-                            lamsteps=True)
+        faulty = np.array(dyn)
+        faulty[:2] = 0
+        faulty[40, 17] = np.nan
+        dj.load_dyn_obj(jdyn.BasicDyn(faulty, **kw), verbose=False,
+                        lamsteps=True)
+        dp.load_dyn_obj(tdyn.BasicDyn(faulty, **kw), verbose=False,
+                        lamsteps=True)
         assert dp.lamsteps is True
-        np.testing.assert_array_equal(dp.dyn, dyn)
+        assert dp.dyn.shape == (dyn.shape[0] - 2, dyn.shape[1])
+        np.testing.assert_allclose(dp.dyn, dj.dyn, rtol=1e-12, atol=0)
+        np.testing.assert_allclose(dp.lamdyn, dj.lamdyn, rtol=1e-12)
+        np.testing.assert_array_equal(dp.freqs, dj.freqs)
+        assert (dp.nchan, dp.bw, dp.df, dp.freq) == (dj.nchan, dj.bw,
+                                                     dj.df, dj.freq)
+        np.testing.assert_allclose(dp.acf, dj.acf, rtol=0, atol=1e-5)
+        lin_t, lin_j = 10 ** (dp.lamsspec / 10), 10 ** (dj.lamsspec / 10)
+        np.testing.assert_allclose(lin_t, lin_j, rtol=0,
+                                   atol=1e-5 * lin_j.max())
 
     @pytest.mark.parametrize("name", _shared_methods())
     def test_reference_parameters_come_first(self, name):
@@ -436,17 +448,25 @@ class TestFaultsFixed:
         for n in ("__init__", "load_dyn_obj", "calc_sspec", "scale_dyn",
                   "fit_arc", "norm_sspec", "fit_thetatheta",
                   "thetatheta_single", "calc_asymmetry",
-                  "thetatheta_chunks", "calc_wavefield"):
+                  "thetatheta_chunks", "calc_wavefield", "load_file",
+                  "write_file", "__add__", "remove_short_subs",
+                  "trim_edges", "crop_dyn", "zap", "refill", "correct_dyn",
+                  "calc_acf", "cut_dyn", "auto_processing",
+                  "default_processing", "info"):
             assert n in names
-        dyn = np.ones((8, 8))
+        dyn = np.random.default_rng(0).random((8, 8)) + 1
         bd = tdyn.BasicDyn(dyn, times=np.arange(8.0), freqs=np.arange(8.0))
         with pytest.raises(NotImplementedError, match="backend"):
             tdyn.Dynspec(dyn=bd, verbose=False, backend="jax", device="cpu")
         ds = tdyn.Dynspec(dyn=bd, verbose=False, device="cpu")
-        for call in (lambda: ds.calc_sspec(input_dyn=dyn),
-                     lambda: ds.calc_sspec(return_sspec=True),
-                     lambda: ds.calc_sspec(plot=True),
-                     lambda: ds.fit_thetatheta(time_avg=True),
+        # input_dyn and return_sspec return the spectrum and store nothing
+        for got in (ds.calc_sspec(input_dyn=dyn),
+                    ds.calc_sspec(return_sspec=True)):
+            assert got[2].shape == (8, 16) and len(got[0]) == 16
+        assert not hasattr(ds, "sspec")
+        for call in (lambda: ds.calc_sspec(plot=True),
+                     lambda: ds.cut_dyn(plot=True),
+                     lambda: ds.correct_dyn(velocity=True),
                      lambda: ds.fit_thetatheta(plot=True),
                      lambda: ds.fit_thetatheta(mesh=object()),
                      lambda: ds.thetatheta_single(plot=True)):
@@ -565,13 +585,35 @@ class TestRejectedInputs:
             tdyn.Dynspec.from_reference_state(
                 dict({k: 0 for k in tdyn._STATE_KEYS}, ththeta=0.3))
 
-    def test_unported_options_raise(self, arc):
+    def test_unported_options_raise(self, arc, tmp_path):
+        """Velocity, trapezoid, plotting and ``mesh`` still raise.
+        ``process=True``, ``filename=`` and ``fitting_proc="thin"`` now
+        run, each held to the JAX façade on the same input."""
+        from scintools_tpu.io.psrflux import RawDynSpec, write_psrflux
+
         dyn, times, freqs = arc
         bd = tdyn.BasicDyn(dyn, times=times, freqs=freqs)
-        with pytest.raises(NotImplementedError):
-            tdyn.Dynspec(dyn=bd, process=True, verbose=False, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tdyn.Dynspec(filename="x.dynspec", device="cpu")
+        jd = jdyn.BasicDyn(dyn, times=times, freqs=freqs)
+        dp = tdyn.Dynspec(dyn=bd, process=True, verbose=False, device="cpu")
+        dj = jdyn.Dynspec(dyn=jd, process=True, verbose=False,
+                          backend="jax")
+        np.testing.assert_allclose(dp.dyn, dj.dyn, rtol=1e-12, atol=0)
+        np.testing.assert_allclose(dp.acf, dj.acf, rtol=0, atol=1e-5)
+        path = str(tmp_path / "x.dynspec")
+        write_psrflux(RawDynSpec(dyn=dyn, times=times, freqs=freqs), path)
+        dp = tdyn.Dynspec(filename=path, verbose=False, device="cpu")
+        dj = jdyn.Dynspec(filename=path, verbose=False, backend="jax")
+        np.testing.assert_array_equal(dp.dyn, dj.dyn)
+        np.testing.assert_array_equal(dp.times, dj.times)
+        assert (dp.dt, dp.df, dp.mjd) == (dj.dt, dj.df, dj.mjd)
+        thin = dict(fitting_proc="thin", eta_min=0.1, eta_max=0.9)
+        ds = tdyn.Dynspec(dyn=bd, verbose=False, device="cpu")
+        ds.prep_thetatheta(**thin)
+        dj = jdyn.Dynspec(dyn=jd, verbose=False, backend="jax")
+        dj.prep_thetatheta(**thin)
+        np.testing.assert_array_equal(ds.edges, dj.edges)
+        assert (ds.arclet_lim, ds.center_cut) == (dj.arclet_lim,
+                                                  dj.center_cut)
         ds = tdyn.Dynspec(dyn=bd, verbose=False, device="cpu")
         with pytest.raises(NotImplementedError):
             ds.scale_dyn(scale="velocity")
@@ -581,9 +623,6 @@ class TestRejectedInputs:
             ds.fit_arc(plot=True)
         with pytest.raises(NotImplementedError):
             ds.norm_sspec(eta=1.0, plot=True)
-        with pytest.raises(NotImplementedError):
-            ds.prep_thetatheta(fitting_proc="thin", eta_min=0.1,
-                               eta_max=0.9)
         with pytest.raises(ValueError):
             ds.prep_thetatheta(fitting_proc="bogus")
         with pytest.raises(ValueError):
