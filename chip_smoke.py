@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one card: the θ-θ curvature search
 (standard and thin-screen), the wavefield retrieval, the Hough seed of
-the façade, the survey arc fit, and a psrflux file from write to θ-θ
-fit.
+the façade, the survey arc fit, a psrflux file from write to θ-θ fit,
+and the scintillation-parameter fits.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -106,7 +106,29 @@ Phases, each of which exits non-zero on failure:
    eig_warmstart kernel): ``eta_evo_ok`` 0 outside the damaged chunks,
    ``ththeta`` within 5% of η_true and 1e-3 of the plain eigensolver's;
    9.5 ``sort_dyn`` over the file and a truncated copy: one good, one
-   bad with its reason.
+   bad with its reason;
+10. the scintillation fits (no hand-written kernel runs here: the JAX
+   package computes none of them in Pallas): 10.1 ``scint_params_batch``
+   over 256 epochs of 512 × 128 (``make_arc_dynspec``, η 5e-4, 96 images,
+   seeds 77 …, dt 2 s, df 0.05 MHz): τ, Δν and amp finite and positive, 4
+   lanes within rel 1e-4 of B = 1 calls, a bitwise rerun, a NaN-poisoned
+   epoch through ``make_scint_params_serve`` flagged ``BAD_INPUT`` with
+   NaN results and bitwise neighbours, and per epoch within max(stderr,
+   10%) of the host scipy fit of the same cuts in τ and Δν for at least
+   90% of the epochs; 10.2 ``fit_acf2d`` on one crop of 129 (nt = nf =
+   257, tobs 7200 s, bw 64 MHz, truth τ 1800 s, Δν 6 MHz, ψ 60° made by
+   the analytic ACF in float64 on the card, 1% noise of seed 13): the
+   ``"default"`` fit within max(1%, stderr) of the ``"highest"`` one in
+   τ and Δν, τ within 5% of 1800 s, and the scipy route over the model
+   (``max_nfev`` 4000) within max(3·stderr, 5%) in τ; 10.3
+   ``fit_acf2d_batch`` over 32 such crops of 65, 3 variants: every ``ok``
+   0, no build on the repeats, every lane within max(1%, stderr) of its
+   looped B = 1 ``"highest"`` fit; 10.4 phase 9's processed file through
+   ``get_scint_params`` (``nofit``, ``acf1d``, ``acf2d_approx``,
+   ``acf2d``) and ``get_acf_tilt``: every stored value finite, dt < τ <
+   tobs and df < Δν < bw for the fits, the acf2d fit's ``ok`` 0 with
+   ``acf_model`` of the crop's shape, and ``fit_acf2d`` called directly
+   on the crop the façade built giving the same τ and Δν.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -671,7 +693,8 @@ def main():
     lap("6 survey arc fit")
     one = single_chunk_phase(ds, prob, bd, eta_true, ret.pop("rgap"), dev)
     thin = thin_grid_phase(prob, bd, eta_true, dev)
-    flux = psrflux_phase(ds, eta_true, dev)
+    flux, processed = psrflux_phase(ds, eta_true, dev)
+    scint = scint_phase(processed, dev)
 
     launches_h = hough.pop("launches")
     launches_1 = one.pop("launches_single_chunk")
@@ -707,7 +730,7 @@ def main():
         "north_star_device_busy_share": share,
         "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
         "single_chunk_and_retrieval": one, "thin_and_grid": thin,
-        "psrflux": flux, "phase_s": PHASE_S}),
+        "psrflux": flux, "scintillation": scint, "phase_s": PHASE_S}),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1655,7 +1678,7 @@ def psrflux_phase(ds4, eta_true, dev):
     route; 9.4 the θ-θ fit of the processed file (the eig_warmstart
     kernel) against truth and the plain eigensolver; 9.5 ``sort_dyn``
     over the file and a truncated copy. Returns its numbers (key
-    ``launches``: eig_warmstart in 9.4)."""
+    ``launches``: eig_warmstart in 9.4) and the processed façade."""
     import shutil
     import tempfile
 
@@ -1843,6 +1866,355 @@ def psrflux_phase(ds4, eta_true, dev):
         lap("9.5 sort_dyn")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out, da
+
+
+def acf2d_survey_params(nc, tau, dnu, amp, psi):
+    """``bench.py``'s acf2d parameter set at crop ``nc`` (nt = nf =
+    2·nc − 1, tobs 7200 s, bw 64 MHz, ar 2, α 5/3 fixed, phasegrad and ψ
+    varying)."""
+    from scintools_tpu_torch.fit.parameters import Parameters
+
+    pr = Parameters()
+    pr.add("tau", value=tau, vary=True, min=0, max=np.inf)
+    pr.add("dnu", value=dnu, vary=True, min=0, max=np.inf)
+    pr.add("amp", value=amp, vary=True, min=0, max=np.inf)
+    pr.add("alpha", value=5 / 3, vary=False)
+    pr.add("nt", value=2 * nc - 1, vary=False)
+    pr.add("nf", value=2 * nc - 1, vary=False)
+    pr.add("phasegrad", value=0.0, vary=True)
+    pr.add("tobs", value=7200.0, vary=False)
+    pr.add("bw", value=64.0, vary=False)
+    pr.add("ar", value=2.0, vary=False)
+    pr.add("theta", value=0, vary=False)
+    pr.add("psi", value=psi, vary=True)
+    return pr
+
+
+def acf2d_epochs(nc, n, dev):
+    """``n`` crops of the truth surface (τ 1800 s, Δν 6 MHz, amp 1, ψ 60°)
+    made by the analytic ACF in float64 on ``dev``, each plus 1% noise
+    from one generator of seed 13."""
+    from scintools_tpu_torch.fit import models as M
+
+    rng = np.random.default_rng(13)
+    truth = acf2d_survey_params(nc, 1800.0, 6.0, 1.0, 60.0)
+    clean = -M.scint_acf_model_2d(truth, np.zeros((nc, nc)),
+                                  np.ones((nc, nc)), dev)
+    return np.stack([clean + 0.01 * clean.max()
+                     * rng.standard_normal((nc, nc)) for _ in range(n)])
+
+
+def within(a, b, err, rel):
+    """|a − b| ≤ max(rel·|b|, err)."""
+    return abs(a - b) <= max(rel * abs(b), err or 0.0)
+
+
+def scint_phase(da, dev, B1=256, nf1=512, nt1=128, nc2=129, B3=32, nc3=65):
+    """Phase 10: the scintillation fits. 10.1 ``scint_params_batch`` over
+    B1 epochs of nf1 × nt1 (dt 2 s, df 0.05 MHz, ``make_arc_dynspec`` with
+    η 5e-4 and 96 images, seeds 77 …): finite positive values, 4 lanes
+    against B = 1 calls, a bitwise rerun, the guarded program's NaN lane,
+    the host scipy fit of the same cuts (``agree_frac``), epochs/s and
+    the device busy share of one call; 10.2 ``fit_acf2d`` on one crop of
+    nc2 at both policies and the scipy route over the model; 10.3
+    ``fit_acf2d_batch`` over B3 crops of nc3, 3 variants, against looped
+    B = 1 "highest" fits; 10.4 the façade's ``get_scint_params`` (four
+    methods) and ``get_acf_tilt`` on phase 9's processed file ``da``.
+    Returns its numbers."""
+    from scintools_tpu_torch import dynspec as D
+    from scintools_tpu_torch import workloads as W
+    from scintools_tpu_torch.fit import acf2d as A2
+    from scintools_tpu_torch.fit import batch as FB
+    from scintools_tpu_torch.fit import models as M
+    from scintools_tpu_torch.fit.fitter import minimize_leastsq
+    from scintools_tpu_torch.fit.parameters import Parameters
+    from scintools_tpu_torch.robust import guards
+    from scintools_tpu_torch.sim.acf_model import make_acf2d_model_core
+    from torch.autograd import forward_ad as fwAD
+
+    out = {}
+    keys = ("tau", "dnu", "amp", "tauerr", "dnuerr", "amperr", "chisqr",
+            "redchi")
+
+    # ---- 10.1 the survey 1-D fit --------------------------------------
+    dt, df = 2.0, 0.05
+    t0 = time.perf_counter()
+    host = np.stack([W.make_arc_dynspec(nt1, nf1, dt, df, 1400.0, 5e-4, 96,
+                                        seed=77 + b) for b in range(B1)])
+    make_s = time.perf_counter() - t0
+    dyns = torch.as_tensor(host, dtype=torch.float32, device=dev)
+    builds0 = FB.ACF1D_CACHE_STATS["builds"]
+    t0 = time.perf_counter()
+    res = FB.scint_params_batch(dyns, dt, df, device=dev)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2 = FB.scint_params_batch(dyns, dt, df, device=dev)
+    wall_s = time.perf_counter() - t0
+    builds = FB.ACF1D_CACHE_STATS["builds"] - builds0
+    rerun_equal = all(np.array_equal(res[k], res2[k]) for k in keys)
+    positive = all(bool(np.all(np.isfinite(res[k]) & (res[k] > 0)))
+                   for k in ("tau", "dnu", "amp"))
+    lane_rel = 0.0
+    for b in range(4):
+        one = FB.scint_params_batch(dyns[b:b + 1], dt, df, device=dev)
+        for k in ("tau", "dnu", "amp"):
+            lane_rel = max(lane_rel, abs(one[k][0] / res[k][b] - 1))
+    acts = device_kernels(lambda: FB.scint_params_batch(dyns, dt, df,
+                                                        device=dev))
+    share = busy_share(acts)
+    busy_ms = sum(d for _, _, d in acts) / 1e3
+    serve = FB.make_scint_params_serve(B1, nf1, nt1, dt, df, device=dev)
+    clean = {k: v.cpu().numpy() for k, v in serve(dyns).items()}
+    bad = dyns.clone()
+    bad[5, nf1 // 3, nt1 // 4] = float("nan")
+    poisoned = {k: v.cpu().numpy() for k, v in serve(bad).items()}
+    lanes = [b for b in range(B1) if b != 5]
+    serve_ok = (poisoned["ok"][5] == guards.BAD_INPUT
+                and not poisoned["ok"][lanes].any()
+                and all(np.isnan(poisoned[k][5]) for k in keys)
+                and all(poisoned[k][lanes].tobytes()
+                        == clean[k][lanes].tobytes() for k in keys))
+    # the host scipy fit of the same cuts (the survey bench's recipe)
+    tc, fc = FB.acf_cuts_batch(dyns, device=dev)
+    tc, fc = tc.double().cpu(), fc.double().cpu()
+    wt, wf = FB.bartlett_weights(tc, nt1), FB.bartlett_weights(fc, nf1)
+    g = FB.initial_guesses_batch(tc, fc, dt, df, nt1 * dt, nf1 * df)
+    xt, xf = dt * np.arange(nt1), df * np.arange(nf1)
+    agree = []
+    t0 = time.perf_counter()
+    for b in range(B1):
+        p = Parameters()
+        for name, v in zip(("tau", "dnu", "amp"), g[:3]):
+            p.add(name, value=float(v[b]), vary=True, min=0, max=np.inf)
+        p.add("alpha", value=5 / 3, vary=False)
+        r = minimize_leastsq(M.scint_acf_model, p, args=(
+            (xt, xf), (tc[b].numpy(), fc[b].numpy()),
+            (wt[b].numpy(), wf[b].numpy())))
+        agree.append(all(
+            within(res[k][b], r.params[k].value, r.params[k].stderr, 0.10)
+            for k in ("tau", "dnu")))
+    scipy_s = time.perf_counter() - t0
+    agree_frac = float(np.mean(agree))
+    print(f"[10.1] scint_params_batch, {B1} epochs of {nf1}x{nt1}: first "
+          f"call {first_s:.3f} s (made on the host in {make_s:.3f} s), "
+          f"repeat {wall_s:.3f} s = {B1 / wall_s:.1f} epochs/s, builds "
+          f"{builds}; torch.profiler over one call: device busy "
+          f"{share if share is None else round(share, 4)} of the window, "
+          f"{busy_ms:.3f} ms of activities; median τ "
+          f"{np.median(res['tau']):.4g} s, Δν {np.median(res['dnu']):.4g} "
+          f"MHz; all finite and positive {positive}; 4 lanes vs B = 1 max "
+          f"rel {lane_rel:.3e} (gate 1e-4); rerun bitwise {rerun_equal}; "
+          f"NaN lane quarantined, neighbours bitwise {serve_ok}; agreement "
+          f"with the host scipy fit {agree_frac:.4f} (gate 0.9; scipy "
+          f"{scipy_s:.3f} s)", flush=True)
+    check(positive, "10.1: a τ, Δν or amp is not finite and positive")
+    check(lane_rel <= 1e-4, "10.1: stacked lanes differ from B = 1 calls")
+    check(rerun_equal, "10.1: a rerun is not bitwise equal")
+    check(serve_ok, "10.1: the NaN lane is not quarantined bitwise")
+    check(agree_frac >= 0.9, "10.1: agreement with scipy below 0.9")
+    out["survey_1d"] = dict(
+        epochs=B1, shape=[nf1, nt1], first_s=first_s, wall_s=wall_s,
+        epochs_per_s=B1 / wall_s, builds=builds, device_busy_share=share,
+        device_ms=busy_ms, lane_vs_b1_max_rel=lane_rel,
+        agree_frac=agree_frac, scipy_s=scipy_s,
+        median_tau=float(np.median(res["tau"])),
+        median_dnu=float(np.median(res["dnu"])))
+    del dyns, bad, host
+    lap("10.1 survey 1-D fit")
+
+    # ---- 10.2 one 2-D fit at the survey crop --------------------------
+    t0 = time.perf_counter()
+    ys = acf2d_epochs(nc2, 4, dev)
+    truth_s = time.perf_counter() - t0
+
+    def start():
+        return acf2d_survey_params(nc2, 1400.0, 7.5, 0.8, 50.0)
+
+    walls = {}
+    fits = {}
+    for prec in ("default", "highest"):
+        t0 = time.perf_counter()
+        fits[prec] = A2.fit_acf2d(start(), ys[0], None, precision=prec,
+                                  device=dev)
+        walls[prec + "_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steady = [A2.fit_acf2d(start(), y, None, device=dev) for y in ys[1:]]
+    walls["default_steady_s"] = (time.perf_counter() - t0) / len(steady)
+    t0 = time.perf_counter()
+    hi2 = A2.fit_acf2d(start(), ys[0], None, precision="highest", device=dev)
+    walls["highest_s"] = time.perf_counter() - t0
+    fd, fh = fits["default"], fits["highest"]
+    pol_ok = all(within(fd.params[k].value, fh.params[k].value,
+                        fh.params[k].stderr, 0.01) for k in ("tau", "dnu"))
+    tau_err = fd.params["tau"].value / 1800.0 - 1
+    t0 = time.perf_counter()
+    sp = minimize_leastsq(M.scint_acf_model_2d, start(), (ys[0], None, dev),
+                          max_nfev=4000)
+    walls["scipy_s"] = time.perf_counter() - t0
+    sp_tau = sp.params["tau"]
+    sp_ok = within(fd.params["tau"].value, sp_tau.value,
+                   3 * (sp_tau.stderr or 0.0), 0.05)
+    print(f"[10.2] fit_acf2d at crop {nc2} (truth {truth_s:.3f} s on the "
+          f"card): default τ {fd.params['tau'].value:.6g} ± "
+          f"{fd.params['tau'].stderr:.3g}, Δν {fd.params['dnu'].value:.6g}, "
+          f"niter {fd.nfev}, ok {fd.ok}; highest τ "
+          f"{fh.params['tau'].value:.6g} ± {fh.params['tau'].stderr:.3g}, "
+          f"Δν {fh.params['dnu'].value:.6g}, niter {fh.nfev}, ok {fh.ok}; "
+          f"default vs highest within max(1%, stderr) {pol_ok}; τ "
+          f"{tau_err:+.4%} from 1800 (gate 5%); scipy route τ "
+          f"{sp_tau.value:.6g} ± {sp_tau.stderr:.3g}, nfev {sp.nfev}, agrees "
+          f"within max(3·stderr, 5%) {sp_ok}; walls s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; steady niter {[r.nfev for r in steady]}", flush=True)
+    # what the model's written-out derivative saves: autograd's dual
+    # numbers take a Python zero-tensor path for every product with a
+    # constant (a call's wall by CUDA events; the host paces both)
+    dt2, df2 = 2 * 7200.0 / (2 * nc2 - 1), 2 * 64.0 / (2 * nc2 - 1)
+    core = make_acf2d_model_core(nc2, nc2, 2.0, 5 / 3, 0.0, 1400.0, dt2,
+                                 precision="highest", device=dev)
+    x = torch.tensor([1400.0, 7.5, 0.8, 0.0, 50.0, 0.0],
+                     dtype=torch.float64, device=dev)
+    tang = torch.eye(7, dtype=torch.float64, device=dev)[:6]
+
+    def autodiff():
+        return torch.func.jacfwd(lambda v: core(*v, dt2, df2))(x)
+
+    def written():
+        return core.jvp(*x, dt2, df2, tangents=tang)
+
+    autodiff(), written()
+    _, auto_ms = timed(autodiff, reps=3)
+    _, hand_ms = timed(written, reps=3)
+    a = torch.randn(1000, device=dev)
+    c = torch.randn(1000, device=dev)
+    with fwAD.dual_level():
+        d = fwAD.make_dual(a, torch.ones_like(a))
+        d * c
+        _, dual_us = timed(lambda: d * c, reps=200)
+    a * c
+    _, plain_us = timed(lambda: a * c, reps=200)
+    dual_us, plain_us = 1e3 * dual_us, 1e3 * plain_us
+    print(f"    forward mode at crop {nc2}, \"highest\": torch.func.jacfwd "
+          f"of the model {auto_ms:.3f} ms a Jacobian (6 columns), the "
+          f"written-out derivative {hand_ms:.3f} ms (the same 6); a dual "
+          f"number times a constant {dual_us:.1f} µs, a plain product "
+          f"{plain_us:.1f} µs", flush=True)
+    walls.update(jacfwd_ms=auto_ms, written_jvp_ms=hand_ms,
+                 dual_product_us=dual_us, plain_product_us=plain_us)
+    check(fd.ok == 0 and fh.ok == 0 and hi2.ok == 0, "10.2: a fit flagged")
+    check(pol_ok, "10.2: default and highest fits disagree")
+    check(abs(tau_err) < 0.05, "10.2: τ not within 5% of 1800 s")
+    check(sp_ok, "10.2: the scipy route disagrees")
+    out["acf2d_single"] = dict(
+        crop=nc2, walls_s=walls, niter_default=fd.nfev,
+        niter_highest=fh.nfev, niter_steady=[r.nfev for r in steady],
+        tau_default=fd.params["tau"].value,
+        tau_highest=fh.params["tau"].value, tau_rel_err=tau_err,
+        tau_scipy=sp_tau.value, scipy_nfev=sp.nfev)
+    lap("10.2 one 2-D fit")
+
+    # ---- 10.3 the survey 2-D fit --------------------------------------
+    epochs = acf2d_epochs(nc3, B3, dev)
+    variants = [epochs + 1e-7 * i for i in range(3)]
+
+    def start3():
+        return acf2d_survey_params(nc3, 1400.0, 7.5, 0.8, 50.0)
+
+    t0 = time.perf_counter()
+    res0, ok0 = A2.fit_acf2d_batch(start3(), variants[0], None, device=dev)
+    first_s = time.perf_counter() - t0
+    builds0 = A2.ACF2D_CACHE_STATS["builder_calls"]
+    t0 = time.perf_counter()
+    for v in variants[1:]:
+        _, okv = A2.fit_acf2d_batch(start3(), v, None, device=dev)
+        check(not okv.any(), "10.3: a repeat lane flagged")
+    batch_s = (time.perf_counter() - t0) / 2
+    rebuilt = A2.ACF2D_CACHE_STATS["builder_calls"] - builds0
+    A2.fit_acf2d(start3(), epochs[0], None, precision="highest", device=dev)
+    t0 = time.perf_counter()
+    looped = [A2.fit_acf2d(start3(), epochs[b], None, precision="highest",
+                           device=dev) for b in range(B3)]
+    loop_s = (time.perf_counter() - t0) / B3
+    agree3 = [all(within(res0[b].params[k].value, looped[b].params[k].value,
+                         looped[b].params[k].stderr, 0.01)
+                  for k in ("tau", "dnu")) for b in range(B3)]
+    print(f"[10.3] fit_acf2d_batch, {B3} crops of {nc3}: first call "
+          f"{first_s:.3f} s, steady {batch_s:.3f} s = {B3 / batch_s:.2f} "
+          f"epochs/s, looped highest {loop_s:.3f} s per epoch = "
+          f"{1 / loop_s:.2f} epochs/s; ok all 0 {not ok0.any()}; builds on "
+          f"the repeats {rebuilt}; lanes within max(1%, stderr) of the looped "
+          f"fits {sum(agree3)} of {B3}; niter {[r.nfev for r in res0]}",
+          flush=True)
+    check(not ok0.any(), "10.3: a lane flagged")
+    check(rebuilt == 0, "10.3: a repeat call rebuilt the fit")
+    check(all(agree3), "10.3: a lane disagrees with its looped fit")
+    out["acf2d_survey"] = dict(
+        epochs=B3, crop=nc3, first_s=first_s, steady_s=batch_s,
+        epochs_per_s=B3 / batch_s, looped_s_per_epoch=loop_s,
+        looped_epochs_per_s=1 / loop_s, builds_on_repeats=rebuilt,
+        niter=[r.nfev for r in res0])
+    lap("10.3 survey 2-D fit")
+
+    # ---- 10.4 the façade on phase 9's processed file ------------------
+    seen = {}
+    fit2d = D.fit_acf2d
+
+    def recorded(params, ydata, weights, **kw):
+        seen.update(params=params.copy(), ydata=np.array(ydata),
+                    weights=np.array(weights), kw=kw)
+        return fit2d(params, ydata, weights, **kw)
+
+    walls = {}
+    vals = {}
+    D.fit_acf2d = recorded
+    try:
+        for m in ("nofit", "acf1d", "acf2d_approx", "acf2d"):
+            t0 = time.perf_counter()
+            r = da.get_scint_params(method=m)
+            walls[m] = time.perf_counter() - t0
+            vals[m] = {k: float(getattr(da, k))
+                       for k in ("tau", "dnu", "tauerr", "dnuerr", "amp")}
+            if m.startswith("acf2d"):
+                vals[m].update(phasegrad=float(da.phasegrad),
+                               model_shape=list(da.acf_model.shape))
+            if m == "acf2d":
+                vals[m].update(ok=int(r.ok), psi=float(da.psi))
+        t0 = time.perf_counter()
+        da.get_acf_tilt()
+        walls["get_acf_tilt"] = time.perf_counter() - t0
+    finally:
+        D.fit_acf2d = fit2d
+    again = A2.fit_acf2d(seen["params"], seen["ydata"], seen["weights"],
+                         **seen["kw"])
+    same = (again.params["tau"].value == vals["acf2d"]["tau"]
+            and again.params["dnu"].value == vals["acf2d"]["dnu"])
+    finite = all(np.isfinite(v) for m in vals for k, v in vals[m].items()
+                 if k not in ("model_shape",)) and np.isfinite(
+        [da.acf_tilt, da.acf_tilt_err]).all()
+    in_range = all(da.dt < vals[m]["tau"] < da.tobs
+                   and da.df < vals[m]["dnu"] < da.bw
+                   for m in ("acf1d", "acf2d_approx", "acf2d"))
+    print(f"[10.4] façade on the processed {da.dyn.shape} file: "
+          + "; ".join(f"{m} τ {v['tau']:.5g} s Δν {v['dnu']:.5g} MHz"
+                      for m, v in vals.items())
+          + f"; acf2d crop {seen['ydata'].shape}, ok {vals['acf2d']['ok']}, "
+          f"ψ {vals['acf2d']['psi']:.5g}; tilt {da.acf_tilt:.5g} ± "
+          f"{da.acf_tilt_err:.3g} min/MHz; walls s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; all finite {finite}; dt < τ < tobs and df < Δν < bw "
+          f"{in_range}; direct fit_acf2d on the same crop equal {same}",
+          flush=True)
+    check(finite, "10.4: a stored value is not finite")
+    check(in_range, "10.4: a fitted τ or Δν is out of range")
+    check(vals["acf2d"]["ok"] == 0, "10.4: the acf2d fit is flagged")
+    check(vals["acf2d"]["model_shape"] == list(seen["ydata"].shape),
+          "10.4: acf_model does not have the crop's shape")
+    check(same, "10.4: fit_acf2d on the same crop differs")
+    out["facade"] = dict(values=vals, walls_s=walls,
+                         crop=list(seen["ydata"].shape),
+                         acf_tilt=float(da.acf_tilt))
+    lap("10.4 façade")
     return out
 
 

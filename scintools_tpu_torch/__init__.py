@@ -8,7 +8,10 @@ parabola peak fit with a per-chunk health mask → weighted global
 η ∝ f⁻² fit. The wavefield is then retrieved on the card: per-chunk
 θ-θ of a half-overlap chunk grid → dominant eigenpair by a second entry
 of the same kernel, warm-started along chains of chunks → inverse map
-and cropped ifft2 → device mosaic → Gerchberg–Saxton. Entry points take
+and cropped ifft2 → device mosaic → Gerchberg–Saxton. Scintillation
+parameters come from the ACF: the analytic 2-D ACF model and batched
+Levenberg–Marquardt fits run on the card (``fit/``, ``sim/``), the
+scipy fits on the host. Entry points take
 ``device=None``, meaning the card; pass ``device="cpu"`` to run the
 plain PyTorch versions on the CPU.
 

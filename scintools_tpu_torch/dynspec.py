@@ -10,7 +10,9 @@ and ``_trim_time``), ``crop_dyn`` (:246), ``zap`` (:269), ``refill``
 (:276, every method), ``correct_dyn`` (:298), ``scale_dyn`` (:357,
 equal-wavelength only), ``_select_dyn`` (:441), ``calc_sspec`` (:462),
 ``calc_acf`` (:511), ``cut_dyn`` (:533, without ``plot``),
-``_select_sspec`` (:575), ``fit_arc`` (:596), ``norm_sspec`` (:689),
+``_select_sspec`` (:575), ``fit_arc`` (:596), ``norm_sspec`` (:689,
+with ``fit_spectrum``), ``get_scint_params`` (:758, methods ``nofit``,
+``acf1d``, ``acf2d_approx`` and ``acf2d``), ``get_acf_tilt`` (:1070),
 ``prep_thetatheta`` (:1240, with the Hough seed of :1277-1296 and the
 thin-screen limits of :1303-1324), ``_chunk`` (:1341),
 ``thetatheta_single`` (:1354), ``fit_thetatheta`` (:1416, the batched row
@@ -26,16 +28,19 @@ parameters in the reference's order; the port's own (``eig``,
 ``device``, ``mark``) come after them. State accretes on the instance as
 in the JAX package (``self.dyn``, ``self.acf``, ``self.sspec``,
 ``self.lamsspec``, ``self.betaeta``, ``self.eta_evo``, ``self.ththeta``,
-``self.chunks``, ``self.wavefield``, …) as numpy arrays. The FFTs, the
-median refill's sort and the θ-θ work run on ``self.device``; the steps
-that are host numpy in the JAX package (parsing, trimming, the
-biharmonic and ``griddata`` refills, the SVD flux model) stay on the
-host.
+``self.chunks``, ``self.wavefield``, ``self.tau``, ``self.dnu``,
+``self.acf_model``, …) as numpy arrays. The FFTs, the median refill's
+sort, the θ-θ work, the analytic 2-D ACF and the acf2d fit run on
+``self.device``; the steps that are host numpy in the JAX package
+(parsing, trimming, the biharmonic and ``griddata`` refills, the SVD
+flux model, the scipy fits, the initial guesses and the tilt fit) stay
+on the host.
 
-Not ported: velocity and trapezoid rescaling, plotting and the ``mesh``
-options raise ``NotImplementedError``; ``SimDyn`` and ``HoloDyn`` are
-not here. ``pool`` is accepted and ignored, as the JAX package does off
-its numpy backend.
+Not ported: velocity and trapezoid rescaling, MCMC fits (``mcmc``,
+``method="mcmc"``), the ``sspec`` fitting method, plotting and the
+``mesh`` options raise ``NotImplementedError``; ``SimDyn`` and
+``HoloDyn`` are not here. ``pool`` is accepted and ignored, as the JAX
+package does off its numpy backend.
 """
 
 from __future__ import annotations
@@ -45,6 +50,10 @@ import os
 import numpy as np
 
 from .backend import resolve_device
+from .fit import models as mdl
+from .fit.acf2d import fit_acf2d
+from .fit.fitter import fitter
+from .fit.parameters import Parameters
 from .io.psrflux import RawDynSpec, concatenate_time, load_psrflux, \
     write_psrflux
 from .ops import acf as acf_ops
@@ -65,6 +74,7 @@ _STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
                "nct_fit", "ncf_ret", "nct_ret", "npad", "fw", "fref",
                "eta_min", "eta_max", "neta", "edges", "thth_tau_mask",
                "thetatheta_proc")
+_OBS_KEYS = ("tobs", "bw", "nsub", "nchan", "freq", "mjd")
 
 
 def _not_ported(**opts):
@@ -105,7 +115,11 @@ class Dynspec:
         eta_max, neta, edges, thth_tau_mask, thetatheta_proc``, and
         ``arclet_lim`` and ``center_cut`` when the proc is ``"thin"``) —
         ready for :meth:`fit_thetatheta`. An optional ``ththeta`` (the
-        fitted curvature) makes it ready for retrieval without a fit."""
+        fitted curvature) makes it ready for retrieval without a fit.
+        Optional observation values (``_OBS_KEYS``: ``tobs``, ``bw``,
+        ``nsub``, ``nchan``, ``freq``, ``mjd``) and an optional ``acf``
+        with ``acf_tilt`` and ``acf_tilt_err`` make it ready for
+        :meth:`get_scint_params` and :meth:`get_acf_tilt` on that ACF."""
         missing = [k for k in _STATE_KEYS if k not in state]
         if missing:
             raise KeyError(f"reference state lacks {missing}")
@@ -117,6 +131,11 @@ class Dynspec:
                     if isinstance(v, (np.ndarray, list)) else v)
         if "ththeta" in state:
             self.ththeta = float(state["ththeta"])
+        for k in _OBS_KEYS + ("acf_tilt", "acf_tilt_err"):
+            if k in state:
+                setattr(self, k, state[k])
+        if "acf" in state:
+            self.acf = np.array(state["acf"], dtype=float)
         if self.thetatheta_proc == "thin":
             missing = [k for k in ("arclet_lim", "center_cut")
                        if k not in state]
@@ -639,7 +658,360 @@ class Dynspec:
         self.powerspectrum = ns.powerspectrum
         self.mask = ns.mask
         self.weights = ns.weights
+        for attr in ("ps_wn", "ps_amp", "ps_alpha", "ps_wn_err",
+                     "ps_amp_err", "ps_alpha_err"):
+            val = getattr(ns, attr)
+            if val is not None:
+                setattr(self, attr, val)
         return ns
+
+    # ------------------------------------------------------------------
+    # scintillation parameters
+    # ------------------------------------------------------------------
+    def get_scint_params(self, method="acf1d", plot=False, alpha=5 / 3,
+                         mcmc=False, full_frame=False, nscale=5,
+                         nwalkers=50, steps=10000, burn=0.25, nitr=1,
+                         lnsigma=True, verbose=False, progress=True,
+                         display=True, filename=None, dpi=200,
+                         nan_policy="raise", weighted=True, workers=1,
+                         tau_vary_2d=True, tau_input=None, bartlett=True,
+                         get_fit_report=True, precision=None):
+        """Scintillation timescale and bandwidth from the ACF
+        (``self.acf``, computed first when missing): ``self.tau``,
+        ``self.dnu``, ``self.amp``, their errors with the finite-scintle
+        terms, ``self.tscat``, ``self.nscint``, the no-fit estimates
+        (``dnu_est``, ``modulation_index``, …), and for the 2-D methods
+        ``self.acf_model`` and ``self.phasegrad`` (with ``ar``, ``theta``
+        and ``psi`` for ``"acf2d"``). Returns the fit's
+        :class:`~.fit.fitter.MinimizerResult` (None for ``"nofit"``).
+
+        ``"acf1d"`` and ``"acf2d_approx"`` are scipy fits on the host.
+        ``"acf2d"`` fits the analytic ACF on ``self.device``: the batched
+        LM (:func:`~.fit.acf2d.fit_acf2d`, ``precision`` its policy) for
+        an odd crop, else ``nitr`` scipy fits over the model. ``mcmc``,
+        ``method="mcmc"``, ``"sspec"`` and ``plot`` are not ported yet and
+        raise (``nwalkers``, ``steps``, ``burn``, ``lnsigma``,
+        ``progress``, ``workers``, ``display``, ``filename`` and ``dpi``
+        configure them)."""
+        methods = ("nofit", "acf1d", "acf2d_approx", "acf2d", "sspec",
+                   "mcmc")
+        if method not in methods:
+            raise ValueError(f"method must be one of {methods}, "
+                             f"got {method!r}")
+        if mcmc or method == "mcmc":
+            raise NotImplementedError("MCMC fits are not ported yet "
+                                      "(ROADMAP item 11)")
+        if method == "sspec":
+            raise NotImplementedError(
+                "the sspec fitting method is disabled upstream")
+        if plot:
+            raise NotImplementedError("the port has no plotting")
+        if not hasattr(self, "acf"):
+            self.calc_acf()
+
+        nf, nt = np.shape(self.acf)
+        ydata_f = self.acf[nf // 2:, nt // 2]
+        xdata_f = self.df * np.arange(len(ydata_f))
+        ydata_t = self.acf[nf // 2, nt // 2:]
+        xdata_t = self.dt * np.arange(len(ydata_t))
+
+        # initial guesses
+        wn = min(ydata_f[0] - ydata_f[1], ydata_t[0] - ydata_t[1])
+        amp = max(ydata_f[0] - wn, ydata_t[0] - wn)
+        below_t = np.flatnonzero(ydata_t < amp / np.e)
+        if below_t.size == 0:
+            tau = self.dt if ydata_t[1] < 0 else self.tobs
+        else:
+            tau = xdata_t[below_t[0]]
+        below_f = np.flatnonzero(ydata_f < amp / 2)
+        if below_f.size == 0:
+            dnu = self.df if ydata_f[1] < 0 else self.bw
+        else:
+            dnu = xdata_f[below_f[0]]
+
+        if not full_frame:
+            t_sel = xdata_t <= max(nscale * tau, 5 * self.dt)
+            f_sel = xdata_f <= max(nscale * dnu, 5 * self.df)
+            xdata_t, ydata_t = xdata_t[t_sel], ydata_t[t_sel]
+            xdata_f, ydata_f = xdata_f[f_sel], ydata_f[f_sel]
+
+        # no-fit estimates
+        self.tau, self.dnu, self.amp, self.wn = tau, dnu, amp, wn
+        tau_half = xdata_t[np.argmin(np.abs(ydata_t - amp / 2))]
+        tau_half = np.clip(tau_half, self.dt, self.tobs)
+        nscint = ((1 + 0.2 * self.bw / dnu)
+                  * (1 + 0.2 * self.tobs / tau_half))
+        self.dnuerr = dnu / np.sqrt(nscint)
+        self.tauerr = tau / np.sqrt(nscint)
+        self.amperr = amp / np.sqrt(nscint)
+        self.wnerr = wn / np.sqrt(nscint)
+        self.tscat = 1 / (2 * np.pi * dnu)
+        self.nscint = nscint
+        self.scint_param_method = "nofit"
+
+        valid = is_valid(self.dyn) & (self.dyn != 0)
+        mean = np.mean(self.dyn[valid])
+        flux_var = np.var(self.dyn[valid])
+        self.dnu_est = max(self.df * (flux_var / mean ** 2 - 1), 0)
+        self.dnu_esterr = self.dnu_est / np.sqrt(nscint)
+        self.tscat_est = (1 / (2 * np.pi * self.dnu_est)
+                          if self.dnu_est > 0 else 0)
+        self.modulation_index = np.sqrt(flux_var) / mean
+
+        if method == "nofit":
+            return None
+
+        params = Parameters()
+        params.add("tau", value=tau, vary=True, min=0, max=np.inf)
+        params.add("dnu", value=dnu, vary=True, min=0, max=np.inf)
+        params.add("amp", value=amp, vary=True, min=0, max=np.inf)
+        if alpha is None:
+            params.add("alpha", value=5 / 3, vary=True)
+        else:
+            params.add("alpha", value=alpha, vary=False)
+        params.add("nt", value=nt, vary=False)
+        params.add("nf", value=nf, vary=False)
+
+        # Bartlett-formula ACF error weights
+        t_errors = np.ones(np.shape(xdata_t)) / np.sqrt(nt / 2)
+        t_errors[0] = 1e-3
+        f_errors = np.ones(np.shape(xdata_f)) / np.sqrt(nf / 2)
+        f_errors[0] = 1e-3
+        if bartlett:
+            var_t = np.ones(np.shape(ydata_t)) / (nt / 2)
+            var_t[0] = 1e-10
+            var_t[2:] *= 1 + 2 * np.cumsum(ydata_t[1:-1] ** 2)
+            t_errors = np.sqrt(var_t)
+            var_f = np.ones(np.shape(ydata_f)) / (nf / 2)
+            var_f[0] = 1e-10
+            var_f[2:] *= 1 + 2 * np.cumsum(ydata_f[1:-1] ** 2)
+            f_errors = np.sqrt(var_f)
+        weights_t = 1 / t_errors if weighted else None
+        weights_f = 1 / f_errors if weighted else None
+
+        results = fitter(
+            mdl.scint_acf_model, params,
+            ((xdata_t, xdata_f), (ydata_t, ydata_f),
+             (weights_t, weights_f)), max_nfev=50000,
+            nan_policy=nan_policy)
+        if results.params["dnu"].stderr is not None:
+            for k in ("tau", "dnu", "amp"):
+                params[k].value = results.params[k].value
+
+        tdata = fdata = ydata_2d = None
+        if method in ("acf2d_approx", "acf2d"):
+            params["tau"].vary = tau_vary_2d
+            if tau_input is not None:
+                params["tau"].value = tau_input
+
+            tticks = np.linspace(-self.tobs, self.tobs, nt + 1)[:-1]
+            fticks = np.linspace(-self.bw, self.bw, nf + 1)[:-1]
+            T, F = np.meshgrid(self.tobs - abs(tticks),
+                               self.bw - abs(fticks))
+            N2d = (self.nsub * self.nchan * (T / max(tticks))
+                   * (F / max(fticks)))
+            with np.errstate(divide="ignore", invalid="ignore"):
+                errors_2d = 1 / np.sqrt(N2d)
+            errors_2d[~is_valid(errors_2d)] = np.inf
+            weights_2d = np.ones(np.shape(self.acf))
+            if weighted:
+                weights_2d = weights_2d / errors_2d
+
+            # centre on the white-noise spike
+            wn_loc = np.unravel_index(np.argmax(self.acf), self.acf.shape)
+            fhalf = min(wn_loc[0], nf - wn_loc[0] - 1)
+            thalf = min(wn_loc[1], nt - wn_loc[1] - 1)
+            fmin_, fmax_ = wn_loc[0] - fhalf, wn_loc[0] + fhalf + 1
+            tmin_, tmax_ = wn_loc[1] - thalf, wn_loc[1] + thalf + 1
+            ydata_c = self.acf[fmin_:fmax_, tmin_:tmax_]
+            weights_c = weights_2d[fmin_:fmax_, tmin_:tmax_]
+            tdata_c = tticks[tmin_:tmax_]
+            fdata_c = fticks[fmin_:fmax_]
+
+            if nscale is not None and not full_frame:
+                tframe = int(round(nscale * (tau / self.dt)))
+                fframe = int(round(nscale * (dnu / self.df)))
+                tc = ydata_c.shape[1] // 2
+                fc = ydata_c.shape[0] // 2
+                tmin_, tmax_ = max(tc - tframe, 0), tc + tframe + 1
+                fmin_, fmax_ = max(fc - fframe, 0), fc + fframe + 1
+                ydata_2d = ydata_c[fmin_:fmax_, tmin_:tmax_]
+                weights_2d = weights_c[fmin_:fmax_, tmin_:tmax_]
+                tdata = tdata_c[tmin_:tmax_]
+                fdata = fdata_c[fmin_:fmax_]
+            else:
+                ydata_2d, weights_2d = ydata_c, weights_c
+                tdata, fdata = tdata_c, fdata_c
+
+            with np.errstate(invalid="ignore"):
+                weights_2d[ydata_2d - 1 / weights_2d < 0] = 0
+            weights_2d = np.fft.fftshift(weights_2d)
+            weights_2d[0][0] = 1e10
+            weights_2d = np.fft.ifftshift(weights_2d)
+
+            params.add("phasegrad", value=0, vary=True)
+            if (hasattr(self, "acf_tilt")
+                    and getattr(self, "acf_tilt_err", None) is not None):
+                params["phasegrad"].value = self.acf_tilt
+            params.add("tobs", value=self.tobs, vary=False)
+            params.add("bw", value=self.bw, vary=False)
+            params.add("freq", value=self.freq, vary=False)
+
+            results = fitter(
+                mdl.scint_acf_model_2d_approx, params,
+                (tdata, fdata, ydata_2d, weights_2d), max_nfev=50000,
+                nan_policy=nan_policy)
+
+            if method == "acf2d":
+                params2d = results.params.copy()
+                params2d.add("ar", value=2, vary=False)
+                params2d.add("theta", value=0, vary=False)
+                params2d.add("psi", value=60, vary=True)
+                params2d["phasegrad"].value = 0.0
+                chisqr = np.inf
+                # the batched LM is deterministic from an unchanged
+                # start, so it runs once; the scipy route restarts nitr
+                # times
+                device_lm = (ydata_2d.shape[0] % 2 == 1
+                             and ydata_2d.shape[1] % 2 == 1)
+                for _ in range(1 if device_lm else nitr):
+                    if device_lm:
+                        res = fit_acf2d(params2d, ydata_2d, weights_2d,
+                                        precision=precision,
+                                        device=self.device)
+                    else:
+                        res = fitter(
+                            mdl.scint_acf_model_2d, params2d,
+                            (ydata_2d, weights_2d, self.device),
+                            max_nfev=90000, nan_policy=nan_policy)
+                    if res.chisqr < chisqr:
+                        chisqr = res.chisqr
+                        results = res
+
+        if (results.params["tau"].stderr is None
+                or results.params["dnu"].stderr is None):
+            print("\n Warning: Could not estimate uncertainties")
+        elif (results.params["tau"].stderr > results.params["tau"].value
+              or results.params["dnu"].stderr
+              > results.params["dnu"].value):
+            print("\n Warning: Parameters unconstrained")
+
+        self.scint_param_method = method
+        if get_fit_report:
+            self.report = results.fit_report()
+            if verbose:
+                print(self.report)
+
+        # results and finite-scintle errors
+        self.tau = results.params["tau"].value
+        self.dnu = results.params["dnu"].value
+        self.tscat = 1 / (2 * np.pi * self.dnu)
+        if self.dnu < self.df:
+            print("Warning: Scint bandwidth < channel bandwidth.")
+        nscint = ((1 + 0.2 * self.bw / self.dnu)
+                  * (1 + 0.2 * self.tobs / (self.tau * np.log(2))))
+        self.nscint = nscint
+        self.fse_tau = self.tau / (2 * np.sqrt(nscint))
+        self.fse_dnu = self.dnu / (2 * np.sqrt(nscint))
+        fit_tau = results.params["tau"].stderr or np.inf
+        fit_dnu = results.params["dnu"].stderr or np.inf
+        self.tauerr = np.sqrt(fit_tau ** 2 + self.fse_tau ** 2)
+        self.dnuerr = np.sqrt(fit_dnu ** 2 + self.fse_dnu ** 2)
+        self.amp = results.params["amp"].value
+        self.amperr = results.params["amp"].stderr
+        self.wn = 1 - self.amp
+        if "sim:mb2=" in self.name:
+            self.wn = 0
+        if alpha is None:
+            self.talpha = results.params["alpha"].value
+            self.talphaerr = results.params["alpha"].stderr
+        else:
+            self.talpha = alpha
+            self.talphaerr = 0
+
+        if method.startswith("acf2d"):
+            if method == "acf2d_approx":
+                model = -mdl.scint_acf_model_2d_approx(
+                    results.params, tdata, fdata,
+                    np.zeros(np.shape(ydata_2d)), None)
+            else:
+                model = -mdl.scint_acf_model_2d(
+                    results.params, np.zeros(np.shape(ydata_2d)), None,
+                    self.device)
+            self.acf_model = np.asarray(model)
+            self.phasegrad = results.params["phasegrad"].value
+            fit_ph = results.params["phasegrad"].stderr or np.inf
+            self.phasegraderr = fit_ph
+            self.fse_phasegrad = self.phasegrad * np.sqrt(
+                (self.fse_dnu / self.dnu) ** 2
+                + (self.fse_tau / self.tau) ** 2)
+            if method == "acf2d":
+                for k in ("ar", "theta", "psi"):
+                    setattr(self, k, results.params[k].value)
+                    setattr(self, k + "err", results.params[k].stderr)
+        return results
+
+    def get_acf_tilt(self, plot=False, tmax=None, fmax=None, display=True,
+                     filename=None, nscale=0.8, nscaleplot=2, nmin=5,
+                     dpi=200, method="acf1d", tmaxplot=None,
+                     fmaxplot=None):
+        """ACF tilt (a phase-gradient proxy, min/MHz) on the host: the
+        parabola peak of each frequency-lag row of ``self.acf`` within
+        ``fmax`` (``nscale``·Δν by default; ``get_scint_params(method)``
+        runs first when there is no fit), then a line fitted to the peaks
+        weighted by their errors. Sets ``self.acf_tilt``,
+        ``self.acf_tilt_err`` and ``self.fse_tilt``. The port has no
+        plotting (``plot``; ``display``, ``filename``, ``nscaleplot``,
+        ``dpi``, ``tmaxplot`` and ``fmaxplot`` configure it); ``tmax`` is
+        accepted and unused, as in the JAX package."""
+        if plot:
+            raise NotImplementedError("the port has no plotting")
+        if not hasattr(self, "acf"):
+            self.calc_acf()
+        if not hasattr(self, "dnu") or self.scint_param_method == "nofit":
+            self.get_scint_params(method=method)
+        if fmax is None:
+            fmax = nscale * self.dnu
+
+        acf = np.array(self.acf)
+        nr, nc = acf.shape
+        t_delays = np.linspace(-self.tobs / 60, self.tobs / 60,
+                               nc + 1)[:-1]
+        f_shifts = np.linspace(-self.bw, self.bw, nr + 1)[:-1]
+        inds = np.flatnonzero(np.abs(f_shifts) <= fmax)
+        if len(inds) < nmin:
+            inds = np.flatnonzero(np.abs(f_shifts) <= nmin * self.df)
+
+        peaks, peakerrs, ys = [], [], []
+        for ii in inds:
+            x_max = int(np.argmax(acf[ii, :]))
+            ydata = acf[ii, x_max - 3:x_max + 4]
+            xdata = t_delays[x_max - 3:x_max + 4]
+            if len(xdata) < 7:
+                continue
+            _, peak, peakerr = mdl.fit_parabola(xdata, ydata)
+            peaks.append(peak)
+            peakerrs.append(peakerr)
+            ys.append(f_shifts[ii])
+        peaks = np.array(peaks)
+        peakerrs = np.array(peakerrs)
+        ys = np.array(ys)
+
+        params, pcov = np.polyfit(peaks, ys, 1, cov=True, w=1 / peakerrs)
+        xfit = (ys - params[1]) / params[0]
+        errors = np.sqrt(np.abs(np.diag(pcov)))
+        res = peaks - xfit
+        red_chisq = np.sum(res ** 2 / peakerrs ** 2) / (len(xfit) - 2)
+        errors = errors * np.sqrt(red_chisq)
+
+        self.acf_tilt = float(1 / params[0])  # min/MHz
+        self.acf_tilt_err = float(errors[0] / params[0] ** 2)
+        N = ((1 + 0.2 * self.bw / self.dnu)
+             * (1 + 0.2 * self.tobs / (self.tau * np.log(2))))
+        fse_tau = self.tau / (2 * np.sqrt(N))
+        fse_dnu = self.dnu / (2 * np.sqrt(N))
+        self.fse_tilt = self.acf_tilt * np.sqrt(
+            (fse_dnu / self.dnu) ** 2 + (fse_tau / self.tau) ** 2)
 
     # ------------------------------------------------------------------
     # θ-θ pipeline

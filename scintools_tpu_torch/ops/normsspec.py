@@ -33,6 +33,9 @@ import numpy as np
 import torch
 
 from ..backend import REAL, as_tensor, resolve_device
+from ..fit.fitter import fitter
+from ..fit.models import powerspectrum_model
+from ..fit.parameters import Parameters
 from .arc_profile import arc_profile
 from .interp import interp_nan_2d
 
@@ -48,6 +51,12 @@ class NormSspec:
     fdop: np.ndarray             # normalised fdop axis
     powerspectrum: np.ndarray    # masked mean linear power per delay row
     weights: np.ndarray          # per-row weights used for the average
+    ps_wn: float = None          # the power-spectrum fit (fit_spectrum)
+    ps_amp: float = None
+    ps_alpha: float = None
+    ps_wn_err: float = None
+    ps_amp_err: float = None
+    ps_alpha_err: float = None
 
 
 def _is_uniform(fdop):
@@ -197,10 +206,10 @@ def normalise_sspec(sspec, tdel, fdop, eta, delmax=None, startbin=1,
     Doppler axis ``fdop`` (mHz); ``eta`` in the matching curvature
     convention. The row interpolation runs on ``device``; the rest is
     host numpy. ``interp_nan`` fills the normalised spectrum's NaNs by
-    linear ``griddata`` on the host. Returns :class:`NormSspec`.
-    ``fit_spectrum`` is not ported yet."""
-    if fit_spectrum:
-        raise NotImplementedError("fit_spectrum is not ported yet")
+    linear ``griddata`` on the host. ``fit_spectrum`` fits wn + amp·x^α
+    to the delay power spectrum over x = √tdel on the host (``fitter``
+    with ``powerspectrum_model``), sets the ``ps_*`` fields and weights
+    the average by the fitted model. Returns :class:`NormSspec`."""
     sspec = np.array(sspec, dtype=float)
     tdel_full = np.asarray(tdel, dtype=float)
     fdop = np.asarray(fdop, dtype=float)
@@ -271,6 +280,20 @@ def normalise_sspec(sspec, tdel, fdop, eta, delmax=None, startbin=1,
     index = int(np.argmin(np.abs(xdata - 10)))
     amp = ydata[index] * xdata[index] ** -alpha
     wn = np.min(ydata)
+    ps = {}
+    if fit_spectrum:
+        params = Parameters()
+        params.add("wn", value=wn, vary=True, min=np.min(ydata), max=np.inf)
+        params.add("alpha", value=alpha, vary=True, min=-np.inf, max=0)
+        params.add("amp", value=amp, vary=True, min=0.0, max=np.inf)
+        results = fitter(powerspectrum_model, params, (xdata, ydata))
+        wn = results.params["wn"].value
+        amp = results.params["amp"].value
+        alpha = results.params["alpha"].value
+        ps = dict(ps_wn=wn, ps_amp=amp, ps_alpha=alpha,
+                  ps_wn_err=results.params["wn"].stderr,
+                  ps_amp_err=results.params["amp"].stderr,
+                  ps_alpha_err=results.params["alpha"].stderr)
 
     arc_spectrum = amp * xdata ** alpha
     if weighted:
@@ -286,4 +309,4 @@ def normalise_sspec(sspec, tdel, fdop, eta, delmax=None, startbin=1,
 
     return NormSspec(normsspecavg=np.asarray(avg), normsspec=mnorm.data,
                      mask=mnorm.mask, tdel=tdel_c, fdop=fdopnew,
-                     powerspectrum=powerspectrum, weights=weights)
+                     powerspectrum=powerspectrum, weights=weights, **ps)

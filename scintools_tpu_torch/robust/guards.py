@@ -9,7 +9,8 @@ flag                  bit    meaning
 ``BAD_INPUT``         1      raw chunk had non-finite pixels (NaN / ±inf)
 ``BAD_CS``            2      conjugate-spectrum power went non-finite
 ``BAD_CURVE``         4      eigen curve degenerate (<3 finite, or flat)
-``BAD_PEAKFIT``       8      peak fit refused
+``BAD_PEAKFIT``       8      peak fit refused (``BAD_FIT``: the acf2d
+                             LM's damped step was singular or non-finite)
 ====================  =====  ==============================================
 
 Lanes with ``BAD_INPUT`` or ``BAD_CS`` get their fitted outputs forced
@@ -26,6 +27,9 @@ BAD_INPUT = 1
 BAD_CS = 2
 BAD_CURVE = 4
 BAD_PEAKFIT = 8
+# the batched acf2d fit flags a singular or non-finite damped step with
+# the same bit (the same failure class as the θ-θ peak fit's)
+BAD_FIT = BAD_PEAKFIT
 
 _NAMES = {BAD_INPUT: "input_nonfinite", BAD_CS: "cs_nonfinite",
           BAD_CURVE: "curve_degenerate", BAD_PEAKFIT: "peakfit_refused"}

@@ -2,8 +2,9 @@
 (the eigensolver's three entries and the arc profile) against their
 plain PyTorch versions on the same CUDA tensors, and the search (one
 chunk and a batch), the
-wavefield retrieval and the survey arc fit run on the card against the
-same calls on the CPU.
+wavefield retrieval, the survey arc fit and the acf2d fit run on the card
+against the same calls on the CPU, and the scintillation fits' NaN lanes
+leave their neighbours bit for bit unchanged on the card.
 
 Every test skips without a CUDA card. The file imports only the port,
 so on a machine with a card and no JAX it runs on its own:
@@ -16,8 +17,13 @@ import pytest
 import torch
 
 from scintools_tpu_torch import grid_retrieval_batch, multi_chunk_search
+from scintools_tpu_torch.fit import acf2d as tacf2d
+from scintools_tpu_torch.fit import batch as tbatch
+from scintools_tpu_torch.fit import models as tmodels
+from scintools_tpu_torch.fit.parameters import Parameters
 from scintools_tpu_torch.ops import arc_profile as tap
 from scintools_tpu_torch.ops import fitarc as tfa
+from scintools_tpu_torch.robust import guards as tguards
 from scintools_tpu_torch.thth import eig as teig
 from scintools_tpu_torch.thth import retrieval as tret
 from scintools_tpu_torch.thth.core import fft_axis
@@ -543,3 +549,90 @@ def test_survey_arc_fit_on_card_matches_cpu(cuda):
         if np.isfinite(c.eta):
             assert g.eta == pytest.approx(c.eta, rel=1e-4)
             assert g.etaerr == pytest.approx(c.etaerr, rel=1e-3)
+
+
+def _acf2d_start(nc, tau=1400.0, dnu=7.5, amp=0.8, psi=50.0):
+    """The survey acf2d configuration (nt = nf = 2·nc − 1, tobs 7200 s,
+    bw 64 MHz, ar 2, α 5/3 fixed) at a start of τ, Δν, amp and ψ."""
+    p = Parameters()
+    p.add("tau", value=tau, vary=True, min=0, max=np.inf)
+    p.add("dnu", value=dnu, vary=True, min=0, max=np.inf)
+    p.add("amp", value=amp, vary=True, min=0, max=np.inf)
+    p.add("alpha", value=5 / 3, vary=False)
+    p.add("nt", value=2 * nc - 1, vary=False)
+    p.add("nf", value=2 * nc - 1, vary=False)
+    p.add("phasegrad", value=0.0, vary=True)
+    p.add("tobs", value=7200.0, vary=False)
+    p.add("bw", value=64.0, vary=False)
+    p.add("ar", value=2.0, vary=False)
+    p.add("theta", value=0, vary=False)
+    p.add("psi", value=psi, vary=True)
+    return p
+
+
+def _acf2d_crops(nc, n, device, seed=13):
+    rng = np.random.default_rng(seed)
+    truth = _acf2d_start(nc, 1800.0, 6.0, 1.0, 60.0)
+    clean = -tmodels.scint_acf_model_2d(truth, np.zeros((nc, nc)),
+                                        np.ones((nc, nc)), device)
+    return np.stack([clean + 0.01 * clean.max()
+                     * rng.standard_normal((nc, nc)) for _ in range(n)])
+
+
+def test_acf2d_policies_on_card(cuda):
+    """A crop of 33 of the survey acf2d configuration: the analytic ACF on
+    the card within 1e-12 of its peak of the CPU's, the "highest" fit on
+    the card at rel 1e-6 of the CPU's, and the "default" fit within
+    max(1%, stderr) of "highest" in τ and Δν."""
+    nc = 33
+    ys = _acf2d_crops(nc, 1, cuda)
+    ref = _acf2d_crops(nc, 1, "cpu")
+    np.testing.assert_allclose(ys, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    hi = tacf2d.fit_acf2d(_acf2d_start(nc), ys[0], None,
+                          precision="highest", device=cuda)
+    hi_cpu = tacf2d.fit_acf2d(_acf2d_start(nc), ys[0], None,
+                              precision="highest", device="cpu")
+    lo = tacf2d.fit_acf2d(_acf2d_start(nc), ys[0], None, device=cuda)
+    assert hi.ok == lo.ok == hi_cpu.ok == 0
+    for k in ("tau", "dnu", "amp", "psi"):
+        assert hi.params[k].value == pytest.approx(hi_cpu.params[k].value,
+                                                   rel=1e-6), k
+    for k in ("tau", "dnu"):
+        tol = max(0.01 * abs(hi.params[k].value), hi.params[k].stderr)
+        assert abs(lo.params[k].value - hi.params[k].value) <= tol, k
+
+
+def test_scint_nan_lanes_bitwise_on_card(cuda):
+    """A NaN-poisoned lane on the card: ``BAD_INPUT`` and NaN results, and
+    every other lane bit for bit the clean run's, through the guarded 1-D
+    program and through the batched acf2d fit."""
+    rng = np.random.default_rng(4)
+    B, nf, nt = 6, 96, 64
+    dyns = torch.as_tensor(np.stack([
+        make_arc_dynspec(nt, nf, 2.0, 0.05, 1400.0, 5e-4, 96, seed=s)
+        for s in range(B)]), dtype=torch.float32, device=cuda)
+    serve = tbatch.make_scint_params_serve(B, nf, nt, 2.0, 0.05, device=cuda)
+    clean = {k: v.cpu().numpy() for k, v in serve(dyns).items()}
+    bad = dyns.clone()
+    bad[2, 7, 3] = float("nan")
+    out = {k: v.cpu().numpy() for k, v in serve(bad).items()}
+    assert out["ok"].tolist() == [0, 0, tguards.BAD_INPUT, 0, 0, 0]
+    for k in out:
+        if k == "ok":
+            continue
+        assert np.isnan(out[k][2]), k
+        for lane in (0, 1, 3, 4, 5):
+            assert out[k][lane].tobytes() == clean[k][lane].tobytes(), k
+    ys = _acf2d_crops(17, 3, cuda) * (1 + 0.01 * rng.random((3, 1, 1)))
+    start = _acf2d_start(17)
+    res_c, ok_c = tacf2d.fit_acf2d_batch(start, ys, None, n_iter=12,
+                                         device=cuda)
+    ys[1] = np.nan
+    res_b, ok_b = tacf2d.fit_acf2d_batch(start, ys, None, n_iter=12,
+                                         device=cuda)
+    assert ok_c.tolist() == [0, 0, 0] and ok_b[1] & tguards.BAD_INPUT
+    assert np.isnan(res_b[1].params["tau"].value)
+    for b in (0, 2):
+        for k in ("tau", "dnu", "amp", "phasegrad", "psi"):
+            assert res_b[b].params[k].value == res_c[b].params[k].value, k
+            assert res_b[b].params[k].stderr == res_c[b].params[k].stderr, k

@@ -630,6 +630,41 @@ class TestRejectedInputs:
         with pytest.raises(KeyError):
             tdyn.Dynspec.from_reference_state({"dyn": dyn}, device="cpu")
 
+    def test_unported_scint_options_raise(self, arc):
+        """The scintillation fits' options that are not ported yet raise
+        (MCMC for ROADMAP item 11, the sspec method, the chirp-Z rows and
+        the model ACF's spectrum for item 8, plotting for item 13); an
+        unknown method is refused as in the JAX package."""
+        from scintools_tpu_torch.fit.fitter import fitter
+        from scintools_tpu_torch.fit.parameters import Parameters
+        from scintools_tpu_torch.sim import acf_model
+
+        dyn, times, freqs = arc
+        ds = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, times=times, freqs=freqs),
+                          verbose=False, device="cpu")
+        for kw in (dict(mcmc=True), dict(method="mcmc"),
+                   dict(method="sspec"), dict(plot=True)):
+            with pytest.raises(NotImplementedError):
+                ds.get_scint_params(**kw)
+        with pytest.raises(ValueError):
+            ds.get_scint_params(method="bogus")
+        with pytest.raises(NotImplementedError):
+            ds.get_acf_tilt(plot=True)
+        p = Parameters()
+        p.add("a", 1.0)
+        with pytest.raises(NotImplementedError):
+            fitter(lambda q, x: x - q["a"].value, p, (np.ones(3),),
+                   mcmc=True)
+        with pytest.raises(NotImplementedError):
+            acf_model.make_acf2d_model_core(9, 9, 2.0, 5 / 3, 0.0, 100.0,
+                                            10.0, fresnel_method="czt",
+                                            device="cpu")
+        acf = acf_model.ACF(nt=9, nf=9, device="cpu")
+        with pytest.raises(NotImplementedError):
+            acf.calc_sspec()
+        with pytest.raises(NotImplementedError):
+            acf_model.ACF(nt=9, nf=9, plot=True, device="cpu")
+
     def test_unported_retrieval_options_raise(self, jax_fit, tmp_path,
                                               monkeypatch):
         """``mesh`` and ``gs_mesh`` still raise; ``memmap``, ``pool`` and

@@ -43,7 +43,9 @@ def test_import_leaves_jax_package_unloaded():
     # jax itself may be preloaded by the interpreter's site setup, so
     # only the JAX package is checked here
     code = ("import sys, scintools_tpu_torch, scintools_tpu_torch.workloads,"
-            " scintools_tpu_torch.thth.retrieval;"
+            " scintools_tpu_torch.thth.retrieval,"
+            " scintools_tpu_torch.fit.acf2d, scintools_tpu_torch.fit.batch,"
+            " scintools_tpu_torch.sim.acf_model;"
             "bad = [m for m in sys.modules if m == 'scintools_tpu' or "
             "m.startswith('scintools_tpu.')];"
             "print(bad); sys.exit(1 if bad else 0)")
