@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one card: the θ-θ curvature search
 (standard and thin-screen), the wavefield retrieval, the Hough seed of
 the façade, the survey arc fit, a psrflux file from write to θ-θ fit,
-and the scintillation-parameter fits.
+the scintillation-parameter fits, and the velocity and trapezoid
+rescaling, the scattered image and the zoom and chirp-Z transforms.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -128,7 +129,35 @@ Phases, each of which exits non-zero on failure:
    ``acf2d``) and ``get_acf_tilt``: every stored value finite, dt < τ <
    tobs and df < Δν < bw for the fits, the acf2d fit's ``ok`` 0 with
    ``acf_model`` of the crop's shape, and ``fit_acf2d`` called directly
-   on the crop the façade built giving the same τ and Δν.
+   on the crop the façade built giving the same τ and Δν;
+11. velocity and trapezoid rescaling, the scattered image and the zoom
+   family (no hand-written kernel runs here and none is launched: the
+   JAX package computes none of it in Pallas; the phase prints the
+   kernels' launch counts across it, all 0): 11.1 phase 4's 4096² façade
+   with a J0437-like par file: ``scale_dyn`` velocity and trapezoid,
+   ``calc_sspec(velocity=True)``, ``calc_sspec(trap=True)``,
+   ``fit_arc(velocity=True)``: ``trapdyn`` within 1e-5 of max|dyn| of
+   the plain host float64 row loop with every row's trailing zeros
+   exact, ``vdyn``, ``vsspec``, ``trapsspec`` and η finite, a constant
+   veff leaving the spectrum unchanged (atol 1e-10); 11.2 the scattered
+   image of ``bench.py:2907-2971`` (2048 × 1024 grid, sampling 512,
+   525,825 queries): ``"gather"`` within 2e-3·max of the host
+   ``RectBivariateSpline`` on in-grid queries of the noiseless field,
+   ``"matmul"`` within rtol 2e-4 / atol 2e-5 of ``"gather"`` at
+   sampling 128, both timed on noisy fields; the façade's
+   ``calc_scattered_image()`` finite and symmetric about its middle
+   row; 11.3 phase 3's 4096² dynspec (frame 8192²): a 16× band of 128
+   delay × 256 Doppler bins next to the arc, chirp-Z against the dense
+   DFT product at rel 2e-4, an on-grid band against the halved
+   spectrum's crop at rel 2e-4, and ``offgrid_dft_1d`` ``"taylor"``
+   against ``"dense"`` on 256 rows of 4096 at 4096 points within
+   ``offgrid_taylor_bound(8, 4)·Σ|x|``; 11.4 the chirp-Z acf2d at phase
+   10.2's crop of 129: the czt Fresnel row within rtol 1e-8 of the GEMM
+   row in float64, the czt fit's τ and Δν within max(1%, stderr) of the
+   GEMM fit at the same policy, and ``ACF.calc_sspec`` finite and within
+   1e-6 (of the peak) of the host numpy transform of the same windowed
+   ACF. Each step prints its wall beside the card's name and power
+   limit.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -695,6 +724,7 @@ def main():
     thin = thin_grid_phase(prob, bd, eta_true, dev)
     flux, processed = psrflux_phase(ds, eta_true, dev)
     scint = scint_phase(processed, dev)
+    vz = velocity_zoom_phase(ds, prob, dev)
 
     launches_h = hough.pop("launches")
     launches_1 = one.pop("launches_single_chunk")
@@ -730,7 +760,8 @@ def main():
         "north_star_device_busy_share": share,
         "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
         "single_chunk_and_retrieval": one, "thin_and_grid": thin,
-        "psrflux": flux, "scintillation": scint, "phase_s": PHASE_S}),
+        "psrflux": flux, "scintillation": scint, "velocity_zoom": vz,
+        "phase_s": PHASE_S}),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2215,6 +2246,350 @@ def scint_phase(da, dev, B1=256, nf1=512, nt1=128, nc2=129, B3=32, nc3=65):
                          crop=list(seen["ydata"].shape),
                          acf_tilt=float(da.acf_tilt))
     lap("10.4 façade")
+    return out
+
+
+J0437_PAR = (
+    "PSRJ           J0437-4715\n"
+    "RAJ            04:37:15.99744 1 0.00001\n"
+    "DECJ           -47:15:09.7170 1 0.0001\n"
+    "PMRA           121.4385 1 0.002\n"
+    "PMDEC          -71.4754 1 0.002\n"
+    "PB             5.7410459 1 0.000002\n"
+    "A1             3.36669157 1 0.00000014\n"
+    "E              1.9180e-05 1 0.0000002\n"
+    "T0             54501.0\n"
+    "OM             1.20 1 0.05\n"
+    "KIN            137.56\n"
+    "KOM            207.0\n")
+
+
+def kernel_launches():
+    """The four kernel wrappers' launch counts (phase 11 reads them
+    before and after itself: no kernel lies on its path)."""
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.thth import eig as E
+
+    return {"eig_warmstart": E.batched_eig_warmstart.launches,
+            "eigvec_warmstart": E.batched_eigvec_warmstart.launches,
+            "eig_cold": E.batched_eig_cold.launches,
+            "arc_profile": AP.arc_profile.launches}
+
+
+def host_s(fn):
+    """``(result, seconds)`` of ``fn()`` on the host clock, the card
+    synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def velocity_zoom_phase(ds, prob, dev, sampling=512, sampling_mm=128,
+                        band_rows=128, band_cols=256, zoom=16, n_rows=256,
+                        nc2=129):
+    """Phase 11: velocity and trapezoid rescaling, the scattered image,
+    the zoom and chirp-Z family. No hand-written kernel lies on this
+    path (the JAX package computes none of it in Pallas): it runs host
+    numpy (ephemeris, orbit, cubic resampling) and PyTorch on the card
+    (cuFFT, matmul, gathers), and adds no kernel launch, which it prints.
+
+    11.1 phase 4's 4096² façade ``ds`` with a J0437-like par file at MJD
+    55915.3: ``scale_dyn`` velocity then trapezoid, ``calc_sspec``
+    (velocity, trap), ``fit_arc(velocity=True)``; 11.2 the JAX bench's
+    scattered image (``bench.py:2907-2971``: 2048 × 1024 grid, sampling
+    512) by ``"gather"`` against the host spline, ``"matmul"`` against
+    ``"gather"`` at sampling 128, then the façade's
+    ``calc_scattered_image()``; 11.3 the zoom family on phase 3's 4096²
+    dynspec (frame 8192²): a 16× band of 128 delay × 256 Doppler bins
+    next to the arc by chirp-Z and by the dense DFT product, an on-grid
+    band against the halved spectrum's crop, and the off-grid DFT on 256
+    rows; 11.4 the chirp-Z acf2d at phase 10.2's crop of 129: a row
+    against the GEMM row in float64, the fit against the GEMM fit, and
+    ``ACF.calc_sspec``. Returns its numbers."""
+    import tempfile
+
+    from scintools_tpu_torch.fit import acf2d as A2
+    from scintools_tpu_torch.ops import scale as SC
+    from scintools_tpu_torch.ops import scatim as SI
+    from scintools_tpu_torch.ops import sspec as SS
+    from scintools_tpu_torch.ops import xfft as X
+    from scintools_tpu_torch.sim import acf_model as AM
+    from scipy.interpolate import RectBivariateSpline
+
+    card = smi()
+    print(f"[11] velocity, trapezoid, scattered image, zoom family "
+          f"(nvidia-smi: {card})", flush=True)
+    before = kernel_launches()
+    out = {"card": card}
+
+    # ---- 11.1 velocity and trapezoid on the 4096² façade ---------------
+    walls = {}
+    ds.mjd = 55915.3
+    with tempfile.TemporaryDirectory() as tmp:
+        par = os.path.join(tmp, "J0437.par")
+        with open(par, "w") as f:
+            f.write(J0437_PAR)
+        _, walls["scale_dyn_velocity_s"] = host_s(lambda: ds.scale_dyn(
+            scale="velocity", parfile=par, s=0.7, d=0.157))
+    _, walls["scale_dyn_trap_s"] = host_s(lambda: ds.scale_dyn(scale="trap"))
+    _, walls["calc_sspec_velocity_s"] = host_s(
+        lambda: ds.calc_sspec(velocity=True))
+    _, walls["calc_sspec_trap_s"] = host_s(lambda: ds.calc_sspec(trap=True))
+    fits, walls["fit_arc_velocity_s"] = host_s(
+        lambda: ds.fit_arc(velocity=True))
+    plain, walls["trapezoid_plain_host_s"] = host_s(
+        lambda: SC.trapezoid_rescale_plain(ds.dyn, ds.times, ds.freqs))
+    again, walls["trapezoid_card_s"] = host_s(
+        lambda: SC.trapezoid_rescale(ds.dyn, ds.times, ds.freqs,
+                                     device=dev))
+    trap_err = float(np.abs(ds.trapdyn - plain).max())
+    trap_scale = float(np.abs(ds.dyn).max())
+    n_in = SC._trapezoid_setup(ds.dyn, ds.times, ds.freqs, "hanning",
+                               0.1)[2]           # samples kept per row
+    cols = np.arange(plain.shape[1])
+    zeros_ok = bool((ds.trapdyn[cols[None, :] >= n_in[:, None]] == 0).all())
+    noop = SC.velocity_rescale(ds.dyn[:64], np.full(ds.dyn.shape[1], 37.0))
+    noop_err = float(np.abs(noop - ds.dyn[:64]).max())
+    veff = np.hypot(ds.veff_ra, ds.veff_dec)
+    finite = {k: bool(np.isfinite(getattr(ds, k)).all())
+              for k in ("vdyn", "vsspec", "trapsspec")}
+    finite["eta"] = bool(np.isfinite(fits[0].eta))
+    print(f"[11.1] {ds.dyn.shape} façade: |veff| {veff.min():.4g} … "
+          f"{veff.max():.4g} km/s; η (velocity) {fits[0].eta:.6g}; trapdyn "
+          f"vs the plain host row loop max {trap_err:.3e} (gate "
+          f"{1e-5 * trap_scale:.3e}), "
+          f"trailing zeros exact {zeros_ok}, rows keep {n_in.min()} … "
+          f"{n_in.max()} of {plain.shape[1]}; constant veff leaves dyn "
+          f"{noop_err:.3e} (gate 1e-10); finite {finite}; walls s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f" [{card}]", flush=True)
+    check(trap_err <= 1e-5 * trap_scale, "11.1: trapdyn differs from the "
+          "plain row loop")
+    check(np.array_equal(again, ds.trapdyn), "11.1: a second trapezoid "
+          "differs")
+    check(zeros_ok, "11.1: a row's trailing zeros are not exact")
+    check(noop_err <= 1e-10, "11.1: constant veff changed dyn")
+    check(all(finite.values()), f"11.1: not finite: {finite}")
+    out["velocity_trap"] = dict(walls_s=walls, eta=float(fits[0].eta),
+                                veff_kms=[float(veff.min()),
+                                          float(veff.max())],
+                                trap_max_err=trap_err, noop_err=noop_err)
+    lap("11.1 velocity and trapezoid")
+
+    # ---- 11.2 the scattered image --------------------------------------
+    nr, nc = 2048, 1024
+    rng = np.random.default_rng(23)
+    tdel = np.linspace(0.0, 20.0, nr)
+    fdop = np.linspace(-30.0, 30.0, nc)
+    T, F = np.meshgrid(tdel, fdop, indexing="ij")
+    base = np.exp(-0.5 * (T - 6.0) ** 2 / 4.0 - F ** 2 / 200.0)
+    lins = [torch.as_tensor(base + 0.01 * rng.standard_normal((nr, nc)),
+                            dtype=torch.float32, device=dev)
+            for _ in range(3)]
+    base_d = torch.as_tensor(base, dtype=torch.float32, device=dev)
+    eta = 0.9 * tdel[-1] / fdop[-1] ** 2
+
+    def queries(smp):
+        fx = np.linspace(-fdop.max(), fdop.max(), 2 * smp + 1)
+        fy = np.linspace(0.0, fdop.max(), smp + 1)
+        FX, FY = np.meshgrid(fx, fy)
+        tq = (FX ** 2 + FY ** 2) * eta
+        tpos = np.clip((tq - tdel[0]) / (tdel[1] - tdel[0]), 0, nr - 1)
+        fpos = np.clip((FX - fdop[0]) / (fdop[1] - fdop[0]), 0, nc - 1)
+        return (tq, FX, torch.as_tensor(tpos, dtype=torch.float32,
+                                        device=dev),
+                torch.as_tensor(fpos, dtype=torch.float32, device=dev))
+
+    tq, FX, tpos, fpos = queries(sampling)
+    im = {}
+
+    def run(lin, tp, fp, method):
+        return SI.cubic_interp2d(lin, tp, fp, method=method, device=dev)
+
+    im["gather"] = run(base_d, tpos, fpos, "gather").cpu().numpy()
+    ref, spline_s = host_s(lambda: RectBivariateSpline(tdel, fdop, base).ev(
+        tq, FX))
+    ing = tq <= tdel[-1]
+    spline_err = float(np.abs(im["gather"][ing] - ref[ing]).max()
+                       / np.abs(ref[ing]).max())
+    ms = {}
+    _, ms["gather_512"] = timed(lambda: [run(li, tpos, fpos, "gather")
+                                         for li in lins], reps=3)
+    tq2, FX2, tpos2, fpos2 = queries(sampling_mm)
+    g2 = run(base_d, tpos2, fpos2, "gather")
+    m2 = run(base_d, tpos2, fpos2, "matmul")
+    mm_err = float((m2 - g2).abs().max())
+    mm_ok = bool(torch.allclose(m2, g2, rtol=2e-4, atol=2e-5))
+    for meth in ("gather", "matmul"):
+        _, ms[f"{meth}_{sampling_mm}"] = timed(
+            lambda: [run(li, tpos2, fpos2, meth) for li in lins], reps=3)
+    ms = {k: v / len(lins) for k, v in ms.items()}
+    nq = int(tq.size)
+    sm = ds.calc_scattered_image     # the façade, default sampling 64
+    lin_min = float(np.min(10 ** (ds.sspec / 10)))
+    image, facade_s = host_s(sm)
+    sym = bool(np.array_equal(image, image[::-1]))
+    print(f"[11.2] scattered image, {nr}×{nc} grid, sampling {sampling}: "
+          f"{nq} queries; \"gather\" vs the host spline on in-grid queries "
+          f"{spline_err:.3e} of the max (gate 2e-3), the spline "
+          f"{spline_s:.3f} s on the host; ms a call: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" ({nq / ms['gather_512'] / 1e3:.4g} M queries/s by gather); "
+          f"\"matmul\" vs \"gather\" at sampling {sampling_mm} max "
+          f"{mm_err:.3e} (rtol 2e-4, atol 2e-5: {mm_ok}); façade image "
+          f"{image.shape} in {facade_s:.3f} s (min linear power of the "
+          f"spectrum {lin_min:.3e}), finite {bool(np.isfinite(image).all())},"
+          f" symmetric {sym} [{card}]", flush=True)
+    check(spline_err <= 2e-3, "11.2: gather differs from the host spline")
+    check(mm_ok, "11.2: matmul differs from gather")
+    check(np.isfinite(image).all() and sym, "11.2: the façade's image is "
+          "not finite and symmetric")
+    out["scattered_image"] = dict(grid=[nr, nc], queries=nq, ms=ms,
+                                  spline_s=spline_s,
+                                  spline_rel_err=spline_err,
+                                  matmul_vs_gather=mm_err,
+                                  facade_s=facade_s)
+    del lins, base_d, g2, m2
+    lap("11.2 scattered image")
+
+    # ---- 11.3 the zoom family ------------------------------------------
+    dyn = torch.as_tensor(prob["dyns"][1], dtype=torch.float32, device=dev)
+    nf, nt = dyn.shape
+    nrfft, ncfft = SS.fft_shapes(nf, nt)
+    wins = prob["wins"]
+    # next to the arc: the band is centred on τ = η·f_D² at f_D = 40 mHz
+    # (delay bin τ·nrfft·df, Doppler bin f_D·ncfft·dt/1e3)
+    fd_arc = 40.0
+    r0 = float(round(prob["eta_true"] * fd_arc ** 2 * nrfft * prob["df"]
+                     - band_rows / 2))
+    c0 = float(round(fd_arc * ncfft * prob["dt"] / 1e3 - band_cols / 2))
+    band = ((r0, r0 + band_rows, band_rows * zoom),
+            (c0, c0 + band_cols, band_cols * zoom))
+    zoomed = {}
+    zms = {}
+    for v in ("czt", "dense"):
+        def call(v=v):
+            return SS.secondary_spectrum_power(dyn, window_arrays=wins,
+                                               zoom=band, variant=v)
+        call()
+        zoomed[v], zms[v] = timed(call, reps=3)
+    rel = float((zoomed["czt"] - zoomed["dense"]).abs().max()
+                / zoomed["dense"].abs().max())
+    on = ((r0, r0 + band_rows, band_rows), (c0, c0 + band_cols, band_cols))
+    grid_band = SS.secondary_spectrum_power(dyn, window_arrays=wins, zoom=on)
+    half = SS.secondary_spectrum_power(dyn, window_arrays=wins)
+    crop = half[int(r0):int(r0) + band_rows,
+                int(c0) + ncfft // 2:int(c0) + ncfft // 2 + band_cols]
+    on_rel = float((grid_band - crop).abs().max() / crop.abs().max())
+    _, zms["half_frame"] = timed(lambda: SS.secondary_spectrum_power(
+        dyn, window_arrays=wins), reps=3)
+    rows = dyn[:n_rows] - dyn[:n_rows].mean(dim=-1, keepdim=True)
+    pts = torch.as_tensor(np.random.default_rng(29).uniform(
+        -nt / 2, nt / 2, nt), device=dev)
+    og = {}
+    for v in ("taylor", "dense"):
+        def call(v=v):
+            return X.offgrid_dft_1d(rows, pts, nt, variant=v)
+        call()
+        og[v], zms["offgrid_" + v] = timed(call, reps=3)
+    bound = X.offgrid_taylor_bound(8, 4)
+    og_err = (og["taylor"] - og["dense"]).abs().max(dim=-1).values
+    og_lim = bound * rows.abs().sum(dim=-1)
+    og_ok = bool((og_err <= og_lim).all())
+    print(f"[11.3] zoom on the {nf}×{nt} dynspec, frame ({nrfft}, "
+          f"{ncfft}): a {zoom}× band of {band_rows} × {band_cols} bins → "
+          f"{tuple(zoomed['czt'].shape)}; czt vs dense rel {rel:.3e} (gate "
+          f"2e-4); on-grid band vs the halved spectrum's crop rel "
+          f"{on_rel:.3e} (gate 2e-4); off-grid taylor vs dense on "
+          f"{n_rows} rows of {nt} at {nt} points: max error / "
+          f"bound·Σ|x| {float((og_err / og_lim).max()):.3e} (≤ 1: "
+          f"{og_ok}); ms a call: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in zms.items())
+          + f" [{card}]", flush=True)
+    check(rel <= 2e-4, "11.3: czt zoom differs from the dense DFT")
+    check(on_rel <= 2e-4, "11.3: the on-grid band differs from the crop")
+    check(og_ok, "11.3: off-grid taylor exceeds its bound")
+    out["zoom"] = dict(band=[list(b) for b in band],
+                       shape=list(zoomed["czt"].shape), czt_vs_dense=rel,
+                       on_grid_vs_crop=on_rel, ms=zms,
+                       offgrid_err_over_bound=float(
+                           (og_err / og_lim).max()))
+    del zoomed, grid_band, half, crop, og, rows
+    lap("11.3 zoom family")
+
+    # ---- 11.4 the chirp-Z acf2d ----------------------------------------
+    dt2, df2 = 2 * 7200.0 / (2 * nc2 - 1), 2 * 64.0 / (2 * nc2 - 1)
+    n_norm, _ = AM.acf2d_grid_sizes(nc2, dt2, 2.0, 1400.0)
+    f64 = dict(dtype=torch.float64, device=dev)
+    snp = torch.linspace(-12.0, 12.0, n_norm, **f64)
+    base2 = (snp[None, :] / np.sqrt(2)) ** 2 + (snp[:, None] * np.sqrt(2)) ** 2
+    gam = torch.exp(-0.5 * base2 ** (5 / 6))
+    tn = torch.linspace(-4.0, 4.0, nc2, **f64)
+    snx, sny = np.cos(0.5) * tn, np.sin(0.5) * tn
+    row_err = 0.0
+    for dn in (0.7, 2.3):
+        d = torch.tensor(dn, **f64)
+        step = float(snp[1] - snp[0])
+        g_row = AM._fresnel_row(gam, snp, snx, sny, d, step)[0]
+        c_row = AM._fresnel_row_czt(gam, snp, snx, sny, d, step)[0]
+        scale = g_row.abs().max()
+        ok = torch.allclose(c_row, g_row, rtol=1e-8, atol=1e-10 * float(scale))
+        row_err = max(row_err, float(((c_row - g_row).abs()
+                                      / (g_row.abs() + 1e-300)).max()))
+        check(ok, "11.4: the czt Fresnel row differs from the GEMM row")
+    ys = acf2d_epochs(nc2, 1, dev)
+
+    def start():
+        return acf2d_survey_params(nc2, 1400.0, 7.5, 0.8, 50.0)
+
+    res, fw = {}, {}
+    for meth in ("gemm", "czt"):
+        A2.fit_acf2d(start(), ys[0], None, fresnel_method=meth, device=dev)
+        res[meth], fw[meth] = host_s(lambda meth=meth: A2.fit_acf2d(
+            start(), ys[0], None, fresnel_method=meth, device=dev))
+    agree = all(within(res["czt"].params[k].value,
+                       res["gemm"].params[k].value,
+                       res["gemm"].params[k].stderr, 0.01)
+                for k in ("tau", "dnu"))
+    acf = AM.ACF(taumax=nc2 * dt2 / 1800.0, dnumax=nc2 * df2 / 6.0, nt=nc2,
+                 nf=nc2, ar=2.0, alpha=5 / 3, psi=60.0, device=dev)
+    sspec, sspec_s = host_s(acf.calc_sspec)
+    nf_a, nt_a = acf.acf.shape
+    cw = np.hanning(nt_a)
+    sw = np.hanning(nf_a)
+    arr = (cw * acf.acf) * sw[:, None]
+    ref = np.abs(np.fft.fftshift(np.fft.fft2(np.fft.fftshift(arr))))
+    got = 10 ** (sspec / 10)
+    sspec_rel = float(np.abs(got - ref).max() / ref.max())
+    print(f"[11.4] chirp-Z acf2d: the czt row vs the GEMM row (float64, "
+          f"{n_norm}² grid, {nc2} samples) max rel {row_err:.3e} (rtol 1e-8);"
+          f" fit at crop {nc2}: czt τ {res['czt'].params['tau'].value:.6g} "
+          f"Δν {res['czt'].params['dnu'].value:.6g} niter {res['czt'].nfev} "
+          f"ok {res['czt'].ok} in {fw['czt']:.3f} s, GEMM τ "
+          f"{res['gemm'].params['tau'].value:.6g} Δν "
+          f"{res['gemm'].params['dnu'].value:.6g} niter "
+          f"{res['gemm'].nfev} in {fw['gemm']:.3f} s; within max(1%, "
+          f"stderr) {agree}; ACF.calc_sspec {sspec.shape} in "
+          f"{sspec_s:.3f} s, finite {bool(np.isfinite(sspec).all())}, vs "
+          f"the host numpy transform rel {sspec_rel:.3e} (gate 1e-6) "
+          f"[{card}]", flush=True)
+    check(res["czt"].ok == 0, "11.4: the czt fit is flagged")
+    check(agree, "11.4: the czt fit differs from the GEMM fit")
+    check(np.isfinite(sspec).all() and sspec_rel <= 1e-6,
+          "11.4: ACF.calc_sspec differs from the host transform")
+    out["acf2d_czt"] = dict(row_max_rel=row_err, fit_s=fw,
+                            tau={k: r.params["tau"].value
+                                 for k, r in res.items()},
+                            niter={k: r.nfev for k, r in res.items()},
+                            sspec_rel=sspec_rel, sspec_s=sspec_s)
+    after = kernel_launches()
+    added = {k: after[k] - before[k] for k in after}
+    print(f"    kernel launches during phase 11: {added} (none lies on "
+          "its path)", flush=True)
+    out["kernel_launches"] = added
+    lap("11.4 chirp-Z acf2d")
     return out
 
 

@@ -8,7 +8,8 @@ Counterpart of ``scintools_tpu/dynspec.py``: ``Dynspec.__init__`` (:73),
 ``remove_short_subs`` (:176), ``trim_edges`` (:193, with ``_trim_freq``
 and ``_trim_time``), ``crop_dyn`` (:246), ``zap`` (:269), ``refill``
 (:276, every method), ``correct_dyn`` (:298), ``scale_dyn`` (:357,
-equal-wavelength only), ``_select_dyn`` (:441), ``calc_sspec`` (:462),
+equal-wavelength, velocity or orbit, and trapezoid), ``_select_dyn``
+(:441), ``calc_sspec`` (:462),
 ``calc_acf`` (:511), ``cut_dyn`` (:533, without ``plot``),
 ``_select_sspec`` (:575), ``fit_arc`` (:596), ``norm_sspec`` (:689,
 with ``fit_spectrum``), ``get_scint_params`` (:758, methods ``nofit``,
@@ -21,7 +22,8 @@ branch :1443-1489, the serial branch :1527-1536 and the weighted global
 (:1787, the batched grid branch and the row-by-row ``memmap`` branch),
 ``calc_wavefield`` (:1888), ``_retrieval_grid_inputs`` (:1915),
 ``retrieve_wavefield`` (:1934), ``gerchberg_saxton`` (:1974),
-``calc_asymmetry`` (:1990), ``auto_processing``, ``default_processing``
+``calc_asymmetry`` (:1990), ``calc_scattered_image`` (:1137),
+``auto_processing``, ``default_processing``
 and ``info`` (:2033-2061), ``BasicDyn`` (:2148), ``MatlabDyn`` (:2177)
 and ``sort_dyn`` (:2646). Every shared method takes the reference's
 parameters in the reference's order; the port's own (``eig``,
@@ -33,12 +35,14 @@ in the JAX package (``self.dyn``, ``self.acf``, ``self.sspec``,
 sort, the θ-θ work, the analytic 2-D ACF and the acf2d fit run on
 ``self.device``; the steps that are host numpy in the JAX package
 (parsing, trimming, the biharmonic and ``griddata`` refills, the SVD
-flux model, the scipy fits, the initial guesses and the tilt fit) stay
-on the host.
+flux model, the scipy fits, the initial guesses, the tilt fit, the
+ephemeris and orbit, the λ and velocity resamplings) stay on the host;
+the trapezoid resampling and the scattered image's interpolation run on
+``self.device``.
 
-Not ported: velocity and trapezoid rescaling, MCMC fits (``mcmc``,
-``method="mcmc"``), the ``sspec`` fitting method, plotting and the
-``mesh`` options raise ``NotImplementedError``; ``SimDyn`` and
+Not ported: MCMC fits (``mcmc``, ``method="mcmc"``), the ``sspec``
+fitting method, plotting and the ``mesh`` options raise
+``NotImplementedError``; ``SimDyn`` and
 ``HoloDyn`` are not here. ``pool`` is accepted and ignored, as the JAX
 package does off its numpy backend.
 """
@@ -63,6 +67,7 @@ from .ops import normsspec as normsspec_ops
 from .ops import scale as scale_ops
 from .ops import sspec as sspec_ops
 from .ops.interp import interp_nan_2d
+from .ops.scatim import is_uniform, scattered_image_interp
 from .ops.scale import SPEED_OF_LIGHT
 from .robust.guards import BAD_CS, BAD_INPUT
 from .thth import core as thth_core
@@ -357,23 +362,21 @@ class Dynspec:
                     lamsteps=False, nsmooth=None, velocity=False):
         """Flux correction on the host: divide out the rank-``nmodes``
         SVD model (``self.svd_model_arr``), or the mean bandpass and
-        time profile (``savgol``-smoothed over ``nsmooth``). With
-        ``lamsteps`` it corrects ``self.lamdyn``; ``velocity`` is not
-        ported."""
+        time profile (``savgol``-smoothed over ``nsmooth``). It corrects
+        ``self.dyn``, or with ``lamsteps`` ``self.lamdyn``, with
+        ``velocity`` ``self.vdyn`` (both: ``self.vlamdyn``; a velocity
+        spectrum must come from :meth:`scale_dyn` first)."""
         from scipy.signal import savgol_filter
 
-        if velocity:
-            raise NotImplementedError("velocity rescaling is not ported "
-                                      "yet")
         if hasattr(self, "svd_model_arr"):
             print("Warning: An svd_model exists. "
                   "Check before applying twice")
-        if lamsteps:
-            if not hasattr(self, "lamdyn"):
-                self.scale_dyn(lamsteps=True)
-            dyn = self.lamdyn
-        else:
-            dyn = self.dyn
+        name = ("v" if velocity else "") + ("lamdyn" if lamsteps else "dyn")
+        if velocity and not hasattr(self, name):
+            raise ValueError("Need to run scale_dyn with a model")
+        if name == "lamdyn" and not hasattr(self, "lamdyn"):
+            self.scale_dyn(lamsteps=True)
+        dyn = getattr(self, name)
 
         dyn = np.nan_to_num(dyn)
         if svd:
@@ -395,11 +398,7 @@ class Dynspec:
                     tprof = savgol_filter(tprof, nsmooth, 1)
                 dyn = dyn / tprof[None, :]
             dyn = np.nan_to_num(dyn)
-
-        if lamsteps:
-            self.lamdyn = dyn
-        else:
-            self.dyn = dyn
+        setattr(self, name, dyn)
 
     # ------------------------------------------------------------------
     # rescaling and spectra
@@ -409,27 +408,117 @@ class Dynspec:
                   d=None, vism_ra=None, vism_dec=None, Omega=None, inc=None,
                   vism_zeta=None, zeta=None, lamsteps=False, velocity=False,
                   trap=False):
-        """Resample onto an equal-wavelength grid (``self.lamdyn``,
-        ``self.lam``, ``self.dlam``, ``self.nlam``) on the host.
-        Velocity and trapezoid rescaling, which the parameters between
-        ``window_frac`` and ``zeta`` configure, are not ported yet."""
-        if (velocity or trap or "velocity" in scale or "orbit" in scale
-                or "trap" in scale):
-            raise NotImplementedError("velocity and trapezoid rescaling "
-                                      "are not ported yet")
+        """Resample the spectrum; ``scale`` may name several grids.
+
+        - ``"lambda"``/``"wavelength"`` (or ``lamsteps``): an
+          equal-wavelength grid on the host (``self.lamdyn``,
+          ``self.lam``, ``self.dlam``, ``self.nlam``);
+        - ``"velocity"``/``"orbit"`` (or ``velocity``): an equal
+          cumulative-|veff| time grid on the host (``self.vdyn``, and
+          ``self.vlamdyn`` when ``self.lamdyn`` exists). ``pars`` (a
+          dict) or ``parfile`` gives the pulsar; the subint MJDs
+          (``self.mjd`` + times, kept in float64 as a split epoch) are
+          moved to the barycentre by the Roemer delay, then the Earth's
+          velocity, the orbit's true anomaly and
+          ``effective_velocity_annual`` give ``self.veff_ra`` and
+          ``self.veff_dec`` [km/s], less the screen's ``vism_ra``/
+          ``vism_dec``, or projected on ``zeta`` [deg] less
+          ``vism_zeta``. ``s``, ``d``, ``inc`` and ``Omega`` fill a
+          missing s, d, KIN, KOM;
+        - ``"trap"`` (or ``trap``): the trapezoid grid on
+          ``self.device`` (``self.trapdyn``), windowed by ``window`` over
+          ``window_frac``."""
         if "lambda" in scale or "wavelength" in scale or lamsteps:
             self.lamdyn, self.lam, self.dlam = scale_ops.lambda_rescale(
                 self.dyn, self.freqs, spacing=spacing)
             self.nlam = len(self.lam)
 
+        if "velocity" in scale or "orbit" in scale or velocity:
+            self._velocity_rescale(pars, parfile, s, d, vism_ra, vism_dec,
+                                   Omega, inc, vism_zeta, zeta)
+
+        if "trap" in scale or trap:
+            self.trapdyn = scale_ops.trapezoid_rescale(
+                self.dyn, self.times, self.freqs, window=window,
+                window_frac=window_frac, device=self.device)
+
+    def _velocity_rescale(self, pars, parfile, s, d, vism_ra, vism_dec,
+                          Omega, inc, vism_zeta, zeta):
+        from .io.parfile import read_par
+        from .utils.ephemeris import get_earth_velocity, get_ssb_delay
+        from .utils.orbit import get_true_anomaly
+
+        if pars is None and parfile is None:
+            raise ValueError("Requires dictionary of parameters or "
+                             ".par file for velocity calculation")
+        if parfile is not None:
+            pars = read_par(parfile)
+        pars = dict(pars)
+
+        # split-epoch MJD arithmetic keeps barycentric precision in
+        # float64
+        mjd = np.asarray(self.mjd, dtype=float) + self.times / 86400
+        mjd = mjd + np.asarray(get_ssb_delay(mjd, pars["RAJ"],
+                                             pars["DECJ"])) / 86400
+        vearth_ra, vearth_dec = get_earth_velocity(mjd, pars["RAJ"],
+                                                   pars["DECJ"])
+        true_anomaly = get_true_anomaly(mjd, pars)
+        for key, val, msg in (("s", s, "screen distance s"),
+                              ("d", d, "pulsar distance d"),
+                              ("KIN", inc, "inclination angle (KIN)"),
+                              ("KOM", Omega, "ascending node (KOM)")):
+            if key not in pars:
+                if val is None:
+                    raise ValueError(f"Requires {msg} in parameter "
+                                     "dictionary, or as input")
+                pars[key] = val
+
+        veff_ra, veff_dec, _, _ = mdl.effective_velocity_annual(
+            pars, true_anomaly, vearth_ra, vearth_dec, mjd=mjd)
+
+        def screen(key, val):
+            return pars.get(key, val if val is not None else 0)
+
+        if "zeta" in pars or zeta is not None:
+            zeta_v = pars.get("zeta", zeta) * np.pi / 180
+            vz = pars.get("vism_zeta", vism_zeta)
+            if vz is not None:
+                veff2 = (veff_ra * np.sin(zeta_v)
+                         + veff_dec * np.cos(zeta_v) - vz) ** 2
+            else:
+                veff_ra = veff_ra - screen("vism_ra", vism_ra)
+                veff_dec = veff_dec - screen("vism_dec", vism_dec)
+                veff2 = (veff_ra * np.sin(zeta_v)
+                         + veff_dec * np.cos(zeta_v)) ** 2
+        else:
+            veff_ra = veff_ra - screen("vism_ra", vism_ra)
+            veff_dec = veff_dec - screen("vism_dec", vism_dec)
+            veff2 = veff_ra ** 2 + veff_dec ** 2
+
+        veff = np.sqrt(veff2)
+        self.veff_ra = veff_ra
+        self.veff_dec = veff_dec
+        self.vdyn = scale_ops.velocity_rescale(self.dyn, veff)
+        if hasattr(self, "lamdyn"):
+            self.vlamdyn = scale_ops.velocity_rescale(self.lamdyn, veff)
+
     def _select_dyn(self, lamsteps=False, velocity=False, trap=False):
-        if velocity or trap:
-            raise NotImplementedError("velocity and trapezoid spectra are "
-                                      "not ported yet")
         if lamsteps:
             if not hasattr(self, "lamdyn"):
                 self.scale_dyn()
+            if velocity:
+                if not hasattr(self, "vlamdyn"):
+                    self.scale_dyn(scale="velocity")
+                return self.vlamdyn
             return self.lamdyn
+        if velocity:
+            if not hasattr(self, "vdyn"):
+                self.scale_dyn(scale="velocity")
+            return self.vdyn
+        if trap:
+            if not hasattr(self, "trapdyn"):
+                self.scale_dyn(scale="trapezoid")
+            return self.trapdyn
         return self.dyn
 
     def calc_sspec(self, prewhite=False, halve=True, plot=False,
@@ -438,7 +527,9 @@ class Dynspec:
                    window_frac=0.1, return_sspec=False, velocity=False):
         """Secondary spectrum in dB, computed on ``self.device``:
         ``self.sspec`` (``self.lamsspec`` and the β axis ``self.beta``
-        with ``lamsteps``), ``self.fdop`` and ``self.tdel``. With
+        with ``lamsteps``; ``self.vsspec``, ``self.vlamsspec`` or
+        ``self.trapsspec`` of the velocity or trapezoid spectra with
+        ``velocity`` or ``trap``), ``self.fdop`` and ``self.tdel``. With
         ``input_dyn`` (a spectrum of its own) or ``return_sspec`` nothing
         is stored and ``(fdop, tdel or beta, sec)`` is returned. The
         port has no plotting (``plot``; ``input_x`` and ``input_y`` label
@@ -462,10 +553,10 @@ class Dynspec:
             return fdop, (beta if lamsteps else tdel), sec
         self.fdop, self.tdel = fdop, tdel
         if lamsteps:
-            self.lamsspec = sec
             self.beta = beta
-        else:
-            self.sspec = sec
+        name = ("vlamsspec" if velocity else "lamsspec") if lamsteps else (
+            "vsspec" if velocity else "trapsspec" if trap else "sspec")
+        setattr(self, name, sec)
 
     def calc_acf(self, method="direct", input_dyn=None, normalise=True,
                  window_frac=0.1):
@@ -535,16 +626,15 @@ class Dynspec:
     # arc curvature
     # ------------------------------------------------------------------
     def _select_sspec(self, lamsteps=False, velocity=False, trap=False):
-        if velocity or trap:
-            raise NotImplementedError("velocity and trapezoid spectra are "
-                                      "not ported yet")
         if lamsteps:
-            if not hasattr(self, "lamsspec"):
-                self.calc_sspec(lamsteps=True)
-            return np.array(self.lamsspec), np.array(self.beta)
-        if not hasattr(self, "sspec"):
-            self.calc_sspec()
-        return np.array(self.sspec), np.array(self.tdel)
+            name = "vlamsspec" if velocity else "lamsspec"
+            if not hasattr(self, name):
+                self.calc_sspec(lamsteps=True, velocity=velocity)
+            return np.array(getattr(self, name)), np.array(self.beta)
+        name = "vsspec" if velocity else "trapsspec" if trap else "sspec"
+        if not hasattr(self, name):
+            self.calc_sspec(velocity=velocity, trap=trap)
+        return np.array(getattr(self, name)), np.array(self.tdel)
 
     def fit_arc(self, asymm=False, plot=False, delmax=None, numsteps=1e4,
                 startbin=3, cutmid=3, lamsteps=False, etamax=None,
@@ -1390,6 +1480,103 @@ class Dynspec:
                 self.asymmetry[cf, ct] = thth_ret.calc_asymmetry(V,
                                                                  edges_red)
         return self.asymmetry
+
+    # ------------------------------------------------------------------
+    # scattered image
+    # ------------------------------------------------------------------
+    def calc_scattered_image(self, input_sspec=None, input_eta=None,
+                             input_fdop=None, input_tdel=None,
+                             sampling=64, lamsteps=False, trap=False,
+                             ref_freq=1400, clean=True, s=None, veff=None,
+                             d=None, fit_arc=True, plot_fit=False,
+                             plot=False, plot_log=True, use_angle=False,
+                             use_spatial=False):
+        """Map the secondary spectrum's power onto the (θx, θy) plane,
+        assuming interference with the primary arc: ``self.
+        scattered_image`` (2·sampling + 1)² and its axis ``self.
+        scattered_image_ax`` [mHz]. The arc's η comes from ``input_eta``,
+        else from :meth:`fit_arc` (``log_parabola``; with ``lamsteps`` the
+        β curvature converted at ``ref_freq``), else from the spectrum's
+        corner. The spectrum is cropped so the arc stays inside the delay
+        axis, tiny powers are refilled (``clean``), and on uniform axes
+        the cubic-convolution interpolation runs on ``self.device``
+        (``ops.scatim``); other axes take the host
+        ``RectBivariateSpline``. The port has no plotting (``plot``,
+        ``plot_fit``; ``plot_log``, ``use_angle``, ``use_spatial``,
+        ``s``, ``veff`` and ``d`` configure it)."""
+        if plot or plot_fit:
+            raise NotImplementedError("the port has no plotting")
+        if input_sspec is None:
+            sspec, yaxis = self._select_sspec(lamsteps=lamsteps, trap=trap)
+            fdop = np.array(self.fdop)
+            tdel = np.array(yaxis)
+        else:
+            sspec = input_sspec
+            fdop = np.asarray(input_fdop)
+            tdel = np.asarray(input_tdel)
+
+        linsspec = 10 ** (np.asarray(sspec) / 10)
+        if input_eta is None and fit_arc:
+            if not hasattr(self, "betaeta") and not hasattr(self, "eta"):
+                self.fit_arc(lamsteps=lamsteps, log_parabola=True)
+            if lamsteps:
+                beta_to_eta = SPEED_OF_LIGHT * 1e6 / (ref_freq * 1e6) ** 2
+                eta = (self.betaeta / (self.freq / ref_freq) ** 2
+                       * beta_to_eta)
+            else:
+                eta = self.eta
+        elif input_eta is None:
+            eta = tdel[-1] / fdop[-1] ** 2
+        else:
+            eta = input_eta
+
+        # crop so the arc tdel = η·fdop² stays inside the delay axis and
+        # the interpolation never extrapolates (the JAX package's
+        # tdel[:tlim], where the reference takes fdop[:tlim])
+        nf_ax = len(fdop)
+        inside = np.flatnonzero(eta * fdop ** 2 < np.max(tdel))
+        flim = int(inside[0]) if len(inside) else 0
+        if flim == 0:
+            above = np.flatnonzero(tdel > eta * fdop[0] ** 2)
+            if len(above):
+                tlim = max(int(above[0]), 4)   # ≥ 4 rows for the cubic
+                linsspec = linsspec[:tlim, :]
+                tdel = tdel[:tlim]
+        else:
+            pad = int(0.02 * nf_ax)
+            lo = max(flim - pad, 0)
+            hi = min(nf_ax - flim + pad, nf_ax)
+            if hi - lo >= 4:
+                linsspec = linsspec[:, lo:hi]
+                fdop = fdop[lo:hi]
+
+        if clean:
+            arr = np.ma.masked_where(linsspec < 1e-22, linsspec)
+            if arr.mask.any():
+                linsspec = interp_nan_2d(
+                    np.where(arr.mask, np.nan, linsspec))
+                linsspec[np.isnan(linsspec)] = np.nanmean(linsspec)
+
+        nx, ny = 2 * sampling + 1, sampling + 1
+        fdop_x = np.linspace(-max(fdop), max(fdop), nx)
+        fdop_y = np.linspace(0, max(fdop), ny)
+        FX, FY = np.meshgrid(fdop_x, fdop_y)
+        tdel_est = (FX ** 2 + FY ** 2) * eta
+        if is_uniform(tdel) and is_uniform(fdop):
+            image = scattered_image_interp(
+                linsspec, tdel, fdop, tdel_est, FX,
+                device=self.device).cpu().numpy() * FY
+        else:                               # not an FFT grid
+            from scipy.interpolate import RectBivariateSpline
+
+            image = RectBivariateSpline(tdel, fdop, linsspec).ev(
+                tdel_est, FX) * FY
+        scat_im = np.zeros((nx, nx))
+        scat_im[ny - 1:nx, :] = image
+        scat_im[0:ny - 1, :] = image[ny - 1:0:-1, :]
+        self.scattered_image = scat_im
+        self.scattered_image_ax = fdop_x
+        return scat_im
 
     # ------------------------------------------------------------------
     # pipelines and info

@@ -17,6 +17,14 @@ on failure). The 1-D models take torch tensors as well, which is how the
 batched Levenberg–Marquardt fit (``fit/batch.py``) runs them on the
 device; the type of ``xdata`` picks the route. The analytic 2-D model
 builds the theoretical ACF (``sim/acf_model.py``) on ``device``.
+
+The secondary-spectrum 1-D models ``tau_sspec_model``,
+``dnu_sspec_model``, ``scint_sspec_model`` (:162-199, over
+``ops.xfft.real_spectrum_1d``), the velocity and curvature models
+``effective_velocity_annual``, ``arc_curvature``, ``veff_thin_screen``
+(:207-367), the weak-scintillation arc models ``arc_weak``,
+``arc_weak_2d`` (:375-427) and ``arc_power_curve`` (:207) take numpy
+arrays or tensors alike; parameters are host scalars.
 """
 
 from __future__ import annotations
@@ -31,6 +39,11 @@ def _vals(params):
 
 def _exp(x):
     return torch.exp(x) if isinstance(x, torch.Tensor) else np.exp(x)
+
+
+def _lib(*arrays):
+    """torch when any of ``arrays`` is a tensor, else numpy."""
+    return torch if any(isinstance(a, torch.Tensor) for a in arrays) else np
 
 
 def _weights_lag0_zero(weights, ydata):
@@ -154,6 +167,60 @@ def scint_acf_model_2d_values(params, shape, device=None):
     return acf.acf * np.outer(tri_f, tri_t)
 
 
+# --------------------------------------------------------------------------
+# secondary-spectrum 1-D models
+# --------------------------------------------------------------------------
+
+def _sspec_1d(model, xdata):
+    """The spectrum of the mirrored, triangle-tapered profile: the
+    length-(2L − 1) mirror is real, so ``real(fft(·))[:L]`` is the rfft
+    half spectrum (``ops.xfft.real_spectrum_1d``)."""
+    from ..ops.xfft import real_spectrum_1d
+
+    xp = _lib(model, xdata)
+    model = model * (1 - xdata / xdata.max())
+    if xp is torch:
+        model = torch.cat((model, torch.flip(model, (0,))))
+    else:
+        model = np.concatenate((model, model[::-1]))
+    return real_spectrum_1d(model[: 2 * len(xdata) - 1], len(xdata))
+
+
+def _lag0_zeroed(model, n):
+    xp = _lib(model)
+    first = xp.arange(n) == 0
+    if xp is torch:
+        first = first.to(model.device)
+    return xp.where(first, 0.0, model)
+
+
+def tau_sspec_model(params, xdata, ydata):
+    """Residual of the time-lag profile's spectrum, weighted by the
+    model: (ydata − model)·model."""
+    p = _vals(params)
+    model = p["amp"] * _exp(-(xdata / p["tau"]) ** p["alpha"])
+    model = _sspec_1d(_lag0_zeroed(model, len(xdata)), xdata)
+    return (ydata - model) * model
+
+
+def dnu_sspec_model(params, xdata, ydata):
+    """Residual of the frequency-lag profile's spectrum, weighted by the
+    model."""
+    p = _vals(params)
+    model = p["amp"] * _exp(-xdata / (p["dnu"] / np.log(2)))
+    model = _sspec_1d(_lag0_zeroed(model, len(xdata)), xdata)
+    return (ydata - model) * model
+
+
+def scint_sspec_model(params, xdata, ydata):
+    """Joint τ and Δν spectrum fit over (time, frequency) pairs."""
+    rt = tau_sspec_model(params, xdata[0], ydata[0])
+    rf = dnu_sspec_model(params, xdata[1], ydata[1])
+    if isinstance(rt, torch.Tensor):
+        return torch.cat((rt, rf))
+    return np.concatenate((rt, rf))
+
+
 def powerspectrum_model(params, xdata, ydata):
     """wn + amp·x^alpha."""
     p = _vals(params)
@@ -188,3 +255,198 @@ def fit_log_parabola(x, y):
     frac_error = peak_error / peak
     peak = np.e ** (peak * ptp / 1000)
     return yfit, peak, frac_error * peak
+
+
+def arc_power_curve(params, xdata, ydata, weights):
+    """Residuals of a noise floor plus power law in |x| (√curvature or
+    normalised f_D): the reference leaves this model a stub, and the JAX
+    package fits it with the family of the Doppler-profile power
+    spectra."""
+    p = _vals(params)
+    if weights is None:
+        weights = 1.0
+    model = p["wn"] + p["amp"] * abs(xdata) ** p.get("alpha", -2.0)
+    return (ydata - model) * weights
+
+
+# --------------------------------------------------------------------------
+# velocity and curvature models
+# --------------------------------------------------------------------------
+
+KM_PER_KPC = 3.085677581e16
+
+
+def _inclination(p):
+    if "KIN" in p:
+        inc = p["KIN"] * np.pi / 180
+    elif "COSI" in p:
+        inc = np.arccos(p["COSI"])
+    elif "SINI" in p:
+        inc = np.arcsin(p["SINI"])
+    else:
+        raise KeyError("inclination parameter (KIN, COSI, or SINI) "
+                       "not found")
+    if "sense" in p:
+        if p["sense"] < 0.5 and inc > np.pi / 2:
+            inc = np.pi - inc
+        if p["sense"] >= 0.5 and inc < np.pi / 2:
+            inc = np.pi - inc
+    return inc
+
+
+def effective_velocity_annual(params, true_anomaly, vearth_ra, vearth_dec,
+                              mjd=None):
+    """Keplerian binary + proper motion + Earth → the effective velocity
+    in RA/DEC [km/s]: ``(veff_ra, veff_dec, vp_ra, vp_dec)``."""
+    xp = _lib(true_anomaly, mjd)
+    p = _vals(params)
+    v_c = 299792.458
+    secperyr = 86400 * 365.2425
+    masrad = np.pi / (3600 * 180 * 1000)
+
+    if "PB" in p:
+        A1, PB, ECC = p["A1"], p["PB"], p["ECC"]
+        OM = p["OM"] * np.pi / 180
+        if "OMDOT" in p and mjd is not None:
+            omega = OM + (p["OMDOT"] * np.pi / 180
+                          * (mjd - p["T0"]) / 365.2425)
+        else:
+            omega = OM
+        INC = _inclination(p)
+        KOM = p["KOM"] * np.pi / 180
+        vp_0 = (2 * np.pi * A1 * v_c) / (np.sin(INC) * PB * 86400
+                                         * np.sqrt(1 - ECC ** 2))
+        xo = _lib(omega)
+        vp_x = -vp_0 * (ECC * xo.sin(omega) + xp.sin(true_anomaly + omega))
+        vp_y = vp_0 * np.cos(INC) * (ECC * xo.cos(omega)
+                                     + xp.cos(true_anomaly + omega))
+    else:
+        vp_x = 0.0
+        vp_y = 0.0
+        KOM = p.get("KOM", 0.0) * np.pi / 180
+
+    d = p["d"] * KM_PER_KPC
+    pmra_v = p.get("PMRA", 0.0) * masrad * d / secperyr
+    pmdec_v = p.get("PMDEC", 0.0) * masrad * d / secperyr
+    s = p["s"]
+
+    vp_ra = np.sin(KOM) * vp_x + np.cos(KOM) * vp_y
+    vp_dec = np.cos(KOM) * vp_x - np.sin(KOM) * vp_y
+    veff_ra = s * vearth_ra + (1 - s) * (vp_ra + pmra_v)
+    veff_dec = s * vearth_dec + (1 - s) * (vp_dec + pmdec_v)
+    return veff_ra, veff_dec, vp_ra, vp_dec
+
+
+def arc_curvature(params, ydata, weights, true_anomaly, vearth_ra,
+                  vearth_dec, mjd=None, model_only=False,
+                  return_veff=False):
+    """Arc curvature η = d·s(1 − s)/(2·veff²)/1e9 [1/(m mHz²)], isotropic
+    or projected on the anisotropy angle ``zeta``; residuals
+    (ydata − η)·weights unless ``model_only``."""
+    p = _vals(params)
+    if "psi" in p:
+        raise KeyError("parameter psi is no longer supported. "
+                       "Please use zeta")
+    if "vism_psi" in p:
+        raise KeyError("parameter vism_psi is no longer supported. "
+                       "Please use vism_zeta")
+    dkm = p["d"] * KM_PER_KPC
+    s = p["s"]
+    veff_ra, veff_dec, _, _ = effective_velocity_annual(
+        params, true_anomaly, vearth_ra, vearth_dec, mjd=mjd)
+
+    nmodel = p.get("nmodel", 1 if "zeta" in p else 0)
+    vism_ra = p.get("vism_ra", 0)
+    vism_dec = p.get("vism_dec", 0)
+    if nmodel > 0.5:  # anisotropic
+        zeta = p["zeta"] * np.pi / 180
+        if "vism_zeta" in p:
+            veff2 = (veff_ra * np.sin(zeta) + veff_dec * np.cos(zeta)
+                     - p["vism_zeta"]) ** 2
+        else:
+            veff2 = ((veff_ra - vism_ra) * np.sin(zeta)
+                     + (veff_dec - vism_dec) * np.cos(zeta)) ** 2
+    else:
+        veff2 = (veff_ra - vism_ra) ** 2 + (veff_dec - vism_dec) ** 2
+
+    model = dkm * s * (1 - s) / (2 * veff2) / 1e9
+    if model_only:
+        if return_veff:
+            return model, (veff_ra - vism_ra), (veff_dec - vism_dec)
+        return model
+    if weights is None:
+        weights = 1.0
+    return (ydata - model) * weights
+
+
+def veff_thin_screen(params, ydata, weights, true_anomaly, vearth_ra,
+                     vearth_dec, mjd=None):
+    """Thin-screen scintillation-velocity model (Rickett et al. 2014,
+    Eq. 4), isotropic or with the anisotropy (R, psi); residuals
+    (ydata − model)·weights."""
+    p = _vals(params)
+    s, d = p["s"], p["d"]
+    kappa = p.get("kappa", 1)
+    veff_ra, veff_dec, _, _ = effective_velocity_annual(
+        params, true_anomaly, vearth_ra, vearth_dec, mjd=mjd)
+    xp = _lib(veff_ra, veff_dec)
+    nmodel = p.get("nmodel", 1 if "psi" in p else 0)
+    veff_ra = veff_ra - p.get("vism_ra", 0)
+    veff_dec = veff_dec - p.get("vism_dec", 0)
+    if nmodel > 0.5:
+        R = p["R"]
+        psi = p["psi"] * np.pi / 180
+        cosa, sina = np.cos(2 * psi), np.sin(2 * psi)
+        a = (1 - R * cosa) / np.sqrt(1 - R ** 2)
+        b = (1 + R * cosa) / np.sqrt(1 - R ** 2)
+        c = -2 * R * sina / np.sqrt(1 - R ** 2)
+    else:
+        a, b, c = 1, 1, 0
+    coeff = 1 / np.sqrt(2 * d * (1 - s) / s)
+    veff = kappa * xp.sqrt(a * veff_dec ** 2 + b * veff_ra ** 2
+                           + c * veff_ra * veff_dec)
+    model = coeff * veff / s
+    if weights is None:
+        weights = 1.0
+    return (ydata - model) * weights
+
+
+# --------------------------------------------------------------------------
+# weak-scintillation arc models
+# --------------------------------------------------------------------------
+
+def _aniso_coeffs(ar, psi):
+    cs, sn = np.cos(psi * np.pi / 180), np.sin(psi * np.pi / 180)
+    a = cs ** 2 / ar + ar * sn ** 2
+    b = ar * cs ** 2 + sn ** 2 / ar
+    c = 2 * sn * cs * (1 / ar - ar)
+    return a, b, c
+
+
+def arc_weak(ftn, ar=1, psi=0, alpha=11 / 3):
+    """1-D weak-scintillation Doppler profile over the normalised f_D
+    ``ftn``."""
+    a, b, c = _aniso_coeffs(ar, psi)
+    root = (1 - ftn ** 2) ** 0.5
+    p = ((a * ftn ** 2 + b * (1 - ftn ** 2) + c * ftn * root)
+         ** (-alpha / 2)
+         + (a * ftn ** 2 + b * (1 - ftn ** 2) - c * ftn * root)
+         ** (-alpha / 2))
+    return p / root
+
+
+def arc_weak_2d(fdop, tdel, eta=1, ar=1, psi=0, alpha=11 / 3):
+    """2-D weak-scintillation model secondary spectrum on the (tdel,
+    fdop) grid (NaN outside the arc)."""
+    xp = _lib(fdop, tdel)
+    a, b, c = _aniso_coeffs(ar, psi)
+    if xp is torch:
+        fdx, TDEL = torch.meshgrid(fdop, tdel, indexing="xy")
+    else:
+        fdx, TDEL = np.meshgrid(np.asarray(fdop), np.asarray(tdel))
+    f_arc = xp.sqrt(TDEL / eta)
+    fdy = xp.sqrt(TDEL / eta - fdx ** 2)
+    p = ((a * fdx ** 2 + b * fdy ** 2 + c * fdx * fdy) ** (-11 / 6)
+         + (a * fdx ** 2 + b * fdy ** 2 - c * fdx * fdy) ** (-11 / 6))
+    arc_frac = xp.real(fdx) / xp.real(f_arc)
+    return p / xp.sqrt(1 - arc_frac ** 2)

@@ -2,7 +2,8 @@
 
 Counterpart of ``scintools_tpu/ops/sspec.py``: ``fft_shapes`` (:34),
 ``sspec_axes`` (:41), ``_prewhite_diff`` (:52),
-``secondary_spectrum_power`` (:74, without ``zoom=``),
+``zoom_band`` (:58), ``secondary_spectrum_power`` (:74, ``zoom=``
+included),
 ``pad_chunk_batch`` (:150), ``chunk_conjugate_spectrum_batch`` (:175)
 and ``secondary_spectrum`` (:235). Mean-subtract → edge-taper window →
 zero-pad to next-pow2 ×2 → fft2 → power → fftshift → keep positive
@@ -45,17 +46,49 @@ def _prewhite_diff(dyn):
             + dyn[..., :-1, :-1])
 
 
+def zoom_band(nf, nt, dt, df, tdel_band, fdop_band, n_tdel, n_fdop):
+    """A physical window of the secondary spectrum as the ``zoom=`` pair
+    of :func:`secondary_spectrum_power`: ``tdel_band`` [µs] and
+    ``fdop_band`` [mHz, signed] → ``((r0, r1, n_tdel), (c0, c1,
+    n_fdop))`` in the (fractional, signed) bin units of the padded frame
+    (:func:`sspec_axes` inverted: td = tdel·nrfft·df, fd =
+    fdop·ncfft·dt/1e3)."""
+    nrfft, ncfft = fft_shapes(nf, nt)
+    r = (float(tdel_band[0]) * nrfft * df,
+         float(tdel_band[1]) * nrfft * df, int(n_tdel))
+    c = (float(fdop_band[0]) * ncfft * dt / 1e3,
+         float(fdop_band[1]) * ncfft * dt / 1e3, int(n_fdop))
+    return r, c
+
+
 def secondary_spectrum_power(dyn, window_arrays=None, prewhite=False,
-                             halve=True, variant="half"):
+                             halve=True, variant=None, zoom=None):
     """Linear-power secondary spectrum of the tensor ``dyn[..., nf, nt]``
     → ``(..., nrfft//2 if halve else nrfft, ncfft)``.
 
-    ``variant='half'`` folds the ``halve`` row crop into the transform
-    (:func:`xfft.halfrow_power`); ``'dense'`` is the full complex-fft2
-    oracle. The full frame (``halve=False``) always takes dense."""
-    if variant not in ("half", "dense"):
-        raise ValueError(f"unknown variant {variant!r} "
-                         "(want 'half' or 'dense')")
+    ``variant='half'`` (the default) folds the ``halve`` row crop into
+    the transform (:func:`xfft.halfrow_power`); ``'dense'`` is the full
+    complex-fft2 oracle. The full frame (``halve=False``) always takes
+    dense.
+
+    ``zoom``: a ``(band_rows, band_cols)`` pair of ``(f0, f1, n_out)``
+    triples in (fractional, signed) bin units of the padded frame
+    (:func:`zoom_band` converts µs/mHz windows; the edges may be
+    tensors). Only those band pixels are computed, at any density,
+    through :func:`xfft.zoom_power_2d`; the result runs f0 → f1 on each
+    axis (no fftshift; ``halve`` does not apply, ``prewhite`` is
+    refused), and ``variant`` is ``'czt'`` (the default) or
+    ``'dense'``."""
+    if zoom is not None:
+        variant = "czt" if variant is None else variant
+        if prewhite:
+            raise RuntimeError("prewhite post-darkening is defined on the "
+                               "native frame, not with zoom=")
+    else:
+        variant = "half" if variant is None else variant
+        if variant not in ("half", "dense"):
+            raise ValueError(f"unknown variant {variant!r} "
+                             "(want 'half' or 'dense')")
     nf, nt = dyn.shape[-2:]
     nrfft, ncfft = fft_shapes(nf, nt)
 
@@ -63,6 +96,10 @@ def secondary_spectrum_power(dyn, window_arrays=None, prewhite=False,
     if window_arrays is not None:
         dyn = apply_window(dyn, window_arrays[0], window_arrays[1])
     dyn = dyn - dyn.mean(dim=(-2, -1), keepdim=True)
+
+    if zoom is not None:
+        return xfft.zoom_power_2d(dyn, (nrfft, ncfft), zoom[0], zoom[1],
+                                  variant=variant)
 
     if prewhite:
         if not halve:
@@ -115,7 +152,7 @@ def chunk_conjugate_spectrum_batch(dspecs, npad=3, tau_keep=None,
 
 def secondary_spectrum(dyn, dt, df, window="hanning", window_frac=0.1,
                        prewhite=False, halve=True, dlam=None, db=True,
-                       variant="half", device=None):
+                       variant=None, device=None):
     """Full sspec pipeline → (fdop [mHz], yaxis, sec) with ``sec`` a
     float32 tensor on ``device`` (dB when ``db``). yaxis is beta
     [m^-1] when ``dlam`` is given, else tdel [us]."""

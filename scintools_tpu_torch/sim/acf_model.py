@@ -5,8 +5,9 @@ Counterpart of ``scintools_tpu/sim/acf_model.py``: ``_efield_acf``
 (:32), ``_fresnel_row`` (:44), ``_fresnel_row_lowrank`` (:63),
 ``lowrank_gammes`` (:90), ``_gammitv_block`` (:155), the ``ACF`` class
 and ``calc_acf`` (:198-323), ``theoretical_acf`` (:365),
-``acf2d_grid_sizes`` (:371), ``make_acf2d_model_core`` (:390) and
-``make_acf2d_model_fn`` (:529).
+``acf2d_grid_sizes`` (:371), ``make_acf2d_model_core`` (:390),
+``make_acf2d_model_fn`` (:529), ``_fresnel_row_czt`` (:112) and
+``ACF.calc_sspec`` (:326).
 
 The Fresnel-kernel integral is factorised into matrix products:
 expanding the quadratic phase,
@@ -23,9 +24,15 @@ the static e-field kernel (:func:`lowrank_gammes`) is host float64
 numpy, as in the JAX package, so both packages keep the same rank and
 factors.
 
-Not ported yet: the chirp-Z evaluation (``fresnel_method="czt"``) and
-``ACF.calc_sspec``, which need the chirp-Z and ``xfft.acf_sspec``
-routes (ROADMAP item 8), and plotting.
+``fresnel_method="czt"`` evaluates the same integral with chirp-Z
+transforms (``ops.xfft.czt_1d``) instead of plane-wave products: the x-
+and y-contractions are Bluestein transforms onto the uniform sample
+grids, and the diagonal of the separable 2-D transform gives the
+(snx_i, sny_i) samples, O(nx²·log nx) per lag against the products'
+O(nsn·nx²). Its forward-mode derivative needs three more transforms of
+the same kind, whatever the number of tangents (G·r², G·x, G·y; and
+one per tangent of the kernel while alpha varies). Plotting is not
+ported.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import numpy as np
 import torch
 
 from ..backend import resolve_device
+from ..ops.windows import get_window
+from ..ops.xfft import czt_1d, czt_fft_length, hermitian_full_from_half
 
 ACF2D_RANK_TOL = 1e-5       # low-rank kernel truncation (·σ0)
 
@@ -165,6 +174,72 @@ def _fresnel_row_lowrank(U, V, snp, snx, sny, dnun, dsp_eff, tan=None):
         A_t = w["E2_t"] @ Uc + w["E2"] @ (ct * U)
         B_t = w["E1_t"] @ Vc + w["E1"] @ (ct * V)
         s_t = (A_t * B + A * B_t).sum(-1)
+    return _row_out(w, snx, sny, dnun, dsp_eff, s, tan, s_t)
+
+
+def _czt_samples(F, snp, snx, sny, two, fft_len):
+    """``S[..., i] = Σ_yx F[..., y, x]·exp(−i·two·(snx_i·x + sny_i·y))``
+    on the grid ``snp`` for uniform sample grids ``snx``/``sny`` (..., nsn)
+    and ``two`` (..., 1), by two chirp-Z transforms and a diagonal. With
+    x_m = x0 + m·dsn and snx_n = sx0 + n·gx the phase splits into the
+    m·n chirp (rate two·dsn·gx), a per-m phase (two·sx0·x_m) and a per-n
+    one (two·x0·gx); the per-m phase is computed in float64."""
+    cdt = F.dtype
+    f64 = torch.float64
+    dsn = snp[1] - snp[0]
+    x0 = snp[0]
+    snp64 = snp.to(f64)
+    two64 = two.to(f64)
+
+    def axis(u, sn):
+        g0 = sn[..., 1:2] - sn[..., 0:1]
+        pre = torch.exp(-1j * (two64 * sn[..., 0:1].to(f64)) * snp64)
+        return czt_1d(u * pre.to(cdt)[..., None, :], two * dsn * g0,
+                      two * x0 * g0, fft_len)
+
+    Tx = axis(F, snx)                            # contract x: (..., ny, nsn)
+    Ty = axis(Tx.mT, sny)                        # contract y: (..., nsn, nsn)
+    return torch.diagonal(Ty, dim1=-2, dim2=-1)
+
+
+def _fresnel_row_czt(gammes, snp, snx, sny, dnun, dsp_eff, fft_len=None,
+                     tan=None, gammes_t=None):
+    """:func:`_fresnel_row` by chirp-Z transforms (:func:`_czt_samples`)
+    → ``(row, tangent)``; ``snx``/``sny`` must be uniform (they are:
+    linspaces times direction cosines, shifted per lag). The tangent
+    along ``tan = (snx_t, sny_t, dnun_t)`` (and ``gammes_t`` (T, ny, nx)
+    while alpha varies) comes from the transforms of G·r², G·x and G·y:
+    ∂s = S[∂Γ·C] + i·∂inv2d·S[G·r²] − 2i(∂inv2d·snx + inv2d·∂snx)·S[G·x]
+    − 2i(∂inv2d·sny + inv2d·∂sny)·S[G·y]."""
+    nsn = snx.shape[-1]
+    if fft_len is None:
+        fft_len = czt_fft_length(snp.shape[0], nsn)
+    inv2d = (1.0 / (2.0 * dnun))[..., None]
+    chirp = torch.exp(1j * inv2d * snp ** 2)
+    C = chirp[..., :, None] * chirp[..., None, :]
+    G = gammes * C                               # rows y, columns x
+    fields = [G]
+    if tan is not None:
+        fields += [G * (snp[:, None] ** 2 + snp ** 2), G * snp,
+                   G * snp[:, None]]
+    nfix = len(fields)
+    F = torch.stack(fields, dim=-3)
+    if gammes_t is not None:
+        F = torch.cat([F, C[..., None, :, :] * gammes_t], dim=-3)
+    S = _czt_samples(F, snp, snx[..., None, :], sny[..., None, :],
+                     2 * inv2d[..., None, :], fft_len)
+    s = S[..., 0, :]
+    w = {"inv2d": inv2d}
+    s_t = None
+    if tan is not None:
+        snx_t, sny_t, d_t = tan
+        inv2d_t = -2.0 * inv2d ** 2 * d_t[..., None]
+        w["inv2d_t"] = inv2d_t
+        s_t = (1j * inv2d_t * S[..., 1, :]
+               - 2j * (inv2d_t * snx + inv2d * snx_t) * S[..., 2, :]
+               - 2j * (inv2d_t * sny + inv2d * sny_t) * S[..., 3, :])
+        if gammes_t is not None:
+            s_t = s_t + torch.movedim(S[..., nfix:, :], -2, 0)
     return _row_out(w, snx, sny, dnun, dsp_eff, s, tan, s_t)
 
 
@@ -341,10 +416,23 @@ class ACF:
         self.acf_efield = gammes.cpu().numpy()
 
     def calc_sspec(self, window="hanning", window_frac=1):
-        """The model ACF's secondary spectrum: not ported yet (it needs
-        the ``xfft.acf_sspec`` route, ROADMAP item 8)."""
-        raise NotImplementedError(
-            "ACF.calc_sspec is not ported yet (ROADMAP item 8)")
+        """The model ACF's secondary spectrum [dB] on ``self.device`` in
+        float64: the windowed ACF, fftshifted as the reference does,
+        through the real-input forward transform (rfft2 and the Hermitian completion,
+        the full complex fft2 of a real input), shifted back; the
+        magnitude in dB. Sets and returns ``self.sspec``."""
+        nf, nt = np.shape(self.acf)
+        chan_window, subint_window = get_window(nt, nf, window=window,
+                                                frac=window_frac)
+        arr = chan_window * self.acf
+        arr = (subint_window * arr.T).T
+        x = torch.fft.fftshift(torch.as_tensor(arr, dtype=torch.float64,
+                                               device=self.device))
+        F = torch.fft.fftshift(hermitian_full_from_half(
+            torch.fft.rfft2(x), nt))
+        mag = torch.sqrt((F * torch.conj(F)).real)
+        self.sspec = (10 * torch.log10(mag)).cpu().numpy()
+        return self.sspec
 
 
 def theoretical_acf(**kwargs):
@@ -387,8 +475,11 @@ def make_acf2d_model_core(nt_crop, nf_crop, ar, alpha, theta, tau0, dt0,
 
     ``precision="default"``: float32/complex64 rows with the static
     e-field kernel factorised by truncated SVD (:func:`lowrank_gammes`,
-    rank ≲ 10) unless alpha varies; ``"highest"``: dense rows in
-    float64/complex128. ``fresnel_method="czt"`` is not ported yet."""
+    rank ≲ 10) unless alpha varies or the rows are chirp-Z;
+    ``"highest"``: dense rows in float64/complex128.
+    ``fresnel_method="czt"`` evaluates every row by chirp-Z transforms
+    (:func:`_fresnel_row_czt`, full rank) with the GEMM rows as its
+    oracle."""
     if nt_crop % 2 == 0 or nf_crop % 2 == 0:
         raise ValueError("acf2d crop must be odd-sized (the ACF is "
                          "centred on its white-noise spike)")
@@ -398,14 +489,12 @@ def make_acf2d_model_core(nt_crop, nf_crop, ar, alpha, theta, tau0, dt0,
     if fresnel_method not in ("gemm", "czt"):
         raise ValueError(f"fresnel_method must be 'gemm' or 'czt', "
                          f"got {fresnel_method!r}")
-    if fresnel_method == "czt":
-        raise NotImplementedError(
-            "fresnel_method='czt' is not ported yet (ROADMAP item 8)")
     dev = resolve_device(device)
     sqrtar = float(np.sqrt(ar))
     f32 = precision == "default"
     rdt = torch.float32 if f32 else torch.float64
-    lowrank = f32 and not alpha_varies
+    czt = fresnel_method == "czt"
+    lowrank = f32 and not alpha_varies and not czt
     n_normal, n_core = acf2d_grid_sizes(nt_crop, dt0, ar, tau0,
                                         grid_oversample)
 
@@ -423,7 +512,7 @@ def make_acf2d_model_core(nt_crop, nf_crop, ar, alpha, theta, tau0, dt0,
                 dtype=np.float32))
         return (torch.as_tensor(snp, device=dev),
                 torch.as_tensor(base, device=dev), uv,
-                float(snp[1] - snp[0]))
+                float(snp[1] - snp[0]), czt_fft_length(n, nt_crop))
 
     grids = (_grid(n_normal), _grid(n_core))
     ndnun = (nf_crop + 1) // 2
@@ -437,7 +526,7 @@ def make_acf2d_model_core(nt_crop, nf_crop, ar, alpha, theta, tau0, dt0,
     unit_f = _linspace(0.0, 1.0, ndnun, step_f)      # ∂dnun/∂dnumax
 
     def _row(which, alph2, snx, sny, d, tan, a_t):
-        snp, base, uv, eff_step = grids[which]
+        snp, base, uv, eff_step, fft_len = grids[which]
         if lowrank:
             return _fresnel_row_lowrank(uv[0], uv[1], snp, snx, sny, d,
                                         eff_step, tan)
@@ -450,6 +539,9 @@ def make_acf2d_model_core(nt_crop, nf_crop, ar, alpha, theta, tau0, dt0,
             gam_t = torch.where(zero, torch.zeros_like(base),
                                 -0.5 * gam * p * torch.log(safe)) \
                 * a_t[:, None, None]
+        if czt:
+            return _fresnel_row_czt(gam, snp, snx, sny, d, eff_step,
+                                    fft_len, tan, gam_t)
         return _fresnel_row(gam, snp, snx, sny, d, eff_step, tan, gam_t)
 
     def _as(v):

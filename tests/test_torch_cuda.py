@@ -2,7 +2,9 @@
 (the eigensolver's three entries and the arc profile) against their
 plain PyTorch versions on the same CUDA tensors, and the search (one
 chunk and a batch), the
-wavefield retrieval, the survey arc fit and the acf2d fit run on the card
+wavefield retrieval, the survey arc fit, the acf2d fit, the trapezoid
+rescale, the zoom and off-grid transforms and the scattered image's
+interpolation run on the card
 against the same calls on the CPU, and the scintillation fits' NaN lanes
 leave their neighbours bit for bit unchanged on the card.
 
@@ -636,3 +638,69 @@ def test_scint_nan_lanes_bitwise_on_card(cuda):
         for k in ("tau", "dnu", "amp", "phasegrad", "psi"):
             assert res_b[b].params[k].value == res_c[b].params[k].value, k
             assert res_b[b].params[k].stderr == res_c[b].params[k].stderr, k
+
+
+def test_trapezoid_on_card_matches_cpu(cuda):
+    """The trapezoid's masked row interpolation (float64) on the card
+    against the CPU and the plain row loop."""
+    from scintools_tpu_torch.ops import scale as tscale
+
+    rng = np.random.default_rng(3)
+    dyn = rng.normal(size=(96, 200)) ** 2
+    times = np.arange(200) * 8.0
+    freqs = 1300.0 + np.arange(96) * 2.5
+    card = tscale.trapezoid_rescale(dyn, times, freqs, device=cuda)
+    cpu = tscale.trapezoid_rescale(dyn, times, freqs, device="cpu")
+    plain = tscale.trapezoid_rescale_plain(dyn, times, freqs)
+    np.testing.assert_allclose(card, cpu, rtol=1e-14, atol=1e-14)
+    np.testing.assert_allclose(card, plain, atol=1e-10)
+    # samples kept per row, from the geometry (the edge windows zero the
+    # first row and column, so non-zeros undercount)
+    n_in = tscale._trapezoid_setup(dyn, times, freqs, "hanning", 0.1)[2]
+    assert n_in.min() < 200
+    for r in (0, 40, 95):
+        assert (card[r, n_in[r]:] == 0).all()
+
+
+@pytest.mark.parametrize("variant", ["czt", "dense"])
+def test_zoom_and_offgrid_on_card_match_cpu(cuda, variant):
+    """The zoom power and the off-grid DFT (float32) on the card against
+    the same calls on the CPU in float64, at the float32 tier 2e-4."""
+    from scintools_tpu_torch.ops import sspec as tsspec
+    from scintools_tpu_torch.ops import xfft as txfft
+
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((3, 200, 160))
+    nrfft, ncfft = tsspec.fft_shapes(200, 160)
+    band = ((10.0, 18.0, 128), (-12.0, 4.0, 256))
+    got = tsspec.secondary_spectrum_power(
+        torch.as_tensor(d, dtype=torch.float32, device=cuda), zoom=band,
+        variant=variant).cpu().numpy()
+    ref = tsspec.secondary_spectrum_power(torch.as_tensor(d), zoom=band,
+                                          variant=variant).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4 * ref.max())
+    pts = rng.uniform(-80, 80, 300)
+    v = "taylor" if variant == "czt" else "dense"
+    got = txfft.offgrid_dft_1d(torch.as_tensor(d[0], dtype=torch.float32,
+                                               device=cuda),
+                               torch.as_tensor(pts, device=cuda), 160,
+                               variant=v).cpu().numpy()
+    ref = txfft.offgrid_dft_1d(torch.as_tensor(d[0]), torch.as_tensor(pts),
+                               160, variant="dense").numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4,
+                               atol=2e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("method", ["gather", "matmul"])
+def test_scatim_on_card_matches_cpu(cuda, method):
+    from scintools_tpu_torch.ops import scatim as tscatim
+
+    rng = np.random.default_rng(7)
+    lin = rng.standard_normal((150, 230))
+    tp = rng.uniform(-3, 153, (40, 70))
+    fp = rng.uniform(-3, 233, (40, 70))
+    card = tscatim.cubic_interp2d(lin, tp, fp, method=method,
+                                  device=cuda).cpu().numpy()
+    cpu = tscatim.cubic_interp2d(lin, tp, fp, method="gather",
+                                 device="cpu").numpy()
+    np.testing.assert_allclose(card, cpu, rtol=1e-12, atol=1e-12)

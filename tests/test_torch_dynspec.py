@@ -452,7 +452,7 @@ class TestFaultsFixed:
                   "write_file", "__add__", "remove_short_subs",
                   "trim_edges", "crop_dyn", "zap", "refill", "correct_dyn",
                   "calc_acf", "cut_dyn", "auto_processing",
-                  "default_processing", "info"):
+                  "default_processing", "info", "calc_scattered_image"):
             assert n in names
         dyn = np.random.default_rng(0).random((8, 8)) + 1
         bd = tdyn.BasicDyn(dyn, times=np.arange(8.0), freqs=np.arange(8.0))
@@ -464,9 +464,17 @@ class TestFaultsFixed:
                     ds.calc_sspec(return_sspec=True)):
             assert got[2].shape == (8, 16) and len(got[0]) == 16
         assert not hasattr(ds, "sspec")
+        # correct_dyn(velocity=True) is ported: without a velocity
+        # spectrum it refuses as the JAX façade does
+        dj = jdyn.Dynspec(dyn=jdyn.BasicDyn(dyn, times=np.arange(8.0),
+                                            freqs=np.arange(8.0)),
+                          verbose=False, backend="jax")
+        for d in (ds, dj):
+            with pytest.raises(ValueError, match="scale_dyn"):
+                d.correct_dyn(velocity=True)
         for call in (lambda: ds.calc_sspec(plot=True),
                      lambda: ds.cut_dyn(plot=True),
-                     lambda: ds.correct_dyn(velocity=True),
+                     lambda: ds.calc_scattered_image(plot=True),
                      lambda: ds.fit_thetatheta(plot=True),
                      lambda: ds.fit_thetatheta(mesh=object()),
                      lambda: ds.thetatheta_single(plot=True)):
@@ -586,9 +594,11 @@ class TestRejectedInputs:
                 dict({k: 0 for k in tdyn._STATE_KEYS}, ththeta=0.3))
 
     def test_unported_options_raise(self, arc, tmp_path):
-        """Velocity, trapezoid, plotting and ``mesh`` still raise.
-        ``process=True``, ``filename=`` and ``fitting_proc="thin"`` now
-        run, each held to the JAX façade on the same input."""
+        """Plotting and ``mesh`` still raise. ``process=True``,
+        ``filename=``, ``fitting_proc="thin"``, the velocity rescale and
+        the trapezoid spectrum now run, each held to the JAX façade on the
+        same input (the velocity rescale refuses without a par file, as
+        the JAX façade does)."""
         from scintools_tpu.io.psrflux import RawDynSpec, write_psrflux
 
         dyn, times, freqs = arc
@@ -615,10 +625,15 @@ class TestRejectedInputs:
         assert (ds.arclet_lim, ds.center_cut) == (dj.arclet_lim,
                                                   dj.center_cut)
         ds = tdyn.Dynspec(dyn=bd, verbose=False, device="cpu")
-        with pytest.raises(NotImplementedError):
-            ds.scale_dyn(scale="velocity")
-        with pytest.raises(NotImplementedError):
-            ds.calc_sspec(trap=True)
+        dj = jdyn.Dynspec(dyn=jd, verbose=False, backend="jax")
+        for d in (ds, dj):
+            with pytest.raises(ValueError, match="par"):
+                d.scale_dyn(scale="velocity")
+            d.calc_sspec(trap=True)
+        np.testing.assert_allclose(ds.trapdyn, dj.trapdyn, atol=1e-10)
+        lin = 10 ** (dj.trapsspec / 10)
+        np.testing.assert_allclose(10 ** (ds.trapsspec / 10), lin,
+                                   atol=1e-5 * lin.max())
         with pytest.raises(NotImplementedError):
             ds.fit_arc(plot=True)
         with pytest.raises(NotImplementedError):
@@ -632,9 +647,10 @@ class TestRejectedInputs:
 
     def test_unported_scint_options_raise(self, arc):
         """The scintillation fits' options that are not ported yet raise
-        (MCMC for ROADMAP item 11, the sspec method, the chirp-Z rows and
-        the model ACF's spectrum for item 8, plotting for item 13); an
-        unknown method is refused as in the JAX package."""
+        (MCMC for ROADMAP item 11, the sspec method, plotting for item
+        13); an unknown method is refused as in the JAX package. The
+        chirp-Z rows and the model ACF's spectrum now run, held to the
+        JAX package."""
         from scintools_tpu_torch.fit.fitter import fitter
         from scintools_tpu_torch.fit.parameters import Parameters
         from scintools_tpu_torch.sim import acf_model
@@ -655,13 +671,25 @@ class TestRejectedInputs:
         with pytest.raises(NotImplementedError):
             fitter(lambda q, x: x - q["a"].value, p, (np.ones(3),),
                    mcmc=True)
-        with pytest.raises(NotImplementedError):
+        from scintools_tpu.sim import acf_model as jacf
+
+        args = (100.0, 3.0, 1.0, 0.0, 30.0, 0.0, 10.0, 0.5)
+        got = acf_model.make_acf2d_model_core(
+            9, 9, 2.0, 5 / 3, 0.0, 100.0, 10.0, fresnel_method="czt",
+            precision="highest", device="cpu")(*args)
+        ref = np.asarray(jacf.make_acf2d_model_core(
+            9, 9, 2.0, 5 / 3, 0.0, 100.0, 10.0, fresnel_method="czt",
+            precision="highest")(*args))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-8,
+                                   atol=1e-10 * np.abs(ref).max())
+        with pytest.raises(ValueError, match="fresnel_method"):
             acf_model.make_acf2d_model_core(9, 9, 2.0, 5 / 3, 0.0, 100.0,
-                                            10.0, fresnel_method="czt",
+                                            10.0, fresnel_method="fft",
                                             device="cpu")
         acf = acf_model.ACF(nt=9, nf=9, device="cpu")
-        with pytest.raises(NotImplementedError):
-            acf.calc_sspec()
+        ref = jacf.ACF(nt=9, nf=9).calc_sspec()
+        np.testing.assert_allclose(acf.calc_sspec(), ref, rtol=1e-8,
+                                   atol=1e-8 * np.abs(ref).max())
         with pytest.raises(NotImplementedError):
             acf_model.ACF(nt=9, nf=9, plot=True, device="cpu")
 

@@ -45,7 +45,12 @@ def test_import_leaves_jax_package_unloaded():
     code = ("import sys, scintools_tpu_torch, scintools_tpu_torch.workloads,"
             " scintools_tpu_torch.thth.retrieval,"
             " scintools_tpu_torch.fit.acf2d, scintools_tpu_torch.fit.batch,"
-            " scintools_tpu_torch.sim.acf_model;"
+            " scintools_tpu_torch.sim.acf_model,"
+            " scintools_tpu_torch.io.parfile, scintools_tpu_torch.utils.orbit,"
+            " scintools_tpu_torch.utils.ephemeris,"
+            " scintools_tpu_torch.utils.velocity,"
+            " scintools_tpu_torch.ops.scale, scintools_tpu_torch.ops.scatim,"
+            " scintools_tpu_torch.ops.xfft;"
             "bad = [m for m in sys.modules if m == 'scintools_tpu' or "
             "m.startswith('scintools_tpu.')];"
             "print(bad); sys.exit(1 if bad else 0)")
