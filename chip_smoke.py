@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one card: the θ-θ curvature search
 (standard and thin-screen), the wavefield retrieval, the Hough seed of
 the façade, the survey arc fit, a psrflux file from write to θ-θ fit,
-the scintillation-parameter fits, and the velocity and trapezoid
-rescaling, the scattered image and the zoom and chirp-Z transforms.
+the scintillation-parameter fits, the velocity and trapezoid
+rescaling, the scattered image and the zoom and chirp-Z transforms,
+and the simulator with its closed generate → search → fit loop.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -157,7 +158,40 @@ Phases, each of which exits non-zero on failure:
    GEMM fit at the same policy, and ``ACF.calc_sspec`` finite and within
    1e-6 (of the peak) of the host numpy transform of the same windowed
    ACF. Each step prints its wall beside the card's name and power
-   limit.
+   limit;
+12. the simulator (``simulation_phase``; its generation runs no
+   hand-written kernel, the JAX package computes it in plain XLA, and
+   its closed loop's search launches the arc-profile kernel): 12.1
+   ``Simulation(ns=512, nf=1024, dlam=0.25, seed=11, dt=2.0)`` (BASELINE
+   config #1, ``bench.py:244``), its screen bitwise the host float64
+   recipe through cuFFT and within 1e-12 of numpy's FFT, ``spe`` within
+   1e-10 of a float64 numpy propagation of 32 evenly spaced channels,
+   ``dyn`` finite and positive, and the arc oracle of
+   ``tests/test_arc.py:13-18`` through ``SimDyn`` → ``calc_sspec`` →
+   ``fit_arc(numsteps=5000)`` within 5% of ``sim.eta``; 12.2 the
+   scenario factory at config #4's width (``bench.py:1356-1424``: 64
+   screens of 256², nf 64, a random regime sweep per call): every lane
+   healthy, no rebuild across sweeps, a NaN lane quarantined alone with
+   its neighbours bitwise equal, every lane bitwise equal at group
+   sizes 8 and 16, phasor within 1e-4 of column and column within 1e-3
+   of dense (the strong regime, mb2 32 and nf 48, within 1e-3), the
+   compensated structure function within a median 0.08 of the oversized
+   one and plain above 0.15 (8 independent draws of 96 screens of 64²:
+   one draw's statistic passes 0.08 by chance for about one pair in
+   six, in the JAX package as here); 12.3 the closed
+   generate → search → fit loop at the JAX bench's width
+   (``bench.py:1427-1491``: 3 regimes × 336 epochs of 128 × 64, 21
+   batches of 48 through ``process_batch``, a lane whose fit the batch
+   refuses descending to the staged tier as the survey runner's ladder
+   does): every lane healthy, median recovery η ≤ 0.25 (isotropic) and
+   0.35 (anisotropic), τ ≤ 0.45, Δν ≤ 0.6, at most 1% of lanes left
+   without a finite η, the arc-profile kernel bitwise equal its plain
+   version on the arguments of its first call at B = 48 and its first
+   one-lane call, the stages by CUDA events and one batch's device busy
+   share, and one lane through each fallback tier finite; 12.4 ``Brightness()`` at its defaults within
+   rtol 1e-8 of the host float64 map (NaN where NaN), a 1024² FITS image
+   read back exactly through ``HoloDyn``, and its façade spectrum
+   finite.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -181,7 +215,8 @@ seed's façade; for the eigenvector entry zeroed just before the timed
 ``retrieve_wavefield`` and read just after it; for the arc profile just
 before and after one ``fit_arc_batch`` (then timed over three more);
 for eig_warmstart again just before and after the psrflux file's
-``fit_thetatheta`` (9.4); for the cold-only entry
+``fit_thetatheta`` (9.4); for the arc profile again just before and
+after the closed loop's batches (12.3); for the cold-only entry
 (no path of the package calls it) around its own call in phase 2. Each
 must be > 0. It prints a ``{"kernels": [...]}`` line (``launches`` is
 the sum over the paths that run the kernel, with each path's count
@@ -725,11 +760,15 @@ def main():
     flux, processed = psrflux_phase(ds, eta_true, dev)
     scint = scint_phase(processed, dev)
     vz = velocity_zoom_phase(ds, prob, dev)
+    simu = simulation_phase(dev)
 
     launches_h = hough.pop("launches")
     launches_1 = one.pop("launches_single_chunk")
     launches_r = one.pop("launches_one_chunk_rows")
     launches_p = flux.pop("launches")
+    arc_kernel = arc.pop("kernel")
+    arc_kernel["launches_scenario_loop"] = simu["launches_scenario_loop"]
+    arc_kernel["launches"] += simu.pop("launches_scenario_loop")
     print(json.dumps({"kernels": [{
         "name": "eig_warmstart", "route": "cuda",
         "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
@@ -753,7 +792,7 @@ def main():
         "cold_starts_per_chain": warm_plan["cold_starts_per_chain"],
         "profiler_launch_ms": launch_ms,
         "cold_starts": kstats["cold"], "cold_starts_plain": plain_colds,
-        "shape": [B, neta, 2, n, n]}, ret.pop("kernel"), arc.pop("kernel"),
+        "shape": [B, neta, 2, n, n]}, ret.pop("kernel"), arc_kernel,
         cold],
         "ptxas": ptxas, "eigvec_cold_vector_l2_vs_plain": cold_v_l2,
         "north_star_ms": ns_ms, "north_star_stage_ms": stages,
@@ -761,7 +800,7 @@ def main():
         "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
         "single_chunk_and_retrieval": one, "thin_and_grid": thin,
         "psrflux": flux, "scintillation": scint, "velocity_zoom": vz,
-        "phase_s": PHASE_S}),
+        "simulation": simu, "phase_s": PHASE_S}),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2591,6 +2630,502 @@ def velocity_zoom_phase(ds, prob, dev, sampling=512, sampling_mm=128,
     out["kernel_launches"] = added
     lap("11.4 chirp-Z acf2d")
     return out
+
+
+# ---------------------------------------------------------------------
+# phase 12: simulation
+# ---------------------------------------------------------------------
+
+def simulation_phase(dev, sim_ns=512, sim_nf=1024, n_check=32, fac_B=64,
+                     fac_ns=256, fac_nf=64, sf_B=96, sf_ns=64,
+                     epochs_per_regime=336, batch=48, scen_ns=128,
+                     scen_nf=64, holo_n=1024):
+    """Phase 12: the simulator. No hand-written kernel lies on its
+    generation path (the JAX package computes the simulator in plain
+    XLA); the closed loop's search stage runs ``fit_arc_batch``, which
+    launches the arc-profile kernel. 12.1 the ``Simulation`` class at
+    BASELINE config #1's width, its screen against the host recipe and
+    its field against a float64 numpy propagation, then the arc oracle
+    through ``SimDyn`` → ``calc_sspec`` → ``fit_arc``; 12.2 the scenario
+    factory at config #4's width: health, no rebuild, quarantine,
+    grouping, the formulations against each other, the compensated
+    structure function (over 8 independent draws); 12.3 the closed
+    generate → search → fit loop at the JAX bench's width; 12.4
+    ``Brightness`` and the FITS path.
+    Returns its numbers, with the arc-profile launches of 12.3 under
+    ``launches_scenario_loop``."""
+    card = smi()
+    print(f"[12] simulation (nvidia-smi: {card})", flush=True)
+    out = {"card": card}
+    out["simulation"] = sim_class_phase(dev, sim_ns, sim_nf, n_check)
+    lap("12.1 Simulation")
+    out["factory"] = factory_phase(dev, fac_B, fac_ns, fac_nf, sf_B, sf_ns)
+    lap("12.2 scenario factory")
+    out["scenario"] = scenario_phase(dev, epochs_per_regime, batch,
+                                     scen_ns, scen_nf)
+    out["launches_scenario_loop"] = out["scenario"].pop("launches")
+    lap("12.3 closed loop")
+    out["brightness_fits"] = brightness_fits_phase(dev, holo_n)
+    lap("12.4 Brightness and FITS")
+    return out
+
+
+def sim_class_phase(dev, ns, nf, n_check):
+    """12.1: ``Simulation(ns, nf, dlam=0.25, seed=11, dt=2.0)`` on the
+    card (``bench.py:244``, the default backend), then the arc oracle of
+    ``tests/test_arc.py:13-18``."""
+    from scintools_tpu_torch import Dynspec, SimDyn
+    from scintools_tpu_torch.sim import simulation as S
+
+    kw = dict(ns=ns, nf=nf, dlam=0.25, seed=11, dt=2.0, device=dev)
+    sim, first_s = host_s(lambda: S.Simulation(**kw))
+    sim2, wall_s = host_s(lambda: S.Simulation(**kw))
+    _, screen_s = host_s(sim2.get_screen)
+    _, prop_s = host_s(sim2.get_intensity)
+    _, pulse_s = host_s(sim2.get_pulse)
+    print(f"    Simulation({ns}², nf {nf}): first {first_s:.3f} s, again "
+          f"{wall_s:.3f} s; stages: screen {screen_s:.3f} s, propagation "
+          f"{prop_s:.3f} s, pulse {pulse_s:.3f} s", flush=True)
+    check(np.array_equal(sim2.xyp, sim.xyp)
+          and np.array_equal(sim2.dyn, sim.dyn),
+          "12.1: a rerun of the seeded Simulation changed its output")
+
+    # the screen: the host float64 recipe (reference weights, the numpy
+    # backend's RandomState stream) through cuFFT is the screen, bit for
+    # bit; numpy's FFT of the same field differs only by FFT rounding
+    rs = np.random.RandomState(11)
+    re, im = rs.randn(ns, ns), rs.randn(ns, ns)
+    w = S.screen_weights(ns, ns, sim.dx, sim.dy, sim.psi, sim.ar,
+                         sim.alpha, sim.inner, sim.consp)
+    card_phi = torch.fft.fft2(torch.complex(
+        torch.as_tensor(w * re, device=dev),
+        torch.as_tensor(w * im, device=dev))).real.cpu().numpy()
+    host_phi = np.real(np.fft.fft2(w * (re + 1j * im)))
+    screen_rel = float(np.abs(sim.xyp - host_phi).max()
+                       / np.abs(host_phi).max())
+    bitwise = bool(np.array_equal(sim.w, w)
+                   and np.array_equal(card_phi, sim.xyp))
+    # the field at n_check evenly spaced channels, float64 numpy
+    idx = np.unique(np.linspace(0, nf - 1, n_check).round().astype(int))
+    scales = sim.frequency_scales()[idx]
+    col = ns // 2
+    t0 = time.perf_counter()
+    ref = np.stack([np.fft.ifft2(np.fft.fft2(np.exp(1j * sim.xyp * s))
+                                 * np.exp(-1j * sim._q2 * s))[:, col]
+                    for s in scales], axis=1)
+    host_prop_s = time.perf_counter() - t0
+    spe_rel = float(np.abs(sim.spe[:, idx] - ref).max() / np.abs(ref).max())
+    dyn_ok = bool(np.isfinite(sim.dyn).all() and (sim.dyn > 0).all())
+    print(f"    screen bitwise the host recipe through cuFFT {bitwise}, "
+          f"{screen_rel:.3e} from numpy's FFT; spe {spe_rel:.3e} from the "
+          f"float64 numpy propagation of {len(idx)} channels "
+          f"({host_prop_s:.2f} s on the host); dyn {sim.dyn.shape} finite "
+          f"and positive {dyn_ok}", flush=True)
+    check(bitwise, "12.1: the screen is not the host recipe's")
+    check(screen_rel <= 1e-12, "12.1: screen differs from numpy's FFT")
+    check(spe_rel <= 1e-10, "12.1: spe differs from the numpy propagation")
+    check(dyn_ok, "12.1: dyn not finite and positive")
+
+    # the arc oracle: η of the façade's fit against the analytic η
+    osim, osim_s = host_s(lambda: S.Simulation(
+        seed=64, ns=256, nf=256, mb2=2, dt=30, freq=1400, dlam=0.02,
+        device=dev))
+    t0 = time.perf_counter()
+    ds = Dynspec(dyn=SimDyn(osim), process=False, verbose=False,
+                 device=dev)
+    ds.calc_sspec()
+    ds.fit_arc(numsteps=5000)
+    torch.cuda.synchronize()
+    facade_s = time.perf_counter() - t0
+    eta_rel = abs(ds.eta - osim.eta) / osim.eta
+    print(f"    SimDyn → calc_sspec → fit_arc(numsteps=5000): η "
+          f"{ds.eta:.6g} against sim.eta {osim.eta:.6g}, rel "
+          f"{eta_rel:.4f}; simulation {osim_s:.3f} s, façade "
+          f"{facade_s:.3f} s", flush=True)
+    check(np.isfinite(ds.eta) and eta_rel < 0.05,
+          "12.1: the façade's η is not within 5% of sim.eta")
+    return dict(first_s=first_s, wall_s=wall_s, screen_s=screen_s,
+                propagation_s=prop_s, pulse_s=pulse_s,
+                screen_bitwise_host_recipe=bitwise,
+                screen_rel_vs_numpy_fft=screen_rel, spe_rel=spe_rel,
+                host_propagation_s=host_prop_s,
+                oracle_eta=ds.eta, oracle_eta_true=osim.eta,
+                oracle_eta_rel=eta_rel, oracle_sim_s=osim_s,
+                oracle_facade_s=facade_s)
+
+
+def _structure_function(screens):
+    """Ensemble-mean phase structure function along both axes
+    (``tests/test_sim_factory.py:_structure_function``)."""
+    _, n, _ = screens.shape
+    out = np.zeros(n // 2 - 1)
+    for ax in (1, 2):
+        s = np.moveaxis(screens, ax, -1)
+        for i, lag in enumerate(range(1, n // 2)):
+            out[i] += 0.5 * np.mean((s[..., lag:] - s[..., :-lag]) ** 2)
+    return out
+
+
+def factory_phase(dev, B, ns, nf, sf_B, sf_ns, sf_pairs=8):
+    """12.2: the scenario factory at BASELINE config #4's width
+    (``bench.py:1356-1424``): B screens of ns², nf channels, a random
+    regime sweep per call."""
+    from scintools_tpu_torch.sim import factory as FA
+
+    def sweep(seed):
+        rng = np.random.default_rng(seed)
+        return dict(mb2=rng.uniform(0.5, 16.0, B),
+                    ar=rng.uniform(1.0, 2.0, B),
+                    psi=rng.uniform(0.0, 90.0, B),
+                    alpha=np.full(B, 5 / 3))
+
+    def run(seed, **kw):
+        return FA.simulate_scenarios(B, ns=ns, nf=nf, seed=seed,
+                                     with_ok=True, device_out=True,
+                                     device=dev, **{**sweep(seed), **kw})
+
+    (dyn, ok), first_s = host_s(lambda: run(101))
+    builds = FA.SCENARIO_CACHE_STATS["builds"]
+    steady = [host_s(lambda s=s: run(s))[1] for s in (102, 103, 104)]
+    steady_s = float(np.mean(steady))
+    rebuilt = FA.SCENARIO_CACHE_STATS["builds"] - builds
+    healthy = bool((ok == 0).all() and torch.isfinite(dyn).all())
+    print(f"    {B} screens of {ns}², nf {nf}, column/compensated: first "
+          f"call {first_s:.3f} s, steady {steady_s * 1e3:.3f} ms a call "
+          f"({B / steady_s:.1f} screens/s; calls "
+          f"{', '.join(f'{s * 1e3:.3f}' for s in steady)} ms); healthy "
+          f"{healthy}; builds across three sweeps {rebuilt}", flush=True)
+    check(healthy, "12.2: a factory lane is unhealthy")
+    check(rebuilt == 0, "12.2: a regime sweep rebuilt the factory")
+
+    keys = FA.lane_keys_from_seeds(np.arange(B) + 7000)
+    lanes = sweep(105)
+    clean, ok_c = FA.simulate_scenarios(B, ns=ns, nf=nf, keys=keys,
+                                        with_ok=True, device=dev, **lanes)
+    bad = {**lanes, "mb2": lanes["mb2"].copy()}
+    bad["mb2"][5] = np.nan
+    dirty, ok_d = FA.simulate_scenarios(B, ns=ns, nf=nf, keys=keys,
+                                        with_ok=True, device=dev, **bad)
+    others = np.arange(B) != 5
+    quarantine = bool(ok_d[5] == FA.BAD_INPUT and np.isnan(dirty[5]).all()
+                      and (ok_d[others] == 0).all()
+                      and np.array_equal(dirty[others], clean[others]))
+    g16 = FA.simulate_scenarios(B, ns=ns, nf=nf, keys=keys, group_size=16,
+                                device=dev, **lanes)
+    grouped = bool(np.array_equal(g16, clean))
+    print(f"    NaN lane 5 quarantined alone, neighbours bitwise "
+          f"{quarantine}; every lane bitwise equal at group sizes 8 and "
+          f"16 {grouped}", flush=True)
+    check(quarantine, "12.2: the NaN lane's neighbours changed")
+    check(grouped, "12.2: a lane's data depends on the group size")
+
+    # the formulations against each other (tests/test_sim_factory.py:
+    # 111-134): plain screens at mb2 = 2, then the strong regime
+    walls, forms = {}, {}
+    for prop in ("phasor", "column", "dense"):
+        kw = dict(ns=ns, nf=nf, seed=7, screen="plain", propagate=prop,
+                  device_out=True, device=dev)
+        FA.simulate_scenarios(B, **kw)                       # builds
+        forms[prop], walls[prop] = host_s(
+            lambda kw=kw: FA.simulate_scenarios(B, **kw))
+    forms = {k: v.cpu().numpy() for k, v in forms.items()}
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    d_pc = rel(forms["phasor"], forms["column"])
+    d_cd = rel(forms["column"], forms["dense"])
+    strong = {prop: FA.simulate_scenarios(
+        B, ns=ns, nf=48, seed=3, mb2=32.0, screen="plain", propagate=prop,
+        device=dev)
+        for prop in ("phasor", "column")}
+    d_strong = rel(strong["phasor"], strong["column"])
+    print(f"    formulations on {B} plain screens: phasor "
+          f"{walls['phasor'] * 1e3:.3f} ms, column "
+          f"{walls['column'] * 1e3:.3f} ms, dense "
+          f"{walls['dense'] * 1e3:.3f} ms; phasor vs column {d_pc:.3e}, "
+          f"column vs dense {d_cd:.3e}, strong regime (mb2 32, nf 48) "
+          f"phasor vs column {d_strong:.3e}", flush=True)
+    check(d_pc < 1e-4, "12.2: phasor differs from column by ≥ 1e-4")
+    check(d_cd < 1e-3, "12.2: column differs from dense by ≥ 1e-3")
+    check(d_strong < 1e-3, "12.2: the strong regime drifts ≥ 1e-3")
+
+    # the compensated structure function against the oversized oracle
+    # (tests/test_sim_factory.py:180-192, B screens a draw). One pair of
+    # draws puts the statistic above 0.08 for about one pair in six in
+    # both packages (20 pairs each on the CPU), so the gate reads the
+    # ensemble of sf_pairs independent pairs; the first pair (seeds 5
+    # and 99, the JAX test's) is printed beside it
+    sf = {k: [] for k in ("compensated", "oversized", "plain")}
+    for i in range(sf_pairs):
+        for screen, seed in (("compensated", 5 + i), ("oversized", 99 + i),
+                             ("plain", 5 + i)):
+            scr, sf_s = host_s(lambda screen=screen, seed=seed:
+                               FA.simulate_screens(
+                                   sf_B, ns=sf_ns, nf=2, seed=seed,
+                                   screen=screen, device=dev))
+            sf[screen].append(_structure_function(scr))
+            walls[f"screens_{screen}"] = sf_s        # the last draw's
+
+    def sf_rel(screen, draws):
+        a = np.mean([sf[screen][i] for i in draws], axis=0)
+        o = np.mean([sf["oversized"][i] for i in draws], axis=0)
+        return float(np.median(np.abs(a - o) / o))
+
+    comp1, plain1 = sf_rel("compensated", [0]), sf_rel("plain", [0])
+    every = list(range(sf_pairs))
+    comp, plain = sf_rel("compensated", every), sf_rel("plain", every)
+    print(f"    structure function, {sf_pairs} draws of {sf_B} screens of "
+          f"{sf_ns}²: compensated {comp:.4f} from oversized, plain "
+          f"{plain:.4f} (the first draw alone: {comp1:.4f}, {plain1:.4f})",
+          flush=True)
+    check(comp < 0.08, "12.2: compensated screens miss the oracle")
+    check(plain > 0.15, "12.2: plain screens match the oracle")
+    return dict(first_s=first_s, steady_s=steady_s, steady_calls_s=steady,
+                screens_per_s=B / steady_s, builds_across_sweeps=rebuilt,
+                quarantine_ok=quarantine, group_8_16_bitwise=grouped,
+                formulation_walls_s=walls, phasor_vs_column=d_pc,
+                column_vs_dense=d_cd, strong_phasor_vs_column=d_strong,
+                sf_compensated=comp, sf_plain=plain,
+                sf_compensated_first_draw=comp1, sf_plain_first_draw=plain1)
+
+
+def scenario_phase(dev, epochs_per_regime, batch, ns, nf):
+    """12.3: the closed generate → search → fit loop at the JAX bench's
+    width (``bench.py:1427-1491``): ``DEFAULT_REGIMES`` × epochs, seed 5,
+    numsteps 1000, 40 LM iterations, batches of ``batch`` through
+    ``process_batch``. A lane whose fit the batch refuses descends to the
+    staged tier, as the survey runner's ladder does. The arc-profile
+    kernel's arguments and output are kept from its first call at the
+    batch's width and its first one-lane call (a staged descent, or the
+    tier check below), and each output is held bitwise against
+    ``arc_profile_rows_plain`` on the same tensors."""
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.ops import normsspec as NS
+    from scintools_tpu_torch.sim import scenario as SC
+
+    captured = {}
+
+    def capture(*args, **kw):
+        out = AP.arc_profile(*args, **kw)
+        nb = args[0].shape[0]
+        if nb in (batch, 1) and nb not in captured:
+            captured[nb] = ([a.clone() if torch.is_tensor(a) else a
+                             for a in args], out.clone())
+        return out
+
+    NS.arc_profile = capture
+    try:
+        return scenario_loop(dev, epochs_per_regime, batch, ns, nf,
+                             captured)
+    finally:
+        NS.arc_profile = AP.arc_profile
+
+
+def scenario_loop(dev, epochs_per_regime, batch, ns, nf, captured):
+    """12.3's body; ``captured`` fills with the arc-profile calls that
+    :func:`scenario_phase` keeps."""
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.sim import scenario as SC
+
+    wl = SC.scenario_workload(epochs_per_regime=epochs_per_regime, ns=ns,
+                              nf=nf, seed=5, numsteps=1000, n_iter=40,
+                              device=dev)
+    epochs = wl["epochs"]
+    groups = [epochs[i:i + batch] for i in range(0, len(epochs), batch)]
+    marks = Marks()
+    results, descended, batch_s = {}, [], []
+    AP.arc_profile.launches = 0
+    t0 = time.perf_counter()
+    for group in groups:
+        t1 = time.perf_counter()
+        out = wl["process_batch"]([p for _, p in group], mark=marks)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t1)
+        for (eid, p), r in zip(group, out):
+            if r["ok"] != 0:
+                descended.append((eid, r["ok"], bool(np.isfinite(r["eta"])),
+                                  bool(np.isfinite([r["tau"], r["dnu"]])
+                                       .all())))
+                r = wl["process"](p, tier=SC.TIER_STAGED)
+            results[eid] = r
+        marks("results and descents")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = AP.arc_profile.launches
+    stages = marks.totals()
+    rec = SC.recovery_summary(results)
+    n_ok = sum(int(r["ok"]) == 0 for r in results.values())
+    n_nan = sum(not np.isfinite(r["eta"]) for r in results.values())
+    n_desc_eta = sum(not d[2] for d in descended)
+    n_desc_fit = sum(not d[3] for d in descended)
+    print(f"    {len(epochs)} epochs of {ns} × {nf} in {len(groups)} batches "
+          f"of {batch}: {wall_s:.3f} s, {len(epochs) / wall_s:.1f} "
+          f"epochs/s (first batch {batch_s[0]:.3f} s, later ones median "
+          f"{np.median(batch_s[1:]):.3f} s); stages ms (CUDA events): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + f"; healthy {n_ok}, descended to the staged tier "
+          f"{len(descended)} (η refused {n_desc_eta}, τ or Δν refused "
+          f"{n_desc_fit}; {descended[:3]}), η not finite after "
+          f"{n_nan}; arc_profile launches {launches}", flush=True)
+    for r, d in rec.items():
+        print(f"    {r}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in d.items()), flush=True)
+    gates = {"eta": {"weak": 0.25, "strong": 0.25, "aniso": 0.35},
+             "tau": 0.45, "dnu": 0.6}
+    recovered = all(d[f"{k}_med_rel"] <= (g[r] if isinstance(g, dict)
+                                          else g)
+                    for r, d in rec.items() for k, g in gates.items())
+    # the staged tier reports ok = 0 with or without an η, as the JAX
+    # package's process and lane validation do; the lanes it leaves
+    # without one drop out of the medians, so their count has a gate
+    nan_cap = len(epochs) // 100
+    print(f"    lanes without a finite η after the staged tier: {n_nan} "
+          f"(gate ≤ {nan_cap}, 1% of the epochs)", flush=True)
+    check(n_ok == len(epochs), "12.3: a lane is unhealthy")
+    check(n_nan <= nan_cap, "12.3: more than 1% of lanes end with no η")
+    check(recovered, "12.3: a regime's median recovery misses its gate")
+    check(launches > 0, "12.3: the closed loop never launched arc_profile")
+
+    # where one batch's time goes on the card
+    first = [p for _, p in groups[0]]
+    acts = device_kernels(lambda: wl["process_batch"](first))
+    share = busy_share(acts)
+    arc_us = sum(d for name, _, d in acts if "arc_profile" in name)
+    print(f"    torch.profiler over one batch: {len(acts)} device "
+          f"activities, busy {share if share is None else round(share, 4)}"
+          f" of the window, arc_profile {arc_us / 1e3:.3f} ms", flush=True)
+
+    # one lane through each fallback tier of process
+    tiers = {}
+    for tier in (SC.TIER_STAGED, SC.TIER_NUMPY):
+        r, s = host_s(lambda tier=tier: wl["process"](epochs[0][1],
+                                                      tier=tier))
+        fin = bool(np.isfinite([r["eta"], r["tau"], r["dnu"]]).all())
+        tiers[tier] = dict(s=s, finite=fin, eta=r["eta"], tau=r["tau"],
+                           dnu=r["dnu"])
+        print(f"    tier {tier}: {s:.3f} s, η {r['eta']:.6g} (truth "
+              f"{r['eta_true']:.6g}), τ {r['tau']:.4g}, Δν {r['dnu']:.4g}",
+              flush=True)
+        check(fin, f"12.3: the {tier} tier gave a non-finite result")
+
+    # the kernel against its plain version on the loop's own arguments
+    check(sorted(captured) == sorted({1, batch}),
+          f"12.3: arc_profile calls kept at B = {sorted(captured)}, want "
+          f"{sorted({1, batch})}")
+    vs_plain = {}
+    for nb, (args, kern) in sorted(captured.items()):
+        plain = AP.arc_profile_rows_plain(*args)
+        nan = torch.isnan(plain)
+        same = bool(torch.equal(nan, torch.isnan(kern))
+                    and torch.equal(kern[~nan], plain[~nan]))
+        err = (kern - plain).abs().nan_to_num(0.0).max().item()
+        spectra, scales, fq = args[:3]
+        vs_plain[nb] = dict(shape=list(spectra.shape), rows=scales.shape[1],
+                            queries=fq.shape[0], max_abs_err=err,
+                            bitwise_equal_plain=same)
+        print(f"    arc_profile in the loop at B = {nb}: spectra "
+              f"{tuple(spectra.shape)}, {scales.shape[1]} rows × "
+              f"{fq.shape[0]} queries, max |k-p| {err:.3e}, bitwise equal "
+              f"its plain version {same}", flush=True)
+        check(same, f"12.3: arc_profile at B = {nb} differs from its plain "
+              "version")
+    return dict(epochs=len(epochs), batch=batch, wall_s=wall_s,
+                epochs_per_s=len(epochs) / wall_s, batch_s=batch_s,
+                stage_ms=stages, n_ok=n_ok, descended=len(descended),
+                descended_eta_refused=n_desc_eta,
+                descended_tau_dnu_refused=n_desc_fit,
+                eta_not_finite=n_nan, recovery=rec, launches=launches,
+                device_busy_share=share, device_activities=len(acts),
+                arc_profile_device_ms=arc_us / 1e3, tiers=tiers,
+                arc_profile_vs_plain=vs_plain)
+
+
+def brightness_ss_host(br):
+    """The bilinear (τ, f_D) map of ``Brightness.calc_SS`` in float64
+    numpy, written out from ``scint_sim.py:871-951`` as the JAX
+    package's numpy backend evaluates it."""
+    FD, TD = br.fd[None, :], br.td[:, None]
+    thetax = (FD - br.thetagx + br.thetarx) * np.ones_like(TD)
+    typ_sq = (TD - (thetax + br.thetagx) ** 2 + br.thetarx ** 2
+              + br.thetary ** 2)
+    pos = typ_sq > 0
+    thy = np.sqrt(np.where(pos, typ_sq, 1.0))
+    thetay = np.where(pos, thy - br.thetagy, 0.0)
+    amp = np.where(pos, np.where(thy < 0.5 * br.df, 2 / br.df, 1 / thy),
+                   1e-6)
+    n, x0, dx = br.B.shape[0], float(br.x[0]), float(br.dx)
+
+    def bilinear(qx, qy):
+        fx, fy = (qx - x0) / dx, (qy - x0) / dx
+        ix = np.clip(np.floor(fx).astype(int), 0, n - 2)
+        iy = np.clip(np.floor(fy).astype(int), 0, n - 2)
+        tx, ty = fx - ix, fy - iy
+        B = br.B
+        v = (B[iy, ix] * (1 - tx) * (1 - ty) + B[iy, ix + 1] * tx * (1 - ty)
+             + B[iy + 1, ix] * (1 - tx) * ty + B[iy + 1, ix + 1] * tx * ty)
+        inside = (fx >= 0) & (fx <= n - 1) & (fy >= 0) & (fy <= n - 1)
+        return np.where(inside, v, np.nan)
+
+    SS = bilinear(thetax, thetay) * amp + bilinear(thetax, -thetay) * amp
+    SS[1:, 1:] += np.flip(SS[1:, 1:], axis=(0, 1)).copy()
+    return SS
+
+
+def brightness_fits_phase(dev, n):
+    """12.4: ``Brightness()`` at its defaults against the host float64
+    map; a FITS image of n² through ``HoloDyn`` and the façade."""
+    import tempfile
+
+    from scintools_tpu_torch import Dynspec, HoloDyn
+    from scintools_tpu_torch.io.fitsio import (read_fits_image,
+                                               write_fits_image)
+    from scintools_tpu_torch.sim.brightness import Brightness
+
+    br, first_s = host_s(lambda: Brightness(device=dev))
+    _, ss_s = host_s(br.calc_SS)
+    _, acf_s = host_s(br.calc_acf)
+    t0 = time.perf_counter()
+    host = brightness_ss_host(br)
+    host_s_ = time.perf_counter() - t0
+    same_nan = bool(np.array_equal(np.isnan(br.SS), np.isnan(host)))
+    fin = np.isfinite(host)
+    ss_rel = float(np.max(np.abs(br.SS[fin] - host[fin])
+                          / np.abs(host[fin])))
+    print(f"    Brightness(): grid {br.B.shape}, SS {br.SS.shape}; first "
+          f"{first_s:.3f} s, calc_SS {ss_s * 1e3:.3f} ms, calc_acf "
+          f"{acf_s * 1e3:.3f} ms, the host map {host_s_:.3f} s; max rel "
+          f"{ss_rel:.3e}, NaN where NaN {same_nan}", flush=True)
+    check(same_nan and ss_rel <= 1e-8,
+          "12.4: calc_SS differs from the host float64 map")
+    check(np.isfinite(br.acf).all() and br.acf.max() == 1.0,
+          "12.4: the Brightness ACF is not finite and normalised")
+
+    img = np.abs(np.random.default_rng(12).normal(1.0, 0.3, (n, n)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "holo.fits")
+        _, write_s = host_s(lambda: write_fits_image(path, img))
+        hd, read_s = host_s(lambda: HoloDyn(path, df=0.1, dt=8, fmin=1300))
+        back = read_fits_image(path)
+    exact = bool(np.array_equal(back, img) and np.array_equal(
+        hd.dyn, np.flip(np.transpose(np.flip(img, axis=0)), axis=1)))
+    t0 = time.perf_counter()
+    ds = Dynspec(dyn=hd, process=False, verbose=False, device=dev)
+    ds.calc_sspec()
+    torch.cuda.synchronize()
+    sspec_s = time.perf_counter() - t0
+    sfin = bool(np.isfinite(ds.sspec).all())
+    print(f"    FITS {n}²: write {write_s:.3f} s, HoloDyn read "
+          f"{read_s:.3f} s, read back exactly {exact}; Dynspec(HoloDyn) → "
+          f"calc_sspec {sspec_s:.3f} s, sspec {ds.sspec.shape} finite "
+          f"{sfin}", flush=True)
+    check(exact, "12.4: HoloDyn did not read the image back exactly")
+    check(sfin, "12.4: the HoloDyn spectrum is not finite")
+    return dict(first_s=first_s, calc_ss_ms=ss_s * 1e3,
+                calc_acf_ms=acf_s * 1e3, host_map_s=host_s_,
+                ss_max_rel=ss_rel, fits_write_s=write_s,
+                holodyn_read_s=read_s, holodyn_sspec_s=sspec_s)
 
 
 def aligned_corr(a, b):

@@ -11,7 +11,10 @@ of the same kernel, warm-started along chains of chunks → inverse map
 and cropped ifft2 → device mosaic → Gerchberg–Saxton. Scintillation
 parameters come from the ACF: the analytic 2-D ACF model and batched
 Levenberg–Marquardt fits run on the card (``fit/``, ``sim/``), the
-scipy fits on the host. Entry points take
+scipy fits on the host. The simulator (``sim/``: the Coles-2010
+``Simulation``, the batched scenario factory and the closed
+generate → search → fit workload, ``Brightness``) makes its screens and
+propagates them on the card too. Entry points take
 ``device=None``, meaning the card; pass ``device="cpu"`` to run the
 plain PyTorch versions on the CPU.
 
@@ -20,14 +23,22 @@ with the JAX package ``scintools_tpu``, whose layout and function
 names it keeps.
 """
 
-from .dynspec import BasicDyn, Dynspec, MatlabDyn, sort_dyn
+from .dynspec import (BasicDyn, Dynspec, HoloDyn, MatlabDyn, SimDyn,
+                      sort_dyn)
 from .io.psrflux import load_psrflux, write_psrflux
 from .ops.sspec import secondary_spectrum
+from .sim import (DEFAULT_REGIMES, SIM_GROUP_SIZE, Brightness, Simulation,
+                  lane_keys_from_seeds, recovery_summary, scenario_truths,
+                  simulate_scenarios, simulate_screens)
 from .thth.retrieval import (campaign_retrieval_batch, gerchberg_saxton,
                              grid_retrieval_batch, mosaic_device)
 from .thth.search import multi_chunk_search, multi_chunk_search_thin
 
-__all__ = ["BasicDyn", "Dynspec", "MatlabDyn", "campaign_retrieval_batch",
-           "gerchberg_saxton", "grid_retrieval_batch", "load_psrflux",
+__all__ = ["BasicDyn", "Brightness", "DEFAULT_REGIMES", "Dynspec",
+           "HoloDyn", "MatlabDyn", "SIM_GROUP_SIZE", "SimDyn", "Simulation",
+           "campaign_retrieval_batch", "gerchberg_saxton",
+           "grid_retrieval_batch", "lane_keys_from_seeds", "load_psrflux",
            "mosaic_device", "multi_chunk_search", "multi_chunk_search_thin",
-           "secondary_spectrum", "sort_dyn", "write_psrflux"]
+           "recovery_summary", "scenario_truths", "secondary_spectrum",
+           "simulate_scenarios", "simulate_screens", "sort_dyn",
+           "write_psrflux"]

@@ -24,8 +24,9 @@ branch :1443-1489, the serial branch :1527-1536 and the weighted global
 ``retrieve_wavefield`` (:1934), ``gerchberg_saxton`` (:1974),
 ``calc_asymmetry`` (:1990), ``calc_scattered_image`` (:1137),
 ``auto_processing``, ``default_processing``
-and ``info`` (:2033-2061), ``BasicDyn`` (:2148), ``MatlabDyn`` (:2177)
-and ``sort_dyn`` (:2646). Every shared method takes the reference's
+and ``info`` (:2033-2061), ``BasicDyn`` (:2148), ``MatlabDyn`` (:2177),
+``SimDyn`` (:2209), ``HoloDyn`` (:2236) and ``sort_dyn`` (:2646). A
+``sim.Simulation`` loads directly too (``Dynspec(dyn=sim)``). Every shared method takes the reference's
 parameters in the reference's order; the port's own (``eig``,
 ``device``, ``mark``) come after them. State accretes on the instance as
 in the JAX package (``self.dyn``, ``self.acf``, ``self.sspec``,
@@ -42,8 +43,7 @@ the trapezoid resampling and the scattered image's interpolation run on
 
 Not ported: MCMC fits (``mcmc``, ``method="mcmc"``), the ``sspec``
 fitting method, plotting and the ``mesh`` options raise
-``NotImplementedError``; ``SimDyn`` and
-``HoloDyn`` are not here. ``pool`` is accepted and ignored, as the JAX
+``NotImplementedError``. ``pool`` is accepted and ignored, as the JAX
 package does off its numpy backend.
 """
 
@@ -1697,6 +1697,61 @@ class MatlabDyn:
         self.tobs = float(self.times[-1] - self.times[0])
         self.mjd = 60000.0
         self.dyn = np.transpose(self.dyn)
+
+
+class SimDyn:
+    """Adapter for a ``sim.Simulation`` (its intensity ``spi`` on a
+    1/λ-spaced axis, as the reference's adapter builds it)."""
+
+    def __init__(self, sim):
+        self.name = "sim:mb2={0}_ar={1}_psi={2}_dlam={3}".format(
+            sim.mb2, sim.ar, sim.psi, sim.dlam)
+        if sim.lamsteps:
+            self.name += ",lamsteps"
+        self.header = [self.name]
+        self.dyn = np.asarray(sim.spi)
+        dlam = sim.dlam
+        self.dt = sim.dt
+        self.freq = sim.freq
+        self.mjd = sim.mjd
+        self.nsub = int(np.shape(self.dyn)[0])
+        self.nchan = int(np.shape(self.dyn)[1])
+        lams = np.linspace(1, 1 + dlam, self.nchan)
+        freqs = 1.0 / lams
+        self.freqs = self.freq * np.linspace(np.min(freqs), np.max(freqs),
+                                             self.nchan)
+        self.bw = max(self.freqs) - min(self.freqs)
+        self.times = self.dt * np.arange(self.nsub)
+        self.df = self.bw / self.nchan
+        self.tobs = self.nsub * self.dt
+        self.dyn = np.transpose(self.dyn)
+
+
+class HoloDyn:
+    """Adapter for the holography FITS images of Walker et al. 2008: the
+    real (and optional imaginary) image, read by ``io.fitsio``."""
+
+    def __init__(self, holofile, imholofile=None, df=1, dt=1, fmin=0,
+                 mjd=0):
+        from .io.fitsio import read_fits_image
+
+        redata = read_fits_image(holofile)
+        imdata = (read_fits_image(imholofile) if imholofile is not None
+                  else np.zeros(np.shape(redata)))
+        dynt = np.abs(redata + 1j * imdata)
+        self.dyn = np.flip(np.transpose(np.flip(dynt, axis=0)), axis=1)
+        self.name = os.path.basename(holofile)
+        self.header = [self.name]
+        self.freqs = np.arange(len(self.dyn)) * df + fmin
+        self.times = np.arange(len(self.dyn[0])) * dt
+        self.nchan = len(self.freqs)
+        self.nsub = len(self.times)
+        self.bw = abs(max(self.freqs)) - abs(min(self.freqs))
+        self.tobs = max(self.times)
+        self.df = df
+        self.dt = dt
+        self.freq = float(np.mean(np.unique(self.freqs)))
+        self.mjd = mjd
 
 
 def sort_dyn(dynfiles, outdir=None, min_nsub=10, min_nchan=50, min_tsub=10,

@@ -8,6 +8,10 @@ and ``fft2`` variants), ``ifft2_cropped`` (:186), ``wiener_khinchin``
 a formulation registry; the port has no registry, so the variant is an
 explicit argument.
 
+The separable column projection of :211-233 (``column_phase``,
+``separable_filter_column``, with its two halves ``column_projector`` and
+``filter_axis0``), which the scenario factory uses.
+
 The band-limited (zoom) and off-grid family of :285-455: ``czt_1d``
 (Bluestein chirp-Z), ``zoom_dft_1d`` (``"czt"`` or the ``"dense"``
 plane-wave DFT oracle), ``zoom_power_2d``, ``offgrid_taylor`` (the
@@ -121,6 +125,43 @@ def dense_power(x, pad_to, halved):
     sec = torch.fft.fftshift((simf * torch.conj(simf)).real,
                              dim=(-2, -1))
     return sec[..., N1 // 2:, :] if halved else sec
+
+
+# ---------------------------------------------------------------------
+# separable-kernel filtering (the factory's column projection)
+# ---------------------------------------------------------------------
+
+def column_phase(n, col):
+    """Column-extraction phase vector ``exp(2πi·k·col/n)`` (host numpy,
+    complex128): multiplying an axis spectrum by it and summing is the
+    single-column inverse transform."""
+    return np.exp(2j * np.pi * np.arange(n) * col / n)
+
+
+def column_projector(fy, gph):
+    """``g = fft(fy · gph)/ny`` over the last axis: ``E @ g`` is the
+    filtered axis-1 inverse transform of ``E`` sampled at the column
+    that ``gph`` (:func:`column_phase`, in the working complex dtype)
+    selects. Leading axes of ``fy`` (one filter per frequency) give one
+    projector each."""
+    return torch.fft.fft(fy * gph, dim=-1) / fy.shape[-1]
+
+
+def filter_axis0(v, fx, dim=-1):
+    """The remaining filtered 1-D round trip along the screen's first
+    axis: ``ifft(fx · fft(v))`` over ``dim`` of the projected columns
+    ``v``, ``fx`` broadcast against them."""
+    return torch.fft.ifft(fx * torch.fft.fft(v, dim=dim), dim=dim)
+
+
+def separable_filter_column(E, fx, fy, gph):
+    """``ifft2(fft2(E) · fx ⊗ fy)[..., col]`` of ``E[..., nx, ny]`` via
+    the rank-1 separability of the filter: one matvec with
+    :func:`column_projector` and one filtered 1-D round trip along axis 0
+    (:func:`filter_axis0`) — no 2-D FFT. ``fx[nx]``, ``fy[ny]`` and
+    ``gph`` are in ``E``'s complex dtype; exact, not approximate."""
+    v = E @ column_projector(fy, gph)
+    return filter_axis0(v, fx)
 
 
 # ---------------------------------------------------------------------

@@ -50,7 +50,10 @@ def test_import_leaves_jax_package_unloaded():
             " scintools_tpu_torch.utils.ephemeris,"
             " scintools_tpu_torch.utils.velocity,"
             " scintools_tpu_torch.ops.scale, scintools_tpu_torch.ops.scatim,"
-            " scintools_tpu_torch.ops.xfft;"
+            " scintools_tpu_torch.ops.xfft, scintools_tpu_torch.sim.factory,"
+            " scintools_tpu_torch.sim.scenario,"
+            " scintools_tpu_torch.sim.brightness,"
+            " scintools_tpu_torch.io.fitsio;"
             "bad = [m for m in sys.modules if m == 'scintools_tpu' or "
             "m.startswith('scintools_tpu.')];"
             "print(bad); sys.exit(1 if bad else 0)")
