@@ -3,7 +3,8 @@
 the façade, the survey arc fit, a psrflux file from write to θ-θ fit,
 the scintillation-parameter fits, the velocity and trapezoid
 rescaling, the scattered image and the zoom and chirp-Z transforms,
-and the simulator with its closed generate → search → fit loop.
+the simulator with its closed generate → search → fit loop, and the
+survey engine with the three surveys on it.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -191,7 +192,45 @@ Phases, each of which exits non-zero on failure:
    share, and one lane through each fallback tier finite; 12.4 ``Brightness()`` at its defaults within
    rtol 1e-8 of the host float64 map (NaN where NaN), a 1024² FITS image
    read back exactly through ``HoloDyn``, and its façade spectrum
-   finite.
+   finite;
+13. the survey engine (``survey_phase``: the journaled, pipelined runner
+   with its fallback ladder): 13.1 ``run_scenario_survey`` at 12.3's
+   configuration into a temporary workdir: 1008 epochs journaled, none
+   quarantined, 12.3's recovery gates and at most 1% of lanes without an
+   η, every lane on the fused tier but exactly the lanes 12.3 sent to
+   the staged tier, every journaled η, τ and Δν within 1e-6 (relative)
+   of 12.3's for the same lane, the arc-profile launches equal to the
+   batches plus the descents (and to 12.3's), the kernel bitwise equal
+   its plain version on the survey's own first calls at B = 48 and
+   B = 1, and a rerun that resumes every epoch; it prints the runner's
+   wall beside 12.3's loop, the journal's fsyncs and bytes from the
+   metrics registry and the staged descents' share of the wall; 13.2
+   ``run_psrflux_survey`` over 64 psrflux files of 512 × 128 written by
+   ``write_psrflux`` and 2 truncated ones, at 40 LM iterations as the JAX
+   bench's pipelined survey (``bench.py:1930``): 64 ok, 2 quarantined as
+   ``MalformedInputError``, each fit within 1e-4 of
+   ``scint_params_batch`` at B = 1 on the same array, pipelined and
+   sequential journals of the first 8 files byte-identical,
+   ``run_report.json`` written, and the device busy share by
+   ``torch.profiler`` over those 8 epochs; 13.3
+   ``run_wavefield_survey`` over phase 3's dynspec and 3 noisy copies at
+   phase 5's geometry (15×15 chunks of 512²): epoch 0 within rel L2 5e-3
+   and corr 0.9999 of phase 5's ``retrieve_wavefield``, the staged tier
+   (forced on one epoch) likewise of the fused tier, the eigenvector
+   kernel launched at least once per epoch and its λ held to plain on
+   the survey's first call, the ``.npy`` files matching their records,
+   and a resume; 13.4 ``thth_search_ladder`` on frequency row 0 of phase
+   3's chunks (8 × 512², 200 η): the fused tier serves it on the
+   eig_warmstart kernel with η within 1e-6 of phase 3's, the kernel's λ
+   held to plain on the ladder's first call, and with the fused tier
+   made to fail the staged tier answers, on the kernel too; 13.5 an
+   arc-profile launch made to raise ``KernelError`` inside one batch of
+   ``run_scenario_survey``: the call raises and nothing is journaled on
+   the numpy tier; 13.6 the fused and staged tiers made to fail, so 8
+   closed-loop lanes and one 1024² wavefield epoch land on the numpy
+   tier: each lane launches ``arc_profile`` once and each retrieved
+   chunk ``eigvec_warmstart`` once (a chain of one), each held to its
+   plain version on the tier's first call.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -216,7 +255,10 @@ seed's façade; for the eigenvector entry zeroed just before the timed
 before and after one ``fit_arc_batch`` (then timed over three more);
 for eig_warmstart again just before and after the psrflux file's
 ``fit_thetatheta`` (9.4); for the arc profile again just before and
-after the closed loop's batches (12.3); for the cold-only entry
+after the closed loop's batches (12.3); for the arc profile again
+around ``run_scenario_survey`` (13.1), for the eigenvector entry around
+``run_wavefield_survey`` (13.3) and for eig_warmstart around both
+``thth_search_ladder`` calls (13.4); for the cold-only entry
 (no path of the package calls it) around its own call in phase 2. Each
 must be > 0. It prints a ``{"kernels": [...]}`` line (``launches`` is
 the sum over the paths that run the kernel, with each path's count
@@ -691,6 +733,7 @@ def main():
     check(launches_ns > 0, "north star never launched eig_warmstart")
     ns_ms = sum(stages.values())
     peak = peak.cpu().numpy()
+    peak_row0 = peak[:nt // prob["ct"], 0].copy()     # frequency row 0
     print("    stages ms: " + ", ".join(f"{k} {v:.3f}"
                                         for k, v in stages.items())
           + f"; end to end {ns_ms:.3f} ms", flush=True)
@@ -761,6 +804,13 @@ def main():
     scint = scint_phase(processed, dev)
     vz = velocity_zoom_phase(ds, prob, dev)
     simu = simulation_phase(dev)
+    scen = simu["scenario"]
+    loop12 = dict(lanes=scen.pop("lanes"),
+                  descended_ids=scen.pop("descended_ids"),
+                  epochs=scen["epochs"], batch=scen["batch"],
+                  wall_s=scen["wall_s"],
+                  launches=simu["launches_scenario_loop"])
+    survey = survey_phase(dev, loop12, ds, prob, peak_row0)
 
     launches_h = hough.pop("launches")
     launches_1 = one.pop("launches_single_chunk")
@@ -769,17 +819,33 @@ def main():
     arc_kernel = arc.pop("kernel")
     arc_kernel["launches_scenario_loop"] = simu["launches_scenario_loop"]
     arc_kernel["launches"] += simu.pop("launches_scenario_loop")
+    launches_sv = survey["scenario"]["launches"]
+    arc_kernel["launches_scenario_survey"] = launches_sv
+    arc_kernel["launches"] += launches_sv
+    launches_nt = survey["numpy_tier"]["launches_arc_profile"]
+    arc_kernel["launches_numpy_tier"] = launches_nt
+    arc_kernel["launches"] += launches_nt
+    vec_kernel = ret.pop("kernel")
+    launches_wf = survey["wavefield"]["launches"]
+    vec_kernel["launches_wavefield_survey"] = launches_wf
+    vec_kernel["launches"] += launches_wf
+    launches_nt = survey["numpy_tier"]["launches_eigvec_warmstart"]
+    vec_kernel["launches_numpy_tier"] = launches_nt
+    vec_kernel["launches"] += launches_nt
+    launches_lad = (survey["ladder"]["launches"]
+                    + survey["ladder"]["launches_staged"])
     print(json.dumps({"kernels": [{
         "name": "eig_warmstart", "route": "cuda",
         "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
         "replaces": "scintools_tpu/thth/pallas_eig.py:217",
         "launches": launches_ns + launches_f + launches_h + launches_1
-        + launches_r + launches_p,
+        + launches_r + launches_p + launches_lad,
         "launches_north_star": launches_ns, "launches_facade": launches_f,
         "launches_hough_facade": launches_h,
         "launches_single_chunk": launches_1,
         "launches_one_chunk_rows": launches_r,
         "launches_psrflux_fit": launches_p,
+        "launches_search_ladder": launches_lad,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -792,15 +858,14 @@ def main():
         "cold_starts_per_chain": warm_plan["cold_starts_per_chain"],
         "profiler_launch_ms": launch_ms,
         "cold_starts": kstats["cold"], "cold_starts_plain": plain_colds,
-        "shape": [B, neta, 2, n, n]}, ret.pop("kernel"), arc_kernel,
-        cold],
+        "shape": [B, neta, 2, n, n]}, vec_kernel, arc_kernel, cold],
         "ptxas": ptxas, "eigvec_cold_vector_l2_vs_plain": cold_v_l2,
         "north_star_ms": ns_ms, "north_star_stage_ms": stages,
         "north_star_device_busy_share": share,
         "facade_s": facade_s, "hough": hough, **ret, "survey_arc": arc,
         "single_chunk_and_retrieval": one, "thin_and_grid": thin,
         "psrflux": flux, "scintillation": scint, "velocity_zoom": vz,
-        "simulation": simu, "phase_s": PHASE_S}),
+        "simulation": simu, "survey": survey, "phase_s": PHASE_S}),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1341,7 +1406,7 @@ def single_chunk_phase(ds, prob, bd, eta_true, rgap, dev):
                                                     float(asym.max())])
     lap("7.3 asymmetry")
 
-    # 7.4 retrieval without the chained kernel: one chunk, and 'power'
+    # 7.4 one chunk by itself (its eigenpair a chain of one), and 'power'
     chunks, edges_rows, etas_rows = ds._retrieval_grid_inputs()
     n_grid = ds.ncf_ret * ds.nct_ret
     dense = torch.as_tensor(ds.chunks.reshape(n_grid, ds.cwf, ds.cwt),
@@ -2900,26 +2965,14 @@ def scenario_phase(dev, epochs_per_regime, batch, ns, nf):
     batch's width and its first one-lane call (a staged descent, or the
     tier check below), and each output is held bitwise against
     ``arc_profile_rows_plain`` on the same tensors."""
-    from scintools_tpu_torch.ops import arc_profile as AP
     from scintools_tpu_torch.ops import normsspec as NS
-    from scintools_tpu_torch.sim import scenario as SC
 
-    captured = {}
-
-    def capture(*args, **kw):
-        out = AP.arc_profile(*args, **kw)
-        nb = args[0].shape[0]
-        if nb in (batch, 1) and nb not in captured:
-            captured[nb] = ([a.clone() if torch.is_tensor(a) else a
-                             for a in args], out.clone())
-        return out
-
-    NS.arc_profile = capture
+    captured, restore = captured_calls(NS, "arc_profile", {batch, 1})
     try:
         return scenario_loop(dev, epochs_per_regime, batch, ns, nf,
                              captured)
     finally:
-        NS.arc_profile = AP.arc_profile
+        restore()
 
 
 def scenario_loop(dev, epochs_per_regime, batch, ns, nf, captured):
@@ -3015,11 +3068,9 @@ def scenario_loop(dev, epochs_per_regime, batch, ns, nf, captured):
           f"12.3: arc_profile calls kept at B = {sorted(captured)}, want "
           f"{sorted({1, batch})}")
     vs_plain = {}
-    for nb, (args, kern) in sorted(captured.items()):
+    for nb, (args, _, kern) in sorted(captured.items()):
         plain = AP.arc_profile_rows_plain(*args)
-        nan = torch.isnan(plain)
-        same = bool(torch.equal(nan, torch.isnan(kern))
-                    and torch.equal(kern[~nan], plain[~nan]))
+        same = same_bits(kern, plain)
         err = (kern - plain).abs().nan_to_num(0.0).max().item()
         spectra, scales, fq = args[:3]
         vs_plain[nb] = dict(shape=list(spectra.shape), rows=scales.shape[1],
@@ -3039,7 +3090,8 @@ def scenario_loop(dev, epochs_per_regime, batch, ns, nf, captured):
                 eta_not_finite=n_nan, recovery=rec, launches=launches,
                 device_busy_share=share, device_activities=len(acts),
                 arc_profile_device_ms=arc_us / 1e3, tiers=tiers,
-                arc_profile_vs_plain=vs_plain)
+                arc_profile_vs_plain=vs_plain, lanes=results,
+                descended_ids=[d[0] for d in descended])
 
 
 def brightness_ss_host(br):
@@ -3329,6 +3381,580 @@ def retrieval_phase(ds, dev):
         "kernel_vs_dense_intensity": [rel, corr],
         "kernel_vs_plain_intensity": [rel_p, corr_p],
         "kernel_vs_dense_chunk_corr_by_gap": bands, "rgap": rgap.cpu()}
+
+
+# ---- [13] the survey engine -------------------------------------------
+
+def captured_calls(module, name, want=None):
+    """Wrap ``module.name`` so that the first call whose first argument
+    has leading size ``b`` (for each ``b`` in ``want``; with ``want``
+    None, the first call alone) keeps copies of its arguments and its
+    output. Returns ``(captured, restore)``: ``captured[b] = (args,
+    kwargs, output)``; ``restore()`` puts the original back."""
+    orig = getattr(module, name)
+    captured = {}
+
+    def keep(x):
+        return tuple(keep(v) for v in x) if isinstance(x, tuple) \
+            else x.clone() if torch.is_tensor(x) else x
+
+    def wrapper(*args, **kw):
+        out = orig(*args, **kw)
+        b = args[0].shape[0]
+        if (b in want if want is not None else not captured) \
+                and b not in captured:
+            captured[b] = (keep(args), dict(kw), keep(out))
+        return out
+
+    setattr(module, name, wrapper)
+    return captured, lambda: setattr(module, name, orig)
+
+
+def same_bits(a, b):
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)
+                and torch.equal(a[~nan], b[~nan]))
+
+
+def rel_diff(a, b):
+    """Largest relative difference of two value lists, NaN equal NaN."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    both = np.isnan(a) & np.isnan(b)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        return float("inf")
+    d = np.abs(a - b)[~both] / np.maximum(np.abs(b[~both]), 1e-300)
+    return float(d.max()) if d.size else 0.0
+
+
+def survey_phase(dev, loop12, ds, prob, peak_row0):
+    """Phase 13: the survey engine (``robust/``, ``parallel/``, ``obs/``)
+    driving the three surveys and the θ-θ search ladder on the card:
+    13.1 ``run_scenario_survey`` at 12.3's configuration, held lane by
+    lane to 12.3's loop (``loop12``); 13.2 ``run_psrflux_survey`` over
+    64 files at phase 10's 512 × 128 shape and 2 truncated ones; 13.3
+    ``run_wavefield_survey`` over 4 epochs at phase 5's geometry, held to
+    phase 5's ``retrieve_wavefield``; 13.4 ``thth_search_ladder`` on
+    frequency row 0 of phase 3's chunks, held to phase 3's η
+    (``peak_row0``); 13.5 a ``KernelError`` in the arc-profile launch
+    propagates; 13.6 with the fused and staged tiers made to fail, the
+    numpy tiers of the closed loop and of the wavefield survey still
+    launch their kernels. Returns its numbers with each kernel's
+    launches on the survey paths (``launches*``)."""
+    import tempfile
+
+    card = smi()
+    print(f"[13] survey engine (nvidia-smi: {card})", flush=True)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_survey_") as tmp:
+        out["scenario"] = scenario_survey_phase(dev, loop12, tmp)
+        lap("13.1 run_scenario_survey")
+        out["psrflux"] = psrflux_survey_phase(dev, tmp)
+        lap("13.2 run_psrflux_survey")
+        out["wavefield"] = wavefield_survey_phase(dev, ds, tmp)
+        lap("13.3 run_wavefield_survey")
+        out["ladder"] = ladder_phase(dev, prob, peak_row0)
+        lap("13.4 thth_search_ladder")
+        out["kernel_error"] = kernel_error_phase(dev, tmp)
+        lap("13.5 KernelError")
+        out["numpy_tier"] = numpy_tier_phase(dev, ds, tmp)
+        lap("13.6 numpy tier on the kernels")
+    return out
+
+
+def scenario_survey_phase(dev, loop12, tmp):
+    """13.1: the closed loop of 12.3 through ``run_scenario_survey``."""
+    from scintools_tpu_torch import obs
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.ops import normsspec as NS
+    from scintools_tpu_torch.robust import runner
+    from scintools_tpu_torch.sim import scenario as SC
+
+    batch = loop12["batch"]
+    kw = dict(epochs_per_regime=loop12["epochs"] // 3, batch_size=batch,
+              seed=5, numsteps=1000, n_iter=40, device=dev)
+    wd = os.path.join(tmp, "scenario")
+    # the staged descents' share of the wall: the per-epoch ladder calls
+    descent_s = []
+    run_one = runner._run_one
+
+    def timed_run_one(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return run_one(*args, **kwargs)
+        finally:
+            descent_s.append(time.perf_counter() - t0)
+
+    captured, restore = captured_calls(NS, "arc_profile", {batch, 1})
+    runner._run_one = timed_run_one
+    obs.REGISTRY.reset()
+    AP.arc_profile.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = SC.run_scenario_survey(wd, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        runner._run_one = run_one
+        restore()
+    launches = AP.arc_profile.launches
+    counters = obs.REGISTRY.snapshot()["counters"]
+    fsyncs = counters.get("survey_journal_fsyncs_total", 0)
+    jbytes = counters.get("survey_journal_bytes_total", 0)
+    s = res["summary"]
+    lanes = loop12["lanes"]
+    tiers = {o.epoch: o.tier for o in res["outcomes"]}
+    off_fused = sorted(e for e, t in tiers.items()
+                       if t != SC.TIER_FUSED)
+    worst = {k: rel_diff([res["results"][e][k] for e in sorted(lanes)],
+                         [lanes[e][k] for e in sorted(lanes)])
+             for k in ("eta", "tau", "dnu")}
+    bitwise = all(json.dumps(res["results"][e], sort_keys=True)
+                  == json.dumps(lanes[e], sort_keys=True) for e in lanes)
+    n_nan = sum(not np.isfinite(r["eta"]) for r in res["results"].values())
+    rec = res["recovery"]
+    gates = {"eta": {"weak": 0.25, "strong": 0.25, "aniso": 0.35},
+             "tau": 0.45, "dnu": 0.6}
+    recovered = all(d[f"{k}_med_rel"] <= (g[r] if isinstance(g, dict)
+                                          else g)
+                    for r, d in rec.items() for k, g in gates.items())
+    expect_launches = s["n_batches"] + len(off_fused)
+    print(f"    {s['n_epochs']} epochs: ok {s['n_ok']}, quarantined "
+          f"{s['n_quarantined']}, tiers {s['tier_counts']}, batches "
+          f"{s['n_batches']}; runner wall {wall_s:.3f} s beside 12.3's "
+          f"loop {loop12['wall_s']:.3f} s ({card_line()}); journal "
+          f"fsyncs {fsyncs}, bytes {jbytes}; staged descents "
+          f"{len(descent_s)} took {sum(descent_s):.3f} s "
+          f"({sum(descent_s) / wall_s:.1%} of the wall)", flush=True)
+    print(f"    against 12.3 lane by lane: worst rel η {worst['eta']:.3e}, "
+          f"τ {worst['tau']:.3e}, Δν {worst['dnu']:.3e}; every result "
+          f"bitwise {bitwise}; off the fused tier {len(off_fused)} (12.3 "
+          f"descended {len(loop12['descended_ids'])}); η not finite "
+          f"{n_nan}; arc_profile launches {launches} (batches + "
+          f"descents {expect_launches}, 12.3 {loop12['launches']})",
+          flush=True)
+    check(s["n_epochs"] == loop12["epochs"]
+          and s["n_ok"] == loop12["epochs"] and s["n_quarantined"] == 0,
+          "13.1: an epoch is missing or quarantined")
+    check(recovered, "13.1: a regime's median recovery misses its gate")
+    check(n_nan <= loop12["epochs"] // 100,
+          "13.1: more than 1% of lanes end with no η")
+    check(off_fused == sorted(loop12["descended_ids"]),
+          "13.1: the lanes off the fused tier are not 12.3's descents")
+    check(max(worst.values()) <= 1e-6,
+          f"13.1: a journaled value differs from 12.3's: {worst}")
+    check(launches > 0 and launches == expect_launches
+          and launches == loop12["launches"],
+          f"13.1: arc_profile launches {launches}, want "
+          f"{expect_launches} and 12.3's {loop12['launches']}")
+    vs_plain = {}
+    for nb, (args, _, kern) in sorted(captured.items()):
+        plain = AP.arc_profile_rows_plain(*args)
+        vs_plain[nb] = same_bits(kern, plain)
+    print(f"    arc_profile on the survey's own calls, bitwise equal "
+          f"its plain version: {vs_plain}", flush=True)
+    check(sorted(vs_plain) == sorted({batch, 1})
+          and all(vs_plain.values()),
+          f"13.1: arc_profile against plain {vs_plain}")
+    again = SC.run_scenario_survey(wd, **kw)["summary"]
+    print(f"    rerun on the same workdir: resumed {again['n_resumed']}, "
+          f"processed {again['n_ok']}", flush=True)
+    check(again["n_resumed"] == loop12["epochs"] and again["n_ok"] == 0,
+          "13.1: the rerun did not resume every epoch")
+    return dict(wall_s=wall_s, loop_wall_s=loop12["wall_s"],
+                summary={k: v for k, v in s.items()},
+                recovery=rec, journal_fsyncs=fsyncs, journal_bytes=jbytes,
+                descents=len(descent_s), descent_s=sum(descent_s),
+                descent_share=sum(descent_s) / wall_s,
+                worst_rel_vs_loop=worst, bitwise_vs_loop=bitwise,
+                eta_not_finite=n_nan, launches=launches,
+                arc_profile_bitwise_plain=vs_plain,
+                rerun_resumed=again["n_resumed"])
+
+
+def card_line():
+    return smi().replace(", ", " at ")
+
+
+def psrflux_survey_phase(dev, tmp, n=64, nf=512, nt=128, n_bad=2,
+                         n_iter=40, n_window=8):
+    """13.2: 64 psrflux files of phase 10's 512 × 128 epochs and 2
+    truncated copies through ``run_psrflux_survey``, at the 40 LM
+    iterations of the JAX bench's pipelined survey (``bench.py:1930``):
+    each epoch is one B = 1 fit whose launches pace it on the card. Each
+    fit is held to ``scint_params_batch`` at B = 1 on the same array; the
+    pipelined and sequential journals, and the device busy share, are
+    taken on the first ``n_window`` files."""
+    from scintools_tpu_torch import obs
+    from scintools_tpu_torch import workloads as W
+    from scintools_tpu_torch.dynspec import run_psrflux_survey
+    from scintools_tpu_torch.fit.batch import scint_params_batch
+    from scintools_tpu_torch.io.psrflux import (RawDynSpec, load_psrflux,
+                                                write_psrflux)
+    from scintools_tpu_torch.robust.faults import corrupt_file_tail
+
+    dt, df, f0 = 2.0, 0.05, 1400.0
+    d = os.path.join(tmp, "psrflux")
+    os.makedirs(d)
+    files = []
+    t0 = time.perf_counter()
+    for i in range(n + n_bad):
+        dyn = W.make_arc_dynspec(nt, nf, dt, df, f0, 5e-4, n_images=96,
+                                 seed=77 + i)
+        path = os.path.join(d, f"epoch{i:03d}.dynspec")
+        write_psrflux(RawDynSpec(dyn=dyn, times=dt * np.arange(nt),
+                                 freqs=f0 + df * np.arange(nf),
+                                 mjd=60000.0 + i), path)
+        if i >= n:
+            corrupt_file_tail(path, drop_bytes=4096)
+        files.append(path)
+    write_s = time.perf_counter() - t0
+    obs.REGISTRY.reset()
+    wd = os.path.join(tmp, "psrflux_run")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_psrflux_survey(files, wd, n_iter=n_iter, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    hist = obs.REGISTRY.snapshot()["histograms"].get(
+        "survey_load_seconds", {"count": 0, "sum": 0.0})
+    load_mean = hist["sum"] / max(hist["count"], 1)
+    s = res["summary"]
+    quar = [o for o in res["outcomes"] if o.status == "quarantined"]
+    worst = 0.0
+    for path in files[:n]:
+        raw = load_psrflux(path)
+        ref = scint_params_batch(
+            torch.as_tensor(raw.dyn.astype(np.float32)[None], device=dev),
+            float(raw.dt), float(raw.df), n_iter=n_iter, device=dev)
+        got = res["results"][os.path.basename(path)]
+        for k in ("tau", "dnu", "amp"):
+            worst = max(worst, rel_diff([got[k]], [float(ref[k][0])]))
+    report = os.path.exists(os.path.join(wd, "run_report.json"))
+    runs = []
+
+    def window(pipeline=True):
+        runs.append(os.path.join(tmp, f"window{len(runs)}"))
+        run_psrflux_survey(files[:n_window], runs[-1], n_iter=n_iter,
+                           pipeline=pipeline, report=False, device=dev)
+        with open(os.path.join(runs[-1], "journal.jsonl"), "rb") as fh:
+            return fh.read()
+
+    acts = device_kernels(window)
+    share = busy_share(acts)
+    same_journal = window(pipeline=False) == window()
+    print(f"    {len(files)} files written in {write_s:.3f} s; survey wall "
+          f"{wall_s:.3f} s ({len(files) / wall_s:.1f} files/s, "
+          f"{card_line()}); mean background load {load_mean * 1e3:.1f} ms "
+          f"per file over {hist['count']} loads; ok {s['n_ok']}, "
+          f"quarantined {s['n_quarantined']} "
+          f"({sorted({o.error_class for o in quar})}); worst rel vs "
+          f"scint_params_batch at B = 1 {worst:.3e}; pipelined and "
+          f"sequential journals of {n_window} files byte-identical "
+          f"{same_journal}; run_report.json {report}; torch.profiler over "
+          f"{n_window} epochs (a pipelined survey): "
+          f"{len(acts)} device activities, busy "
+          f"{share if share is None else round(share, 4)} of the window",
+          flush=True)
+    check(s["n_ok"] == n and s["n_quarantined"] == n_bad
+          and all(o.error_class == "MalformedInputError" for o in quar),
+          "13.2: wrong ok / quarantined counts")
+    check(worst <= 1e-4, f"13.2: a fit differs from B = 1 by {worst:.3e}")
+    check(same_journal, "13.2: pipelined and sequential journals differ")
+    check(report, "13.2: run_report.json not written")
+    return dict(files=len(files), n_iter=n_iter, write_s=write_s,
+                wall_s=wall_s,
+                load_mean_s=load_mean, loads=hist["count"],
+                summary=s, worst_rel_vs_b1=worst,
+                journals_identical=same_journal, device_busy_share=share,
+                device_activities=len(acts))
+
+
+def wavefield_survey_phase(dev, ds, tmp, n_epochs=4):
+    """13.3: phase 3's dynspec and 3 noisy copies through
+    ``run_wavefield_survey`` at phase 5's geometry."""
+    import hashlib
+
+    from scintools_tpu_torch.dynspec import run_wavefield_survey
+    from scintools_tpu_torch.robust import TIER_FUSED, TIER_STAGED
+    from scintools_tpu_torch.robust import faults
+    from scintools_tpu_torch.thth import eig as E
+    from scintools_tpu_torch.thth import retrieval as R
+
+    ref = ds.retrieve_wavefield()            # phase 5's kernel route
+    rng = np.random.default_rng(31)
+    dyn = np.asarray(ds.dyn, dtype=float)
+    scale = float(np.std(dyn))
+    epochs = [("w0", (dyn, ds.times, ds.freqs))]
+    for i in range(1, n_epochs):
+        epochs.append((f"w{i}", (dyn + 0.01 * scale * rng.standard_normal(
+            dyn.shape), ds.times, ds.freqs)))
+    # the survey scales the band-centre η and edges per row by its own
+    # reference frequency (the band mean), the façade by ``ds.fref``
+    fref = float(np.mean(ds.freqs))
+    kw = dict(edges=ds.edges * (fref / ds.fref),
+              eta=ds.ththeta * (ds.fref / fref) ** 2, cwf=ds.cwf,
+              cwt=ds.cwt, npad=ds.npad, tau_mask=ds.thth_tau_mask,
+              device=dev)
+    wd = os.path.join(tmp, "wavefield")
+    captured, restore = captured_calls(R, "batched_eigvec_warmstart")
+    E.batched_eigvec_warmstart.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_wavefield_survey(epochs, wd, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = E.batched_eigvec_warmstart.launches
+    s = res["summary"]
+    (args, kwa, (lam_k, _)), = captured.values()
+    lam_p, _ = E.batched_eigvec_warmstart_plain(*args, **kwa)
+    _, lam_rel, _ = compare(
+        f"13.3 eigvec_warmstart λ on the survey's first call "
+        f"{tuple(args[0].shape)}", lam_k, lam_p, top2(args[0]))
+    r0 = res["results"]["w0"]
+    wf0 = np.load(os.path.join(wd, r0["file"]))
+    rel0, corr0 = intensity_gap(wf0, ref)
+    files_ok = all(
+        hashlib.sha256(np.load(os.path.join(wd, r["file"])).tobytes())
+        .hexdigest() == r["wf_sha"] for r in res["results"].values())
+
+    def hook(tier=None, epoch=None, stage=None):
+        if epoch == "w1" and tier == TIER_FUSED:
+            raise RuntimeError("injected fault: fused tier refused")
+
+    prev = faults.TIER_FAIL_HOOK
+    faults.TIER_FAIL_HOOK = hook
+    try:
+        wd_s = os.path.join(tmp, "wavefield_staged")
+        staged = run_wavefield_survey(epochs[1:2], wd_s, retries=0, **kw)
+    finally:
+        faults.TIER_FAIL_HOOK = prev
+    r1 = staged["results"]["w1"]
+    rel_s, corr_s = intensity_gap(
+        np.load(os.path.join(wd_s, r1["file"])),
+        np.load(os.path.join(wd, res["results"]["w1"]["file"])))
+    again = run_wavefield_survey(epochs, wd, **kw)["summary"]
+    print(f"    {s['n_epochs']} epochs of {dyn.shape}, {r0['ncf']}x"
+          f"{r0['nct']} chunks of {ds.cwf}²: wall {wall_s:.3f} s "
+          f"({card_line()}); tiers {s['tier_counts']}; quarantined chunks "
+          f"{[r['n_quarantined'] for r in res['results'].values()]}; "
+          f"eigvec_warmstart launches {launches}, λ of the survey's first "
+          f"call against plain max rel {lam_rel:.3e}; epoch 0 against "
+          f"phase 5: rel L2 {rel0:.3e}, corr {corr0:.9f}; staged tier "
+          f"({staged['outcomes'][0].tier}) against fused: rel L2 "
+          f"{rel_s:.3e}, corr {corr_s:.9f}; .npy files match their sha "
+          f"{files_ok}; rerun resumed {again['n_resumed']}, processed "
+          f"{again['n_ok']}", flush=True)
+    check(s["n_ok"] == n_epochs
+          and s["tier_counts"][TIER_FUSED] == n_epochs,
+          "13.3: an epoch left the fused tier")
+    check(launches >= n_epochs, "13.3: eigvec_warmstart launched fewer "
+          "times than fused epochs")
+    check(rel0 < 5e-3 and corr0 > 0.9999,
+          "13.3: epoch 0 differs from phase 5's wavefield")
+    check(staged["outcomes"][0].tier == TIER_STAGED
+          and rel_s < 5e-3 and corr_s > 0.9999,
+          "13.3: the staged tier differs from the fused tier")
+    check(files_ok, "13.3: a saved wavefield differs from its record")
+    check(again["n_resumed"] == n_epochs and again["n_ok"] == 0,
+          "13.3: the rerun did not resume")
+    return dict(wall_s=wall_s, summary=s, launches=launches,
+                lam_max_rel_vs_plain=lam_rel, vs_phase5_rel_l2=rel0,
+                vs_phase5_corr=corr0, staged_rel_l2=rel_s,
+                staged_corr=corr_s)
+
+
+def ladder_phase(dev, prob, peak_row0):
+    """13.4: ``thth_search_ladder`` on frequency row 0 of phase 3's
+    dynspec (8 chunks of 512², 200 η), then with the fused tier made to
+    fail."""
+    from scintools_tpu_torch.robust import TIER_FUSED, TIER_STAGED
+    from scintools_tpu_torch.robust import faults
+    from scintools_tpu_torch.robust.ladder import thth_search_ladder
+    from scintools_tpu_torch.thth import batch as B
+    from scintools_tpu_torch.thth import core as C
+    from scintools_tpu_torch.thth import eig as E
+    from scintools_tpu_torch.thth import search as S
+
+    cf, ct = prob["cf"], prob["ct"]
+    dyn = np.asarray(prob["dyns"][1])
+    n_ct = dyn.shape[1] // ct
+    chunks = [dyn[:cf, j * ct:(j + 1) * ct] for j in range(n_ct)]
+    times = [prob["dt"] * (j * ct + np.arange(ct)) for j in range(n_ct)]
+    freqs = prob["f0"] + prob["df"] * np.arange(cf)
+    args = (chunks, freqs, times, prob["etas"], prob["edges"])
+    kw = dict(fw=0.2, npad=prob["npad"], device=dev)
+    # a fresh build, so the eigensolver the search binds is the wrapper
+    S._FUSED_CACHE.clear()
+    C._EVAL_CACHE.clear()
+    captured, restore = captured_calls(B, "batched_eig_warmstart")
+    try:
+        E.batched_eig_warmstart.launches = 0
+        res, rep = thth_search_ladder(*args, epoch="row0", **kw)
+        torch.cuda.synchronize()
+        launches = E.batched_eig_warmstart.launches
+        E.batched_eig_warmstart.launches = 0
+        with faults.tier_failure_hook([TIER_FUSED]):
+            res_s, rep_s = thth_search_ladder(*args, epoch="row0",
+                                              retries=0, **kw)
+        torch.cuda.synchronize()
+        launches_s = E.batched_eig_warmstart.launches
+    finally:
+        restore()
+        S._FUSED_CACHE.clear()
+        C._EVAL_CACHE.clear()
+    eta = np.array([r.eta for r in res])
+    eta_s = np.array([r.eta for r in res_s])
+    d3 = rel_diff(eta, peak_row0)
+    d_s = rel_diff(eta_s, eta)
+    (cargs, kwa, lam_k), = captured.values()
+    lam_p = E.batched_eig_warmstart_plain(*cargs, **kwa)
+    print(f"    row 0, {len(chunks)} chunks × {len(prob['etas'])} η: tier "
+          f"{rep.tier}, eig_warmstart launches {launches}, η against "
+          f"phase 3 max rel {d3:.3e}; fused made to fail: tier "
+          f"{rep_s.tier}, launches {launches_s}, η against the fused "
+          f"tier max rel {d_s:.3e}", flush=True)
+    _, vs_plain, _ = compare(
+        f"13.4 eig_warmstart on the ladder's first call "
+        f"{tuple(cargs[0].shape)}", lam_k, lam_p, top2(cargs[0]))
+    check(rep.tier == TIER_FUSED and launches > 0,
+          "13.4: the fused tier did not serve the row on the kernel")
+    check(d3 <= 1e-6, f"13.4: η differs from phase 3's by {d3:.3e}")
+    check(rep_s.tier == TIER_STAGED and launches_s > 0,
+          "13.4: the staged tier did not answer on the kernel")
+    return dict(tier=rep.tier, launches=launches, eta_rel_vs_phase3=d3,
+                staged_tier=rep_s.tier, launches_staged=launches_s,
+                staged_eta_rel=d_s, lam_max_rel_vs_plain=vs_plain)
+
+
+def kernel_error_phase(dev, tmp):
+    """13.5: an arc-profile launch that raises ``KernelError`` inside
+    one batch of ``run_scenario_survey`` ends the survey; nothing lands
+    on the numpy tier."""
+    from scintools_tpu_torch.backend import KernelError
+    from scintools_tpu_torch.ops import normsspec as NS
+    from scintools_tpu_torch.parallel.checkpoint import EpochJournal
+    from scintools_tpu_torch.sim import DEFAULT_REGIMES
+    from scintools_tpu_torch.sim import scenario as SC
+
+    orig = NS.arc_profile
+
+    def broken(*args, **kw):
+        raise KernelError("arc_profile launch failed (injected)")
+
+    wd = os.path.join(tmp, "kernel_error")
+    NS.arc_profile = broken
+    raised = False
+    try:
+        SC.run_scenario_survey(wd, regimes=DEFAULT_REGIMES[:1],
+                               epochs_per_regime=16, batch_size=16,
+                               seed=5, numsteps=1000, n_iter=40,
+                               device=dev)
+    except KernelError:
+        raised = True
+    finally:
+        NS.arc_profile = orig
+    recs = EpochJournal(os.path.join(wd, "journal.jsonl")).records()
+    on_numpy = sum(r.get("tier") == SC.TIER_NUMPY for r in recs.values())
+    print(f"    KernelError raised out of run_scenario_survey: {raised}; "
+          f"journaled {len(recs)}, on the numpy tier {on_numpy}",
+          flush=True)
+    check(raised and on_numpy == 0, "13.5: a KernelError was hidden")
+    return dict(raised=raised, journaled=len(recs), on_numpy=on_numpy)
+
+
+def numpy_tier_phase(dev, ds, tmp, n_lanes=8, crop=1024):
+    """13.6: the fused and staged tiers made to fail, so every epoch
+    lands on the numpy tier: 8 lanes of the closed loop (weak regime,
+    12.3's sizes) and one wavefield epoch, the top-left ``crop``² of
+    phase 3's dynspec in phase 5's chunks. Each numpy epoch must launch
+    its path's kernel (``arc_profile`` once per lane,
+    ``eigvec_warmstart`` once per retrieved chunk), held against its
+    plain version on the tier's own first call."""
+    from scintools_tpu_torch.dynspec import run_wavefield_survey
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.ops import normsspec as NS
+    from scintools_tpu_torch.robust import (TIER_FUSED, TIER_NUMPY,
+                                            TIER_STAGED)
+    from scintools_tpu_torch.robust import faults
+    from scintools_tpu_torch.sim import DEFAULT_REGIMES
+    from scintools_tpu_torch.sim import scenario as SC
+    from scintools_tpu_torch.thth import eig as E
+    from scintools_tpu_torch.thth import retrieval as R
+
+    forced = [TIER_FUSED, TIER_STAGED]
+    captured, restore = captured_calls(NS, "arc_profile")
+    AP.arc_profile.launches = 0
+    try:
+        with faults.tier_failure_hook(forced):
+            res, sc_s = host_s(lambda: SC.run_scenario_survey(
+                os.path.join(tmp, "numpy_tier"),
+                regimes=DEFAULT_REGIMES[:1], epochs_per_regime=n_lanes,
+                batch_size=n_lanes, seed=5, numsteps=1000, n_iter=40,
+                retries=0, device=dev))
+    finally:
+        restore()
+    arc_launches = AP.arc_profile.launches
+    s = res["summary"]
+    (args, _, kern), = captured.values()
+    arc_same = same_bits(kern, AP.arc_profile_rows_plain(*args))
+    finite = all(np.isfinite([r["eta"], r["tau"], r["dnu"]]).all()
+                 for r in res["results"].values())
+
+    dyn = np.asarray(ds.dyn, dtype=float)[:crop, :crop]
+    freqs = np.asarray(ds.freqs, dtype=float)[:crop]
+    times = np.asarray(ds.times, dtype=float)[:crop]
+    fref = float(np.mean(freqs))
+    kw = dict(edges=ds.edges * (fref / ds.fref),
+              eta=ds.ththeta * (ds.fref / fref) ** 2, cwf=ds.cwf,
+              cwt=ds.cwt, npad=ds.npad, tau_mask=ds.thth_tau_mask,
+              device=dev)
+    wd = os.path.join(tmp, "numpy_tier_wavefield")
+    captured, restore = captured_calls(R, "batched_eigvec_warmstart")
+    E.batched_eigvec_warmstart.launches = 0
+    try:
+        with faults.tier_failure_hook(forced):
+            wres, wf_s = host_s(lambda: run_wavefield_survey(
+                [("n0", (dyn, times, freqs))], wd, retries=0, **kw))
+    finally:
+        restore()
+    vec_launches = E.batched_eigvec_warmstart.launches
+    r = wres["results"]["n0"]
+    wf = np.load(os.path.join(wd, r["file"]))
+    (vargs, vkw, (lam_k, _)), = captured.values()
+    lam_p, _ = E.batched_eigvec_warmstart_plain(*vargs, **vkw)
+    _, lam_rel, _ = compare(
+        f"13.6 eigvec_warmstart λ on the numpy tier's first chunk "
+        f"{tuple(vargs[0].shape)}", lam_k, lam_p, top2(vargs[0]))
+    retrieved = r["n_chunks"] - r["n_quarantined"]
+    print(f"    fused and staged made to fail: closed loop {n_lanes} lanes "
+          f"in {sc_s:.3f} s, tiers {s['tier_counts']}, arc_profile "
+          f"launches {arc_launches}, bitwise equal its plain version "
+          f"{arc_same}; wavefield epoch {dyn.shape} in {wf_s:.3f} s "
+          f"({card_line()}), tier {wres['outcomes'][0].tier}, "
+          f"{r['n_chunks']} chunks ({r['n_quarantined']} zero), "
+          f"eigvec_warmstart launches {vec_launches}", flush=True)
+    check(s["n_ok"] == n_lanes and s["tier_counts"].get(TIER_NUMPY)
+          == n_lanes and finite,
+          "13.6: the closed loop's numpy tier did not serve every lane")
+    check(arc_launches == n_lanes and arc_same,
+          f"13.6: arc_profile launches {arc_launches} on the numpy tier, "
+          f"want {n_lanes}, held to plain {arc_same}")
+    check(wres["outcomes"][0].tier == TIER_NUMPY
+          and bool(np.isfinite(wf).all()),
+          "13.6: the wavefield survey's numpy tier did not serve")
+    check(retrieved > 0 and vec_launches == retrieved,
+          f"13.6: eigvec_warmstart launches {vec_launches} on the numpy "
+          f"tier, want one per retrieved chunk ({retrieved})")
+    return dict(scenario_s=sc_s, scenario_tiers=dict(s["tier_counts"]),
+                launches_arc_profile=arc_launches,
+                arc_profile_bitwise_plain=arc_same, wavefield_s=wf_s,
+                wavefield_chunks=r["n_chunks"],
+                launches_eigvec_warmstart=vec_launches,
+                lam_max_rel_vs_plain=lam_rel)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,10 @@ Levenberg–Marquardt fits run on the card (``fit/``, ``sim/``), the
 scipy fits on the host. The simulator (``sim/``: the Coles-2010
 ``Simulation``, the batched scenario factory and the closed
 generate → search → fit workload, ``Brightness``) makes its screens and
-propagates them on the card too. Entry points take
+propagates them on the card too. Surveys run through the journaled,
+pipelined runner with its fallback ladder (``robust/``, ``obs/``,
+``parallel/``): ``run_psrflux_survey``, ``run_wavefield_survey`` and
+``sim.scenario.run_scenario_survey``. Entry points take
 ``device=None``, meaning the card; pass ``device="cpu"`` to run the
 plain PyTorch versions on the CPU.
 
@@ -24,21 +27,23 @@ names it keeps.
 """
 
 from .dynspec import (BasicDyn, Dynspec, HoloDyn, MatlabDyn, SimDyn,
-                      sort_dyn)
+                      run_psrflux_survey, run_wavefield_survey, sort_dyn)
 from .io.psrflux import load_psrflux, write_psrflux
 from .ops.sspec import secondary_spectrum
-from .sim import (DEFAULT_REGIMES, SIM_GROUP_SIZE, Brightness, Simulation,
+from .sim import (ACF, DEFAULT_REGIMES, SIM_GROUP_SIZE, Brightness,
+                  Simulation,
                   lane_keys_from_seeds, recovery_summary, scenario_truths,
                   simulate_scenarios, simulate_screens)
 from .thth.retrieval import (campaign_retrieval_batch, gerchberg_saxton,
                              grid_retrieval_batch, mosaic_device)
 from .thth.search import multi_chunk_search, multi_chunk_search_thin
 
-__all__ = ["BasicDyn", "Brightness", "DEFAULT_REGIMES", "Dynspec",
+__all__ = ["ACF", "BasicDyn", "Brightness", "DEFAULT_REGIMES", "Dynspec",
            "HoloDyn", "MatlabDyn", "SIM_GROUP_SIZE", "SimDyn", "Simulation",
            "campaign_retrieval_batch", "gerchberg_saxton",
            "grid_retrieval_batch", "lane_keys_from_seeds", "load_psrflux",
            "mosaic_device", "multi_chunk_search", "multi_chunk_search_thin",
-           "recovery_summary", "scenario_truths", "secondary_spectrum",
+           "recovery_summary", "run_psrflux_survey", "run_wavefield_survey",
+           "scenario_truths", "secondary_spectrum",
            "simulate_scenarios", "simulate_screens", "sort_dyn",
            "write_psrflux"]

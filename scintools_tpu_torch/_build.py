@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import threading
 
+from .backend import KernelError
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -41,7 +43,7 @@ def nvcc():
                  os.path.join(home, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set $NVCC or $CUDA_HOME to build "
+    raise KernelError("nvcc not found: set $NVCC or $CUDA_HOME to build "
                        "the CUDA kernels")
 
 
@@ -87,7 +89,7 @@ def build(names=None):
             continue
         os.replace(tmp, final)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("kernel build failed:\n" + "\n".join(failed))
     return logs
 
 
@@ -98,5 +100,10 @@ def load(name):
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
-            lib = _LIBS[name] = ctypes.CDLL(lib_path(name))
+            try:
+                lib = ctypes.CDLL(lib_path(name))
+            except OSError as e:
+                raise KernelError(f"kernel library {name} did not load: "
+                                  f"{e}") from e
+            _LIBS[name] = lib
         return lib

@@ -24,18 +24,44 @@ torch.backends.cudnn.allow_tf32 = False
 REAL = torch.float32
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched, or
+    no card is there to run it. The survey layer never descends a
+    fallback tier or quarantines an epoch on it: a tier below would
+    hide the broken kernel behind a slower route that launches none
+    (``robust/ladder.py``, ``robust/runner.py``)."""
+
+
+def is_kernel_error(exc):
+    """True for a :class:`KernelError` and for a device fault: a kernel
+    that faults inside its launch (an illegal address, say) surfaces
+    only at the next synchronisation, as ``torch.AcceleratorError`` or a
+    ``RuntimeError`` reading "CUDA error: ...". The survey layer treats
+    both alike. An out-of-memory error is not one: it stays transient."""
+    if isinstance(exc, KernelError):
+        return True
+    if (not isinstance(exc, RuntimeError)
+            or isinstance(exc, torch.OutOfMemoryError)
+            or "out of memory" in str(exc).lower()):
+        return False
+    accel = getattr(torch, "AcceleratorError", None)
+    return ((accel is not None and isinstance(exc, accel))
+            or str(exc).startswith("CUDA error"))
+
+
 def resolve_device(device=None):
-    """``None`` → ``cuda`` (raises ``RuntimeError`` when no GPU is
-    present); anything else is passed to ``torch.device``."""
+    """``None`` → ``cuda`` (raises :class:`KernelError`, a
+    ``RuntimeError``, when no GPU is present); anything else is passed
+    to ``torch.device``."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError(
+            raise KernelError(
                 "scintools_tpu_torch runs on a CUDA device by default and "
                 "none is available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+        raise KernelError(f"device {device!r} requested but CUDA is not "
                            "available")
     return dev
 

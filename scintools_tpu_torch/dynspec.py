@@ -73,6 +73,7 @@ from .robust.guards import BAD_CS, BAD_INPUT
 from .thth import core as thth_core
 from .thth import retrieval as thth_ret
 from .thth import search as thth_search
+from .utils import slog
 from .utils.misc import is_valid, svd_model
 
 _STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
@@ -1203,15 +1204,9 @@ class Dynspec:
     def _chunk(self, cf, ct, fit=True):
         """Mean-subtracted chunk: fitting chunks tile the plane;
         retrieval chunks (``fit=False``) half-overlap."""
-        fs = (slice(cf * self.cwf, (cf + 1) * self.cwf) if fit
-              else slice(cf * (self.cwf // 2),
-                         cf * (self.cwf // 2) + self.cwf))
-        ts = (slice(ct * self.cwt, (ct + 1) * self.cwt) if fit
-              else slice(ct * (self.cwt // 2),
-                         ct * (self.cwt // 2) + self.cwt))
-        dspec2 = np.array(self.dyn[fs, ts])
-        dspec2 -= np.nanmean(dspec2)
-        return np.nan_to_num(dspec2), self.freqs[fs], self.times[ts]
+        fs, ts = _chunk_slices(cf, ct, self.cwf, self.cwt, fit)
+        return (_centred_chunk(self.dyn, fs, ts), self.freqs[fs],
+                self.times[ts])
 
     def _thth_row_geometry(self, freq2):
         """The η grid and θ edges of a chunk row at frequencies
@@ -1315,13 +1310,24 @@ class Dynspec:
                 self.eta_evo_ok[cf, ct] = res.ok
                 self.f0s[cf] = res.freq_mean
                 self.t0s[ct] = res.time_mean
+            ok = np.isfinite(self.eta_evo[cf])
             if verbose:
-                ok = np.isfinite(self.eta_evo[cf])
                 print(f"Chunk row {cf + 1}/{self.ncf_fit} "
                       f"(f={self.f0s[cf]:.1f} MHz): "
                       f"{int(ok.sum())}/{self.nct_fit} fits")
+            slog.log_event(
+                "thetatheta.row", cf=cf, freq=float(self.f0s[cf]),
+                fits=int(ok.sum()), n=self.nct_fit,
+                median_eta=float(np.nanmedian(self.eta_evo[cf]))
+                if ok.any() else None)
 
         n_quar = int(np.sum((self.eta_evo_ok & (BAD_INPUT | BAD_CS)) != 0))
+        n_refused = int(np.sum((self.eta_evo_ok != 0)
+                               & ((self.eta_evo_ok
+                                   & (BAD_INPUT | BAD_CS)) == 0)))
+        slog.log_event("thetatheta.health",
+                       chunks=int(self.eta_evo_ok.size),
+                       quarantined=n_quar, refused=n_refused)
         if verbose and n_quar:
             print(f"fit_thetatheta: {n_quar} chunk(s) quarantined "
                   "(non-finite input/CS power; see eta_evo_ok)")
@@ -1434,6 +1440,10 @@ class Dynspec:
             mark=mark)
         self.wavefield = wf[0]
         self.wavefield_ok = ok[0]
+        slog.log_event("thth.retrieve_wavefield",
+                       ncf=self.ncf_ret, nct=self.nct_ret,
+                       n_quarantined=int(np.count_nonzero(ok)),
+                       shape=list(self.wavefield.shape))
         if verbose:
             print(f"retrieved {self.ncf_ret}x{self.nct_ret} chunks, "
                   f"{int(np.count_nonzero(ok))} quarantined")
@@ -1761,7 +1771,15 @@ def sort_dyn(dynfiles, outdir=None, min_nsub=10, min_nchan=50, min_tsub=10,
     (with the reason) in ``outdir`` (default: the first file's
     directory); returns their paths. A file that does not parse is one
     bad file; a good one is trimmed, refilled, SVD-corrected and gives a
-    spectrum with a finite value (on ``device``, ``None``: the card)."""
+    spectrum with a finite value (on ``device``, ``None``: the card).
+    Every decision is also a structured log event (``sort_dyn.reject``,
+    ``sort_dyn.accept``; utils/slog.py)."""
+
+    def _reject(bad_files, dynfile, msg):
+        bad_files.write(f"{dynfile}\t{msg}\n")
+        slog.log_event("sort_dyn.reject", file=dynfile,
+                       reason=msg.strip())
+
     if outdir is None:
         outdir = os.path.split(dynfiles[0])[0]
     bad_path = os.path.join(outdir, "bad_files.txt")
@@ -1777,16 +1795,16 @@ def sort_dyn(dynfiles, outdir=None, min_nsub=10, min_nchan=50, min_tsub=10,
                 dyn = Dynspec(filename=dynfile, verbose=False,
                               process=False, device=device)
             except (OSError, ValueError, IndexError, KeyError) as e:
-                bad_files.write(f"{dynfile}\t malformed: "
-                                f"{type(e).__name__}: {str(e)[:120]}\n")
+                _reject(bad_files, dynfile, f" malformed: "
+                        f"{type(e).__name__}: {str(e)[:120]}")
                 continue
             if dyn.freq > max_freq or dyn.freq < min_freq:
                 msg = (f"freq<{min_freq} " if dyn.freq < min_freq
                        else f"freq>{max_freq}")
-                bad_files.write(f"{dynfile}\t{msg}\n")
+                _reject(bad_files, dynfile, msg)
                 continue
             if dyn.bw / dyn.freq > max_frac_bw:
-                bad_files.write(f"{dynfile}\t frac_bw>{max_frac_bw}\n")
+                _reject(bad_files, dynfile, f" frac_bw>{max_frac_bw}")
                 continue
             dyn.trim_edges()
             if dyn.nchan < min_nchan or dyn.nsub < min_nsub:
@@ -1795,16 +1813,259 @@ def sort_dyn(dynfiles, outdir=None, min_nsub=10, min_nchan=50, min_tsub=10,
                     msg += f"nchan<{min_nchan} "
                 if dyn.nsub < min_nsub:
                     msg += f"nsub<{min_nsub}"
-                bad_files.write(f"{dynfile}\t {msg}\n")
+                _reject(bad_files, dynfile, f" {msg}")
                 continue
             if dyn.tobs < 60 * min_tsub:
-                bad_files.write(f"{dynfile}\t tobs<{min_tsub}\n")
+                _reject(bad_files, dynfile, f" tobs<{min_tsub}")
                 continue
             dyn.refill()
             dyn.correct_dyn()
             dyn.calc_sspec()
             if np.isnan(dyn.sspec).all():
-                bad_files.write(f"{dynfile}\t sspec_isnan\n")
+                _reject(bad_files, dynfile, " sspec_isnan")
                 continue
             good_files.write(f"{dynfile}\n")
+            slog.log_event("sort_dyn.accept", file=dynfile)
     return good_path, bad_path
+
+
+# --------------------------------------------------------------------------
+# journaled surveys
+# --------------------------------------------------------------------------
+
+def run_psrflux_survey(dynfiles, workdir, crop=None, alpha=5 / 3,
+                       n_iter=100, pipeline=True, prefetch=4,
+                       inflight=2, loader_workers=2, timeline=None,
+                       device=None, **runner_kw):
+    """Journaled, pipelined scintillation-parameter survey over a list
+    of psrflux files on ``device`` (``None``: the card) — the
+    Dynspec-level entry to the survey engine
+    (``robust.runner.run_survey`` + ``parallel.pipeline``).
+
+    Each file becomes one epoch. Its LOADER (parse with
+    ``load_psrflux(survey=True)``, optional ``crop=(nchan, nsub)``
+    top-left crop, float32 cast: host work only) runs in the
+    background prefetch queue; a malformed or truncated file raises
+    :class:`~scintools_tpu_torch.io.MalformedInputError` and is
+    quarantined with a journal record while the survey streams on. The
+    per-epoch ``process`` uploads the epoch on the dispatching thread
+    and runs the acf1d LM fit (``fit.batch.scint_params_batch`` at
+    B = 1), whose values stay on the device until the runner consumes
+    them (dispatch-ahead). The port has one route for this fit, so the
+    ladder has one tier, ``jax_fused`` (the JAX package's name): an
+    epoch that fails it after its transient retries is quarantined, not
+    run again unchanged under another tier's name. Results journal to
+    ``workdir/journal.jsonl``; rerunning the same ``workdir`` resumes.
+
+    ``pipeline=False`` is the sequential oracle (identical journal
+    bytes); remaining ``runner_kw`` pass through to
+    :func:`~scintools_tpu_torch.robust.runner.run_survey` (``heartbeat``,
+    ``report``, ``tiers``, ``retries`` …)."""
+    from .robust.ladder import TIER_FUSED
+    from .robust.runner import run_survey
+
+    runner_kw.setdefault("tiers", (TIER_FUSED,))
+
+    dev = resolve_device(device)
+    load_fn, process = _psrflux_survey_fns(crop, alpha, n_iter, dev)
+    epochs = [(os.path.basename(os.fspath(f)),
+               _psrflux_loader(f, load_fn)) for f in dynfiles]
+    return run_survey(epochs, process, workdir, pipeline=pipeline,
+                      prefetch=prefetch, inflight=inflight,
+                      loader_workers=loader_workers,
+                      timeline=timeline, device=dev, **runner_kw)
+
+
+def _psrflux_survey_fns(crop, alpha, n_iter, dev):
+    """The ``(load_fn, process)`` pair of the psrflux survey:
+    ``load_fn(path)`` parses and crops one epoch on the host
+    (survey-mode errors → :class:`MalformedInputError`, the quarantining
+    kind), ``process(payload, tier=...)`` fits it on ``dev`` (every tier
+    the same route)."""
+    import torch
+
+    from .fit.batch import scint_params_batch
+
+    def load_fn(path):
+        ds = load_psrflux(path, survey=True)
+        dyn = np.asarray(ds.dyn, dtype=np.float32)
+        if crop is not None:
+            dyn = dyn[:crop[0], :crop[1]]
+        return dyn, float(ds.dt), float(ds.df)
+
+    def process(payload, tier=None):
+        dyn, dt, df = payload
+        dyns = torch.as_tensor(np.ascontiguousarray(dyn)[None],
+                               device=dev)
+        out = scint_params_batch(dyns, dt, df, alpha=alpha, n_iter=n_iter,
+                                 device_out=True, device=dev)
+        return {k: v[0] for k, v in out.items()}
+
+    return load_fn, process
+
+
+def _psrflux_loader(path, load_fn):
+    """Lazy per-file loader (the runner's callable-payload shape)."""
+    def load():
+        return load_fn(path)
+
+    return load
+
+
+def _chunk_slices(cf, ct, cwf, cwt, fit=True):
+    """Frequency and time slices of chunk (cf, ct): fitting chunks tile
+    the plane; retrieval chunks (``fit=False``) half-overlap."""
+    if fit:
+        return (slice(cf * cwf, (cf + 1) * cwf),
+                slice(ct * cwt, (ct + 1) * cwt))
+    return (slice(cf * (cwf // 2), cf * (cwf // 2) + cwf),
+            slice(ct * (cwt // 2), ct * (cwt // 2) + cwt))
+
+
+def _centred_chunk(dyn, fs, ts):
+    """``dyn[fs, ts]`` less its NaN-mean, NaNs set to 0."""
+    chunk = np.array(dyn[fs, ts])
+    chunk -= np.nanmean(chunk)
+    return np.nan_to_num(chunk)
+
+
+def _wavefield_grid(dyn, cwf, cwt):
+    """Half-overlap retrieval grid of a raw dynspec, chunked as
+    ``Dynspec._chunk(fit=False)`` chunks. Returns
+    ``chunks[ncf, nct, cwf, cwt]``."""
+    nf, nt = dyn.shape
+    ncf = nf // (cwf // 2) - 1
+    nct = nt // (cwt // 2) - 1
+    if ncf < 1 or nct < 1:
+        raise ValueError(f"dynspec {dyn.shape} too small for "
+                         f"{cwf}x{cwt} half-overlap chunks")
+    chunks = np.zeros((ncf, nct, cwf, cwt))
+    for cf in range(ncf):
+        for ct in range(nct):
+            chunks[cf, ct] = _centred_chunk(
+                dyn, *_chunk_slices(cf, ct, cwf, cwt, fit=False))
+    return chunks
+
+
+def _wavefield_survey_fns(edges, eta, cwf, cwt, npad, tau_mask, method,
+                          workdir, save_wavefields, dev):
+    """``process(payload, tier=...)`` of the wavefield survey: one
+    epoch's stitched wavefield on the tier's route, as JSON-able
+    scalars (+ an atomically written ``.npy``). Tiers, all on ``dev``:
+
+    - ``jax_fused`` — the batched retrieval
+      (``thth.retrieval.campaign_retrieval_batch``: the
+      ``eigvec_warmstart`` kernel on the card) and the device mosaic;
+    - ``jax_staged`` — the same batched retrieval, stitched by the
+      greedy host ``mosaic`` oracle;
+    - ``numpy`` — the looped ``single_chunk_retrieval`` (each chunk's
+      eigenpair a chain of one) and the host ``mosaic`` (the reference
+      route).
+
+    Every tier launches the ``eigvec_warmstart`` kernel on the card.
+    """
+    import hashlib
+    import io as _io
+
+    import torch
+
+    from .parallel.checkpoint import atomic_write_bytes
+    from .robust.ladder import TIER_NUMPY, TIER_STAGED
+
+    edges = np.asarray(edges, dtype=float)
+    wf_dir = os.path.join(workdir, "wavefields")
+
+    def _host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    def process(payload, tier=None):
+        dyn, times, freqs = payload
+        epoch_key = hashlib.sha256(
+            np.ascontiguousarray(dyn).tobytes()).hexdigest()[:16]
+        dt = float(times[1] - times[0])
+        df = float(freqs[1] - freqs[0])
+        chunks = _wavefield_grid(np.asarray(dyn, dtype=float), cwf, cwt)
+        ncf, nct = chunks.shape[:2]
+        fref = float(np.asarray(freqs, dtype=float).mean())
+        # per-frequency-row scaled geometry (the façade's row inputs)
+        etas_rows = np.zeros(ncf)
+        edges_rows = np.zeros((ncf, len(edges)))
+        for cf in range(ncf):
+            fsl = np.asarray(
+                freqs[_chunk_slices(cf, 0, cwf, cwt, fit=False)[0]],
+                dtype=float)
+            etas_rows[cf] = eta * (fref / fsl.mean()) ** 2
+            edges_rows[cf] = edges * (fsl.mean() / fref)
+        if tier == TIER_NUMPY:
+            Ec = np.zeros((ncf, nct, cwf, cwt), dtype=complex)
+            for cf in range(ncf):
+                for ct in range(nct):
+                    fs, ts = _chunk_slices(cf, ct, cwf, cwt, fit=False)
+                    Ec[cf, ct] = thth_ret.single_chunk_retrieval(
+                        chunks[cf, ct], edges_rows[cf], times[ts],
+                        freqs[fs], etas_rows[cf], npad=npad,
+                        tau_mask=tau_mask, device=dev)[0]
+            n_quar = int(sum(not np.any(Ec[cf, ct])
+                             for cf in range(ncf) for ct in range(nct)))
+            wf = thth_ret.mosaic(Ec)
+        elif tier == TIER_STAGED:
+            Ec, ok = thth_ret.campaign_retrieval_batch(
+                chunks[None], edges_rows, etas_rows, dt, df, npad=npad,
+                tau_mask=tau_mask, method=method, stitch=False,
+                device=dev)
+            n_quar = int(np.count_nonzero(_host(ok)))
+            wf = thth_ret.mosaic(_host(Ec)[0].astype(complex))
+        else:
+            wf_b, ok = thth_ret.campaign_retrieval_batch(
+                chunks[None], edges_rows, etas_rows, dt, df, npad=npad,
+                tau_mask=tau_mask, method=method, device=dev)
+            n_quar = int(np.count_nonzero(_host(ok)))
+            wf = _host(wf_b)[0]
+        wf = np.asarray(wf, dtype=complex)
+        rec = {"n_chunks": int(ncf * nct), "ncf": ncf, "nct": nct,
+               "n_quarantined": n_quar,
+               "wf_power": float(np.mean(np.abs(wf) ** 2)),
+               "wf_sha": hashlib.sha256(wf.tobytes()).hexdigest()}
+        if save_wavefields:
+            os.makedirs(wf_dir, exist_ok=True)
+            fname = f"{epoch_key}.npy"
+            buf = _io.BytesIO()
+            np.save(buf, wf)
+            atomic_write_bytes(os.path.join(wf_dir, fname), buf.getvalue())
+            rec["file"] = os.path.join("wavefields", fname)
+        return rec
+
+    return process
+
+
+def run_wavefield_survey(epochs, workdir, edges, eta, cwf, cwt, npad=3,
+                         tau_mask=0.0, method=None, save_wavefields=True,
+                         device=None, **runner_kw):
+    """Campaign-scale phase-retrieval survey on ``device`` (``None``:
+    the card): every epoch's complex wavefield retrieved and
+    mosaic-stitched through the ladder/journal/resume/report stack
+    (``robust.runner.run_survey``).
+
+    ``epochs`` is an iterable of ``(epoch_id, payload)`` where the
+    payload (or the value of a CALLABLE lazy loader, loaded in the
+    runner's background prefetch queue) is ``(dyn[nf, nt], times[nt],
+    freqs[nf])``. All epochs share one chunk geometry
+    (``cwf``/``cwt``/``edges``), so the survey reuses one built
+    retrieval. ``eta`` is the campaign curvature at the epoch band
+    centre, scaled per frequency row as ``Dynspec.thetatheta_chunks``
+    does.
+
+    Per-epoch results journal to ``workdir/journal.jsonl`` (chunk
+    counts, quarantine count, wavefield power + sha) and each stitched
+    wavefield is written atomically to
+    ``workdir/wavefields/<epoch key>.npy`` (``save_wavefields=False``
+    to skip). Tier ladder, quarantine, resume, heartbeat and report:
+    :func:`~scintools_tpu_torch.robust.runner.run_survey` (tiers
+    documented on :func:`_wavefield_survey_fns`)."""
+    from .robust.runner import run_survey
+
+    dev = resolve_device(device)
+    process = _wavefield_survey_fns(edges, eta, cwf, cwt, npad, tau_mask,
+                                    method, workdir, save_wavefields, dev)
+    return run_survey(epochs, process, workdir, device=dev, **runner_kw)

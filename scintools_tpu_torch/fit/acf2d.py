@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..backend import fifo_cached, resolve_device
+from ..obs import retrace as _retrace
 from ..robust import guards
 from ..sim.acf_model import acf2d_grid_sizes, make_acf2d_model_core
 from .fitter import MinimizerResult
@@ -161,6 +162,7 @@ def _batch_program(key, make_fit):
     ``make_fit`` and adds one to ``ACF2D_CACHE_STATS["builder_calls"]``."""
     def build():
         ACF2D_CACHE_STATS["builder_calls"] += 1
+        _retrace.record_build("fit.acf2d_batch", key)
         return make_fit()
 
     return fifo_cached(_SOLVER_CACHE, key, build, _SOLVER_CACHE_SIZE)
@@ -332,3 +334,8 @@ def fit_acf2d(params, ydata, weights, n_iter=60, precision=None,
                                  n_iter=n_iter, precision=precision,
                                  fresnel_method=fresnel_method, device=device)
     return results[0]
+
+
+#: the JAX package's name of the single-fit entry
+#: (``scintools_tpu/fit/acf2d.py``); the port calls it ``fit_acf2d``.
+fit_acf2d_tpu = fit_acf2d

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..backend import fifo_cached, resolve_device
+from ..obs import retrace as _retrace
 from ..ops.acf import autocovariance
 from ..robust import guards
 from .lm import lm_covariance, make_lm_solver
@@ -159,6 +160,7 @@ def make_acf1d_batch(nt, nf, dt, df, alpha=5 / 3, n_iter=100,
 
     def build():
         ACF1D_CACHE_STATS["builds"] += 1
+        _retrace.record_build("fit.acf1d_batch", key)
         return make_acf1d_fit_one(nt, nf, dt, df, alpha=alpha, n_iter=n_iter,
                                   bartlett=bartlett, weighted=weighted,
                                   device=dev)
@@ -226,6 +228,7 @@ def make_scint_params_serve(B, nf, nt, dt, df, alpha=5 / 3, n_iter=100,
 
     def build():
         ACF1D_CACHE_STATS["serve_builds"] += 1
+        _retrace.record_build("fit.scint_params_serve", key)
         fit_one = make_acf1d_fit_one(nt, nf, dt, df, alpha=alpha,
                                      n_iter=n_iter, bartlett=bartlett,
                                      weighted=weighted, device=dev)

@@ -36,6 +36,12 @@ class Parameters(dict):
         self[name] = Parameter(name, value=value, vary=vary, min=min, max=max)
         return self[name]
 
+    def add_many(self, *items):
+        """``add(*item)`` for each item, a tuple ``(name, value, vary,
+        min, max)`` or any prefix of it."""
+        for it in items:
+            self.add(*it)
+
     def valuesdict(self):
         return {k: v.value for k, v in self.items()}
 

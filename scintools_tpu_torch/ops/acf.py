@@ -63,3 +63,28 @@ def acf_from_sspec(sspec_db, normalise=True, variant="real", device=None):
     if normalise:
         arr = arr / arr.max()
     return arr
+
+
+def autocorr_direct(arr, mask=None):
+    """Slow masked O(N⁴) 2-D autocorrelation on the host — the test
+    oracle of the reference's ``autocorr`` (numpy only, as in the JAX
+    package). A masked-array input keeps its mask."""
+    in_mask = np.ma.getmaskarray(arr) if np.ma.isMaskedArray(arr) \
+        else None
+    arr = np.ma.masked_invalid(np.asarray(arr, dtype=float))
+    if in_mask is not None:
+        arr = np.ma.masked_array(arr, mask=arr.mask | in_mask)
+    if mask is not None:
+        arr = np.ma.masked_array(arr, mask=mask)
+    mean = np.ma.mean(arr)
+    std = np.ma.std(arr)
+    nr, nc = arr.shape
+    out = np.zeros((2 * nr, 2 * nc))
+    for x in range(-nr, nr):
+        for y in range(-nc, nc):
+            seg = (arr[max(0, x):min(x + nr, nr), max(0, y):min(y + nc, nc)]
+                   - mean) * (arr[max(0, -x):min(-x + nr, nr),
+                                  max(0, -y):min(-y + nc, nc)] - mean)
+            out[x + nr][y + nc] = np.ma.sum(seg) / (std ** 2)
+    out /= np.nanmax(out)
+    return out

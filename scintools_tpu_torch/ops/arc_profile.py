@@ -33,6 +33,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..backend import KernelError
+
 # CTAs per work unit (one epoch's queries). The plan takes C = 1: on the
 # H100 no C > 1 was faster at 1, 16, 64 or 128 epochs (PERF.md §6); the
 # others run where a caller forces them
@@ -142,7 +144,7 @@ def _plan(B, Q, nc, smem_bytes, max_active, limits, cluster=None):
     warps = min(max_warps, -(-per_cta // 32))
     seated = max_active(C, warps, smem)
     if seated < passes:
-        raise RuntimeError(f"the card seats no work unit of {C} CTAs "
+        raise KernelError(f"the card seats no work unit of {C} CTAs "
                            f"with {smem} B of shared memory")
     plan = []
     while B > 0:
@@ -181,7 +183,7 @@ def _lib():
 def _raise(lib, rc, what):
     if rc != 0:
         msg = lib.arc_profile_error_string(rc).decode()
-        raise RuntimeError(f"arc_profile {what} failed ({rc}): {msg}")
+        raise KernelError(f"arc_profile {what} failed ({rc}): {msg}")
 
 
 _ANSWERS = {}

@@ -22,6 +22,7 @@ import torch
 from scipy.signal import savgol_filter
 
 from ..backend import as_tensor, fifo_cached, resolve_device
+from ..obs import retrace as _retrace
 from ..fit.models import fit_log_parabola, fit_parabola
 from .normsspec import make_arc_profile_batch_fn, normalise_sspec
 
@@ -271,6 +272,7 @@ def _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps, nsmooth,
 
     def build():
         ARC_FIT_CACHE_STATS["builds"] += 1
+        _retrace.record_build("ops.arc_fit_device", key)
         if not on_device:
             return make_arc_profile_batch_fn(
                 yaxis, fdop, delmax=delmax, startbin=startbin,

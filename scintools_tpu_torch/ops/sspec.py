@@ -134,16 +134,26 @@ def pad_chunk_batch(dspecs, npad):
 
 
 def chunk_conjugate_spectrum_batch(dspecs, npad=3, tau_keep=None,
-                                   method="rfft"):
+                                   method="rfft", shift=True):
     """Per-chunk mean pad → fft2 → fftshift of a same-geometry chunk
     stack: ``dspecs[B, nf, nt]`` real → ``CS[B, (1+npad)nf,
     (1+npad)nt]`` complex. ``tau_keep`` is an optional host bool mask
     over the (shifted) delay axis; rows outside it are zeroed.
     ``method='rfft'`` takes the half spectrum plus the Hermitian
-    completion, ``'fft2'`` the dense complex transform."""
+    completion, ``'fft2'`` the dense complex transform.
+    ``shift=False`` skips the final ``fftshift`` and returns the raw
+    fft layout (a consumer that gathers folds the shift into its
+    index map); ``tau_keep`` indexes the shifted axis and is refused
+    then."""
+    if not shift and tau_keep is not None:
+        raise ValueError("tau_keep indexes the SHIFTED delay axis — "
+                         "fold the mask into the consumer's gather "
+                         "when shift=False")
     padded = pad_chunk_batch(dspecs, npad)
-    CS = torch.fft.fftshift(xfft.fft2_full(padded, variant=method),
-                            dim=(-2, -1))
+    CS = xfft.fft2_full(padded, variant=method)
+    if not shift:
+        return CS
+    CS = torch.fft.fftshift(CS, dim=(-2, -1))
     if tau_keep is not None:
         keep = torch.as_tensor(np.asarray(tau_keep), device=CS.device)
         CS = CS.masked_fill(~keep[None, :, None], 0)

@@ -60,17 +60,20 @@ def hermitian_half_gather(H, n2, rows, cols):
     return torch.where(tail, torch.conj(v), v)
 
 
-def fft2_full(x, variant="fft2"):
-    """Full complex 2-D spectrum of the trailing axes. ``'rfft'`` takes
-    the half spectrum of a real input plus the Hermitian completion;
+def fft2_full(x, variant="fft2", s=None):
+    """Full complex 2-D spectrum of the trailing axes, zero-padded to
+    ``s`` (the two trailing lengths) when given. ``'rfft'`` takes the
+    half spectrum of a real input plus the Hermitian completion;
     ``'fft2'`` is the dense complex transform (complex inputs always
     take it)."""
     if variant not in ("rfft", "fft2"):
         raise ValueError(f"unknown variant {variant!r} "
                          "(want 'rfft' or 'fft2')")
+    s = None if s is None else tuple(int(n) for n in s)
     if variant == "rfft" and not x.is_complex():
-        return hermitian_full_from_half(torch.fft.rfft2(x), x.shape[-1])
-    return torch.fft.fft2(x)
+        n2 = x.shape[-1] if s is None else s[-1]
+        return hermitian_full_from_half(torch.fft.rfft2(x, s=s), n2)
+    return torch.fft.fft2(x, s=s)
 
 
 def ifft2_cropped(X, crop):

@@ -302,9 +302,13 @@ class ACF:
                  taumax=4, dnumax=4, nf=51, nt=51, amp=1, wn=0,
                  spatial_factor=2, resolution_factor=1, core_factor=2,
                  auto_sampling=True, plot=False, display=True,
-                 device=None):
+                 backend=None, device=None):
         if plot:
             raise NotImplementedError("the port has no plotting")
+        if backend is not None:
+            raise NotImplementedError(
+                "backend is the JAX package's and must stay None: the "
+                "port runs on device")
         self.alpha = alpha
         self.ar = ar
         self.psi = psi

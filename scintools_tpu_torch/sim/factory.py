@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..backend import fifo_cached, resolve_device
+from ..obs import retrace as _retrace
 from ..ops import xfft
 from ..robust.guards import BAD_INPUT
 from .simulation import hermitian_fill
@@ -395,6 +396,7 @@ def make_scenario_factory(ns=128, nf=128, dlam=0.25, rf=1.0, ds=0.01,
 
     def build():
         SCENARIO_CACHE_STATS["builds"] += 1
+        _retrace.record_build("sim.factory", key)
         return build_scenario_fn(
             ns=ns, nf=nf, dlam=dlam, rf=rf, ds=ds, inner=inner,
             nscreens=nscreens, group_size=group_size, precision=precision,

@@ -19,10 +19,11 @@ One batch of epochs stays on the device from generation to fit:
 
 A lane the batch rejects descends to the STAGED tier (one lane of the
 factory at ``precision="highest"`` and the same fits) and then to the
-NUMPY tier (the ``Simulation`` class and the serial ``fit_arc``), both
-on the same device. The runner that drives the tiers
-(``run_scenario_survey``) waits for the survey engine, the distributed
-one (``run_scenario_fleet``) for the fleet.
+NUMPY tier (the reference ``Simulation`` class, then the same search
+and fits at B = 1), both on the same device, so every tier launches the
+arc-profile kernel on the card. :func:`run_scenario_survey` drives the tiers
+through the journaled survey runner (``robust.run_survey_batched``);
+the distributed one (``run_scenario_fleet``) waits for the fleet.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ import torch
 from scipy.special import gamma as _gamma
 
 from ..backend import fifo_cached, resolve_device
+from ..obs import retrace as _retrace
+from ..robust.ladder import TIER_FUSED, TIER_NUMPY, TIER_STAGED  # noqa: F401
+from ..utils import slog
 
 #: τ_d / Δν_d calibration of the Fresnel↔diffractive crossover to this
 #: simulator's convention (measured by the JAX package on its float64
@@ -56,10 +60,6 @@ DEFAULT_REGIMES = (
      "alpha": 5 / 3},
 )
 
-#: the fallback ladder's tier names (``scintools_tpu/robust/ladder.py``)
-TIER_FUSED = "jax_fused"
-TIER_STAGED = "jax_staged"
-TIER_NUMPY = "numpy"
 
 #: ``ok`` code of a lane whose fit was refused (``guards.BAD_FIT``)
 _BAD_FIT = 8
@@ -113,6 +113,7 @@ def make_sspec_db_batch(nt, nf, window="hanning", window_frac=0.1,
 
     def build():
         SSPEC_DB_CACHE_STATS["builds"] += 1
+        _retrace.record_build("sim.scenario_sspec", key)
         wins = get_window(nt, nf, window=window, frac=window_frac)
 
         def run(dyns):
@@ -156,8 +157,8 @@ def scenario_workload(regimes=DEFAULT_REGIMES, epochs_per_regime=128,
     the regime and the lane's ``ok`` code."""
     from ..fit.batch import scint_params_batch
     from ..io.psrflux import MalformedInputError
-    from ..ops.fitarc import fit_arc, fit_arc_batch
-    from ..ops.sspec import secondary_spectrum, sspec_axes
+    from ..ops.fitarc import fit_arc_batch
+    from ..ops.sspec import sspec_axes
     from .factory import lane_keys_from_seeds, simulate_scenarios
     from .simulation import Simulation
 
@@ -239,11 +240,12 @@ def scenario_workload(regimes=DEFAULT_REGIMES, epochs_per_regime=128,
                 and p["ar"] > 0 and 0 < p["alpha"] < 2)
 
     def process(p, tier=None):
-        """One epoch on a fallback tier: ``TIER_NUMPY``, the
-        ``Simulation`` class and the serial ``fit_arc``; otherwise
-        STAGED, one factory lane at ``precision="highest"`` and the
-        batch fits. Invalid lane parameters raise
-        ``MalformedInputError``: no tier can fix them."""
+        """One epoch on a fallback tier: ``TIER_NUMPY``, the reference
+        generator (the ``Simulation`` class) and the search and fits of
+        :func:`fit_stack` at B = 1; otherwise STAGED, one factory lane
+        at ``precision="highest"`` and the same fits. Both tiers launch
+        the arc-profile kernel on the card. Invalid lane parameters
+        raise ``MalformedInputError``: no tier can fix them."""
         if not _params_ok(p):
             raise MalformedInputError(
                 f"<lane seed={p['seed']}>",
@@ -252,15 +254,10 @@ def scenario_workload(regimes=DEFAULT_REGIMES, epochs_per_regime=128,
             sim = Simulation(seed=p["seed"], mb2=p["mb2"], ar=p["ar"],
                              psi=p["psi"], alpha=p["alpha"], dt=dt,
                              freq=freq, **sim_kw)
-            _, _, sec = secondary_spectrum(sim.dyn, dt, df, device=dev)
-            t = _truths(p)
-            arc = fit_arc(sec.cpu().numpy(), tdel, fdop,
-                          numsteps=numsteps,
-                          etamin=eta_window[0] * t["eta"],
-                          etamax=eta_window[1] * t["eta"], device=dev)[0]
-            fits = scint_params_batch(sim.dyn[None], dt, df,
-                                      n_iter=n_iter, device=dev)
-            return _result(p, arc.eta, arc.etaerr, fits, 0, 0)
+            dyns = torch.as_tensor(sim.dyn[None], dtype=torch.float32,
+                                   device=dev)
+            arcs, fits = fit_stack(dyns, [p])
+            return _result(p, arcs[0].eta, arcs[0].etaerr, fits, 0, 0)
         dyn, code = _generate([p], precision="highest")
         lane = int(code[0])
         if lane != 0:
@@ -275,12 +272,48 @@ def scenario_workload(regimes=DEFAULT_REGIMES, epochs_per_regime=128,
             "process": process, "fit_stack": fit_stack}
 
 
-def run_scenario_survey(*args, **kwargs):
-    """The journaled closed-loop survey needs the survey engine
-    (``robust/runner.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "run_scenario_survey is not ported yet: it needs the survey engine"
-        " (ROADMAP item 10); drive scenario_workload's process_batch")
+def run_scenario_survey(workdir, regimes=DEFAULT_REGIMES,
+                        epochs_per_regime=128, ns=128, nf=64,
+                        dlam=0.05, rf=1.0, ds=0.02, dt=30.0,
+                        freq=1400.0, inner=0.001, batch_size=64,
+                        seed=0, numsteps=1500, n_iter=60,
+                        eta_window=(0.2, 5.0), resume=True,
+                        heartbeat=None, report=True, retries=1,
+                        device=None):
+    """The closed generate → search → fit loop as a journaled survey on
+    ``device`` (``None``: the card). Returns the
+    :func:`~scintools_tpu_torch.robust.run_survey_batched` result
+    extended with ``"recovery"``: per-regime median relative errors of
+    η / τ_d / Δν_d against the closed-form truths, over healthy lanes.
+
+    Every per-epoch result dict carries the recovered AND true
+    parameter values plus the lane health code, so the journal (and
+    therefore resume, the RunReport, and any downstream reader) is a
+    self-contained record of the recovery experiment. A lane the batch
+    refuses descends to the staged tier, then to the numpy tier; a
+    ``KernelError`` propagates."""
+    from ..robust.runner import run_survey_batched
+
+    wl = scenario_workload(
+        regimes=regimes, epochs_per_regime=epochs_per_regime, ns=ns,
+        nf=nf, dlam=dlam, rf=rf, ds=ds, dt=dt, freq=freq,
+        inner=inner, seed=seed, numsteps=numsteps, n_iter=n_iter,
+        eta_window=eta_window, device=device)
+    epochs = wl["epochs"]
+    with slog.span("sim.scenario_survey", n_epochs=len(epochs),
+                   n_regimes=len(regimes), ns=ns, nf=nf,
+                   batch_size=batch_size):
+        out = run_survey_batched(
+            epochs, wl["process_batch"], workdir,
+            process=wl["process"], batch_size=batch_size,
+            retries=retries, resume=resume, heartbeat=heartbeat,
+            report=report, device=device)
+    out["recovery"] = recovery_summary(out["results"])
+    slog.log_event("sim.scenario_summary",
+                   n_epochs=len(epochs),
+                   recovery={r: {k: round(v, 4) for k, v in d.items()}
+                             for r, d in out["recovery"].items()})
+    return out
 
 
 def run_scenario_fleet(*args, **kwargs):

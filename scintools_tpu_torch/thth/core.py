@@ -32,10 +32,17 @@ from ..backend import fifo_cached, resolve_device
 _EPS = 1e-30
 
 
-def unit_checks(var, name=None):
-    """Coerce to a plain float/ndarray. Objects with a ``.value``
-    (quantities) give their value; plain numbers are assumed to be in
-    canonical units."""
+def unit_checks(var, name=None, desired=None):
+    """Coerce to a plain float/ndarray. A quantity with ``to_value``
+    is converted to the ``desired`` unit when one is given; other
+    objects with a ``.value`` give their value; plain numbers are
+    assumed to be in canonical units."""
+    if hasattr(var, "to_value") and desired is not None:
+        try:
+            return np.asarray(var.to_value(desired))
+        except Exception:  # noqa: BLE001 — an inconvertible unit
+            # keeps its bare value, as the JAX package does
+            return np.asarray(getattr(var, "value", var))
     if hasattr(var, "value") and not isinstance(var, (int, float, complex,
                                                       np.ndarray)):
         return np.asarray(var.value)

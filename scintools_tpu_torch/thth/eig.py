@@ -41,6 +41,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..backend import KernelError
+
 _EPS = 1e-30
 
 
@@ -294,7 +296,7 @@ def _lib():
 def _check(lib, rc, what):
     if rc != 0:
         msg = lib.eig_warmstart_error_string(rc).decode()
-        raise RuntimeError(f"eig_warmstart {what} failed ({rc}): {msg}")
+        raise KernelError(f"eig_warmstart {what} failed ({rc}): {msg}")
 
 
 _ANSWERS = {}

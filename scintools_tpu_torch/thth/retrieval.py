@@ -42,6 +42,7 @@ from ..backend import as_tensor, fifo_cached, resolve_device
 from ..ops import xfft
 from ..ops.sspec import pad_chunk_batch
 from ..robust import guards
+from ..utils import slog
 from .core import (dominant_eig_power, fft_axis, rev_map, th_cents_from_edges,
                    thth_redmap, unit_checks)
 from .search import chunk_conjugate_spectrum, pad_chunk
@@ -68,9 +69,10 @@ def _numpy(x):
 def single_chunk_retrieval(dspec, edges, time, freq, eta, idx_t=0, idx_f=0,
                            npad=3, tau_mask=0.0, verbose=False, device=None):
     """Phase retrieval of one chunk on ``device``: the float64 host
-    conjugate spectrum → reduced θ-θ → dominant eigenpair (the power
-    iteration of :func:`.core.modeler`) → wavefield row at the middle θ
-    bin → inverse map → cropped ifft2. Returns ``(E[nf, nt] complex64
+    conjugate spectrum → reduced θ-θ → dominant eigenpair (the
+    chunk-chained solver of :func:`.eig.batched_eigvec_warmstart` on a
+    chain of one: the kernel on the card) → wavefield row at the middle
+    θ bin → inverse map → cropped ifft2. Returns ``(E[nf, nt] complex64
     numpy, idx_f, idx_t)``. A chunk whose θ-θ has no valid square (a
     non-finite or out-of-range η: the ``ValueError`` of
     :func:`.core.thth_redmap`) comes back as zeros, so one bad chunk does
@@ -85,8 +87,11 @@ def single_chunk_retrieval(dspec, edges, time, freq, eta, idx_t=0, idx_f=0,
         if verbose:
             print(f"single_chunk_retrieval: chunk ({idx_f}, {idx_t}) "
                   f"quarantined: {e}")
+        slog.log_failure("thth.retrieval_error", epoch=None,
+                         stage="retrieval", error=e, tier=None, retry=0,
+                         idx_f=int(idx_f), idx_t=int(idx_t))
         return np.zeros(dspec.shape, dtype=np.complex64), idx_f, idx_t
-    lam, V = dominant_eig_power(thth_red)
+    lam, V = _eigpair_one(thth_red)
     ththE = torch.zeros_like(thth_red)
     ththE[ththE.shape[0] // 2, :] = torch.conj(V) * torch.sqrt(lam.abs())
     recov_E = rev_map(ththE, tau, fd, eta, edges_red, hermetian=False)
@@ -124,6 +129,9 @@ def vlbi_chunk_retrieval(dspec_list, edges, time, freq, eta, idx_t=0,
     time = np.asarray(unit_checks(time, "time"), dtype=float)
     freq = np.asarray(unit_checks(freq, "freq"), dtype=float)
     eta = float(unit_checks(eta, "eta"))
+    slog.log_event("thth.retrieval_chunk", idx_f=int(idx_f),
+                   idx_t=int(idx_t), n_dish=int(n_dish), eta=eta,
+                   path="vlbi")
     if verbose:
         print(f"vlbi_chunk_retrieval: chunk ({idx_f}, {idx_t}), "
               f"{n_dish} dishes, eta={eta:.4g}")
@@ -286,6 +294,28 @@ def _geometry(nf_chunk, nt_chunk, dt, df, npad, dev):
         unshift_fd=idx(np.argsort(np.fft.ifftshift(np.arange(nfd)))))
 
 
+def _pack_chains(thth, n_pad, group):
+    """θ-θ stack ``[B, n, n]`` → zero-padded ``(B/group, group, 2, n_pad,
+    n_pad)`` float32 chains, the chained eigensolvers' input."""
+    B, n = thth.shape[:2]
+    a = torch.zeros((B, 2, n_pad, n_pad), dtype=torch.float32,
+                    device=thth.device)
+    a[:, 0, :n, :n] = thth.real
+    a[:, 1, :n, :n] = thth.imag
+    return a.view(B // group, group, 2, n_pad, n_pad)
+
+
+def _eigpair_one(thth):
+    """Dominant eigenpair ``(λ, v[n])`` of one hermitian θ-θ matrix:
+    :func:`.eig.batched_eigvec_warmstart` on a chain of one (its cold
+    start)."""
+    n = thth.shape[-1]
+    lam, v = batched_eigvec_warmstart(
+        _pack_chains(thth[None], pad_to_multiple(n), 1), n // 2)
+    V = torch.complex(v[0, 0, 0, :n], v[0, 0, 1, :n]).to(thth.dtype)
+    return lam[0, 0].to(thth.real.dtype), V
+
+
 def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
                             method="kernel", iters=1024, warm_iters=64,
                             device=None):
@@ -354,14 +384,7 @@ def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
         return thth, valid, cents, in_ok, cs_ok
 
     def pack(thth, group):
-        """θ-θ stack → zero-padded ``(B/group, group, 2, N, N)`` float32
-        chains."""
-        B = thth.shape[0]
-        a = torch.zeros((B, 2, n_pad, n_pad), dtype=torch.float32,
-                        device=thth.device)
-        a[:, 0, :n_th, :n_th] = thth.real
-        a[:, 1, :n_th, :n_th] = thth.imag
-        return a.view(B // group, group, 2, n_pad, n_pad)
+        return _pack_chains(thth, n_pad, group)
 
     def eig(thth, group):
         """Dominant eigenpair ``(w[B] = |λ|, V[B, n])``."""

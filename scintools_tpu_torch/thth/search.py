@@ -12,8 +12,10 @@ functions keyed on the geometry bytes), ``_fused_results`` (:273) and
 :func:`single_search`, as in the JAX package: a float64 host FFT, the
 eigenvalue curve as one chain of the warm-start eigensolver on the
 device, then the scipy peak fit; two or more chunks run the fused
-search of thth/batch.py. The single-curve search has no staged route
-(the JAX package's ``fused=False``) in this port.
+search of thth/batch.py, or with ``fused=False`` the staged route of
+the JAX package (:412-451): the float64 host FFT per chunk, the device
+gather and eigen curve of all chunks in one call, then the scipy peak
+fit per chunk.
 
 The thin-screen search (:func:`single_search_thin`,
 :func:`multi_chunk_search_thin`; :412-551) has three routes: the fused device search
@@ -33,6 +35,7 @@ import torch
 from scipy.optimize import curve_fit
 
 from ..backend import as_tensor, fifo_cached, resolve_device
+from ..obs import retrace as _retrace
 from ..robust import guards
 from .core import (cs_to_ri, eval_calc_batch, fft_axis,
                    singularvalue_calc, unit_checks)
@@ -234,6 +237,7 @@ def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, eig,
 
     def build():
         FUSED_CACHE_STATS["builder_calls"] += 1
+        _retrace.record_build("thth.fused", key)
         return make_fused_search_fn(
             tau, fd, edges, nf, nt, npad=npad, coher=coher,
             tau_mask=tau_mask, fw=fw, eig=eig, device=device)
@@ -254,6 +258,7 @@ def _fused_thin_eval(tau, fd, edges, edges_arclet, center_cut, shape, npad,
 
     def build():
         FUSED_CACHE_STATS["builder_calls"] += 1
+        _retrace.record_build("thth.fused_thin", key)
         return make_fused_thin_search_fn(
             tau, fd, edges, edges_arclet, center_cut, nf, nt, npad=npad,
             coher=coher, tau_mask=tau_mask, fw=fw, device=device)
@@ -296,7 +301,8 @@ def _fused_results(fn, stack, etas, freq, times):
 
 
 def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
-                       coher=True, tau_mask=0.0, eig="kernel", device=None):
+                       coher=True, tau_mask=0.0, eig="kernel", device=None,
+                       fused=True):
     """Curvature search on a batch of same-geometry chunks (e.g. all
     time-chunks of one frequency row) in one fused pass on ``device``:
     mean-pad → conjugate spectrum → masked θ-θ gather → warm-start
@@ -306,14 +312,24 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     dspecs : list of (nf, nt) chunk arrays; times : list of per-chunk
     time axes (same spacing). ``eig`` is ``"kernel"`` (the card's
     kernel on a CUDA device) or ``"plain"`` (its plain PyTorch version
-    everywhere), as in :func:`.batch.make_multi_eval_fn`. Returns a list
-    of ChunkSearchResult."""
+    everywhere), as in :func:`.batch.make_multi_eval_fn`.
+    ``fused=False`` takes the staged route (the fused search's parity
+    oracle and the float64-FFT fallback tier of
+    ``robust.ladder.thth_search_ladder``): per chunk the float64 host
+    conjugate spectrum, then the eigen curves of all chunks in one
+    device call (the same eigensolver), then the scipy peak fit and
+    the health bitmask per chunk. Returns a list of
+    ChunkSearchResult."""
     dev = resolve_device(device)
     etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
     if len(dspecs) == 1:
         return [single_search(dspecs[0], freq, times[0], etas, edges,
                               fw=fw, npad=npad, coher=coher,
                               tau_mask=tau_mask, device=dev, eig=eig)]
+    if not fused:
+        return _multi_chunk_search_staged(dspecs, freq, times, etas, edges,
+                                          fw, npad, coher, tau_mask, eig,
+                                          dev)
     stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
                       for d in dspecs])
     _, nf, nt = stack.shape
@@ -325,6 +341,25 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     fn = _fused_eval(tau, fd, edges_a, (nf, nt), npad, coher,
                      float(unit_checks(tau_mask) or 0.0), fw, eig, dev)
     return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
+
+
+def _multi_chunk_search_staged(dspecs, freq, times, etas, edges, fw, npad,
+                               coher, tau_mask, eig, dev):
+    """The staged route of :func:`multi_chunk_search`."""
+    from .core import _eval_fn
+
+    cs_ri = []
+    tau = fd = None
+    for d, t in zip(dspecs, times):
+        CS, tau, fd = chunk_conjugate_spectrum(d, t, freq, npad=npad,
+                                               tau_mask=tau_mask)
+        cs_ri.append(cs_to_ri(CS if coher else np.abs(CS)))
+    edges_a = np.asarray(unit_checks(edges, "edges"), dtype=float)
+    fn = _eval_fn(tau, fd, edges_a, 200, "auto", eig, dev)
+    eigs_all = fn.multi(as_tensor(np.stack(cs_ri), dev),
+                        etas).cpu().numpy().astype(float)
+    return [_host_fit_result(d, eigs_all[b], etas, fw, freq, t)
+            for b, (d, t) in enumerate(zip(dspecs, times))]
 
 
 def single_search_thin(dspec, freq, time, etas, edges, edgesArclet,

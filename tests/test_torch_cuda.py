@@ -704,3 +704,55 @@ def test_scatim_on_card_matches_cpu(cuda, method):
     cpu = tscatim.cubic_interp2d(lin, tp, fp, method="gather",
                                  device="cpu").numpy()
     np.testing.assert_allclose(card, cpu, rtol=1e-12, atol=1e-12)
+
+
+def _arc_epoch(nt=64, nf=64, dt=30.0, df=0.2, f0=1400.0, npix=8, eta=0.3,
+               seed=2):
+    """One dynspec carrying a known-curvature arc, with its times,
+    frequencies and θ edges (tests/test_torch_retrieval.py's chunk)."""
+    rng = np.random.default_rng(seed)
+    times = np.arange(nt) * dt
+    freqs = f0 + np.arange(nf) * df
+    dfd = 1e3 / (2 * nt * dt)
+    fd_k = np.arange(-npix, npix + 1) * dfd
+    amps = ((0.05 + 0.3 * rng.random(len(fd_k)) * np.exp(-(fd_k / 1.2) ** 2))
+            * np.exp(2j * np.pi * rng.random(len(fd_k))))
+    amps[len(fd_k) // 2] = 3.0
+    F, T = np.meshgrid(freqs - f0, times, indexing="ij")
+    E = sum(a * np.exp(2j * np.pi * (eta * fd ** 2 * F + fd * 1e-3 * T))
+            for a, fd in zip(amps, fd_k))
+    return np.abs(E) ** 2, times, freqs, np.arange(-10.5, 11.5) * dfd
+
+
+def test_numpy_tiers_launch_the_kernels(cuda, tmp_path):
+    """With the fused and staged tiers made to fail, the numpy tiers of
+    the wavefield survey and of the closed loop still launch their
+    kernels: eigvec_warmstart once per retrieved chunk, arc_profile once
+    per lane. No epoch is journaled under "numpy" without a launch."""
+    from scintools_tpu_torch.dynspec import run_wavefield_survey
+    from scintools_tpu_torch.robust import (TIER_FUSED, TIER_NUMPY,
+                                            TIER_STAGED)
+    from scintools_tpu_torch.robust import faults
+    from scintools_tpu_torch.sim import scenario as tsc
+
+    dyn, times, freqs, edges = _arc_epoch()
+    teig.batched_eigvec_warmstart.launches = 0
+    with faults.tier_failure_hook([TIER_FUSED, TIER_STAGED]):
+        out = run_wavefield_survey([("w0", (dyn, times, freqs))],
+                                   str(tmp_path / "wf"), edges, 0.3,
+                                   cwf=32, cwt=32, npad=1, retries=0,
+                                   device=cuda)
+    rec = out["results"]["w0"]
+    assert out["outcomes"][0].tier == TIER_NUMPY
+    assert rec["n_chunks"] == 9
+    assert teig.batched_eigvec_warmstart.launches == (
+        rec["n_chunks"] - rec["n_quarantined"]) > 0
+
+    tap.arc_profile.launches = 0
+    with faults.tier_failure_hook([TIER_FUSED, TIER_STAGED]):
+        out = tsc.run_scenario_survey(
+            str(tmp_path / "sc"), regimes=({"name": "good", "mb2": 2.0},),
+            epochs_per_regime=2, ns=32, nf=16, ds=0.04, batch_size=2,
+            seed=4, numsteps=600, n_iter=20, retries=0, device=cuda)
+    assert out["summary"]["tier_counts"][TIER_NUMPY] == 2
+    assert tap.arc_profile.launches == 2

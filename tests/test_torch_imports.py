@@ -53,7 +53,20 @@ def test_import_leaves_jax_package_unloaded():
             " scintools_tpu_torch.ops.xfft, scintools_tpu_torch.sim.factory,"
             " scintools_tpu_torch.sim.scenario,"
             " scintools_tpu_torch.sim.brightness,"
-            " scintools_tpu_torch.io.fitsio;"
+            " scintools_tpu_torch.io.fitsio, scintools_tpu_torch.io.results,"
+            " scintools_tpu_torch.obs, scintools_tpu_torch.obs.heartbeat,"
+            " scintools_tpu_torch.obs.ledger, scintools_tpu_torch.obs.metrics,"
+            " scintools_tpu_torch.obs.report, scintools_tpu_torch.obs.retrace,"
+            " scintools_tpu_torch.obs.trace, scintools_tpu_torch.parallel,"
+            " scintools_tpu_torch.parallel.checkpoint,"
+            " scintools_tpu_torch.parallel.pipeline,"
+            " scintools_tpu_torch.robust, scintools_tpu_torch.robust.faults,"
+            " scintools_tpu_torch.robust.ladder,"
+            " scintools_tpu_torch.robust.runner,"
+            " scintools_tpu_torch.utils.slog,"
+            " scintools_tpu_torch.utils.profiling,"
+            " scintools_tpu_torch.utils.misc,"
+            " scintools_tpu_torch.utils.archive, scintools_tpu_torch.compat;"
             "bad = [m for m in sys.modules if m == 'scintools_tpu' or "
             "m.startswith('scintools_tpu.')];"
             "print(bad); sys.exit(1 if bad else 0)")

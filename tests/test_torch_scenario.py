@@ -436,8 +436,15 @@ class TestScenario:
             assert dirty[i] == clean[i]
 
     def test_runners_wait_for_their_items(self):
-        with pytest.raises(NotImplementedError):
-            tsc.run_scenario_survey("wd")
+        # the survey engine is ported: run_scenario_survey takes the JAX
+        # signature plus device=; the fleet runner still waits for fleet/
+        import inspect
+
+        from scintools_tpu.sim import scenario as jsc
+
+        want = list(inspect.signature(jsc.run_scenario_survey).parameters)
+        got = list(inspect.signature(tsc.run_scenario_survey).parameters)
+        assert got == want + ["device"]
         with pytest.raises(NotImplementedError):
             tsc.run_scenario_fleet("wd")
 

@@ -15,6 +15,8 @@ the acf2d fit at rel 1e-6 ("highest") and 1e-4 ("default", float32);
 the façade at rel 1e-6 on a shared ACF and rel 1e-3 end to end.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -33,12 +35,16 @@ from scintools_tpu.sim.simulation import simulate_dynspec_batch
 from scintools_tpu_torch import dynspec as tdyn
 from scintools_tpu_torch.fit import acf2d as tacf2d
 from scintools_tpu_torch.fit import batch as tbatch
-from scintools_tpu_torch.fit import fitter as tfitter
+import scintools_tpu_torch.fit.fitter  # noqa: E402,F401 (the module)
 from scintools_tpu_torch.fit import lm as tlm
 from scintools_tpu_torch.fit import models as tmodels
 from scintools_tpu_torch.fit.parameters import Parameters as TParameters
 from scintools_tpu_torch.robust import guards as tguards
 from scintools_tpu_torch.sim import acf_model as tacf
+
+# the package attribute ``fit.fitter`` is the function ``fitter`` (the JAX
+# package's namespace); the module itself comes from sys.modules
+tfitter = sys.modules["scintools_tpu_torch.fit.fitter"]
 
 CPU = "cpu"
 NC = 17          # the JAX package's own acf2d test crop and budget
