@@ -779,19 +779,22 @@ class Dynspec:
         ``"acf1d"`` and ``"acf2d_approx"`` are scipy fits on the host.
         ``"acf2d"`` fits the analytic ACF on ``self.device``: the batched
         LM (:func:`~.fit.acf2d.fit_acf2d`, ``precision`` its policy) for
-        an odd crop, else ``nitr`` scipy fits over the model. ``mcmc``,
-        ``method="mcmc"``, ``"sspec"`` and ``plot`` are not ported yet and
-        raise (``nwalkers``, ``steps``, ``burn``, ``lnsigma``,
-        ``progress``, ``workers``, ``display``, ``filename`` and ``dpi``
-        configure them)."""
+        an odd crop, else ``nitr`` scipy fits over the model.
+
+        ``method="mcmc"`` samples the acf1d likelihood with the ensemble
+        sampler on ``self.device`` (``fitter(mcmc=True)``, ``nwalkers``,
+        ``steps``, ``burn``, ``progress``) and stores the posterior's
+        summary per parameter in ``self.mcmc_summary``. ``mcmc=True``
+        samples every fit of the method instead of the least squares;
+        the 2-D fits then sample the ``__lnsigma`` noise term unless
+        ``lnsigma=False``, and ``"acf2d"`` samples the analytic model
+        (never the LM). ``"sspec"`` and ``plot`` raise (``workers``,
+        ``display``, ``filename`` and ``dpi`` configure them)."""
         methods = ("nofit", "acf1d", "acf2d_approx", "acf2d", "sspec",
                    "mcmc")
         if method not in methods:
             raise ValueError(f"method must be one of {methods}, "
                              f"got {method!r}")
-        if mcmc or method == "mcmc":
-            raise NotImplementedError("MCMC fits are not ported yet "
-                                      "(ROADMAP item 11)")
         if method == "sspec":
             raise NotImplementedError(
                 "the sspec fitting method is disabled upstream")
@@ -884,7 +887,16 @@ class Dynspec:
             mdl.scint_acf_model, params,
             ((xdata_t, xdata_f), (ydata_t, ydata_f),
              (weights_t, weights_f)), max_nfev=50000,
-            nan_policy=nan_policy)
+            nan_policy=nan_policy, mcmc=(mcmc or method == "mcmc"),
+            nwalkers=nwalkers, steps=steps, burn=burn, progress=progress,
+            device=self.device)
+        if method == "mcmc" \
+                and getattr(results, "flatchain", None) is not None:
+            from .mcmc.posterior import flatchain_summary
+
+            self.mcmc_summary = flatchain_summary(
+                results.flatchain, getattr(results, "var_names",
+                                           params.varying_names()))
         if results.params["dnu"].stderr is not None:
             for k in ("tau", "dnu", "amp"):
                 params[k].value = results.params[k].value
@@ -950,8 +962,11 @@ class Dynspec:
 
             results = fitter(
                 mdl.scint_acf_model_2d_approx, params,
-                (tdata, fdata, ydata_2d, weights_2d), max_nfev=50000,
-                nan_policy=nan_policy)
+                (tdata, fdata, ydata_2d, weights_2d), mcmc=mcmc,
+                max_nfev=50000, nan_policy=nan_policy, steps=steps,
+                burn=burn, progress=progress, workers=workers,
+                nwalkers=nwalkers, is_weighted=(not lnsigma),
+                device=self.device)
 
             if method == "acf2d":
                 params2d = results.params.copy()
@@ -963,7 +978,7 @@ class Dynspec:
                 # the batched LM is deterministic from an unchanged
                 # start, so it runs once; the scipy route restarts nitr
                 # times
-                device_lm = (ydata_2d.shape[0] % 2 == 1
+                device_lm = (not mcmc and ydata_2d.shape[0] % 2 == 1
                              and ydata_2d.shape[1] % 2 == 1)
                 for _ in range(1 if device_lm else nitr):
                     if device_lm:
@@ -973,8 +988,11 @@ class Dynspec:
                     else:
                         res = fitter(
                             mdl.scint_acf_model_2d, params2d,
-                            (ydata_2d, weights_2d, self.device),
-                            max_nfev=90000, nan_policy=nan_policy)
+                            (ydata_2d, weights_2d, self.device), mcmc=mcmc,
+                            nwalkers=nwalkers, steps=steps, burn=burn,
+                            progress=progress, workers=workers,
+                            max_nfev=90000, nan_policy=nan_policy,
+                            is_weighted=(not lnsigma), device=self.device)
                     if res.chisqr < chisqr:
                         chisqr = res.chisqr
                         results = res

@@ -24,7 +24,15 @@ The secondary-spectrum 1-D models ``tau_sspec_model``,
 ``effective_velocity_annual``, ``arc_curvature``, ``veff_thin_screen``
 (:207-367), the weak-scintillation arc models ``arc_weak``,
 ``arc_weak_2d`` (:375-427) and ``arc_power_curve`` (:207) take numpy
-arrays or tensors alike; parameters are host scalars.
+arrays or tensors alike.
+
+Parameters are host scalars for the least-squares fits. Under the
+ensemble sampler (``mcmc/likelihood.py``) they are tensors with a walker
+axis, or a lane of ``torch.func.vmap``: the 1-D, approximate 2-D and
+velocity models then dispatch every function of a parameter to torch
+(:func:`_fn`), and ``_inclination`` branches by ``torch.where``. Host
+scalars take the numpy functions they always took, so float64 host
+results are unchanged.
 """
 
 from __future__ import annotations
@@ -39,6 +47,13 @@ def _vals(params):
 
 def _exp(x):
     return torch.exp(x) if isinstance(x, torch.Tensor) else np.exp(x)
+
+
+def _fn(name, x):
+    """``torch.<name>(x)`` for a tensor, else ``np.<name>(x)``."""
+    if isinstance(x, torch.Tensor):
+        return getattr(torch, name)(x)
+    return getattr(np, name)(x)
 
 
 def _lib(*arrays):
@@ -106,19 +121,29 @@ def scint_acf_model_2d_approx_values(params, tdata, fdata):
     amp, dnu, tau, alpha = p["amp"], p["dnu"], p["tau"], p["alpha"]
     mu = p["phasegrad"] * 60  # min/MHz → s/MHz
     tobs, bw = p["tobs"], p["bw"]
+    xp = _lib(tdata, fdata, amp, dnu, tau, alpha, mu)
     nt, nf = len(tdata), len(fdata)
-    tdata = np.reshape(np.asarray(tdata), (nt, 1))
-    fdata = np.reshape(np.asarray(fdata), (1, nf))
-    model = amp * np.exp(
-        -(np.abs((tdata - mu * fdata) / tau) ** (3 * alpha / 2)
-          + np.abs(fdata / (dnu / np.log(2))) ** (3 / 2)) ** (2 / 3))
-    model = model * (1 - np.abs(tdata) / tobs)
-    model = model * (1 - np.abs(fdata) / bw)
-    return np.transpose(model)
+    if xp is torch:
+        tdata = torch.reshape(torch.as_tensor(tdata), (nt, 1))
+        fdata = torch.reshape(torch.as_tensor(fdata), (1, nf))
+    else:
+        tdata = np.reshape(np.asarray(tdata), (nt, 1))
+        fdata = np.reshape(np.asarray(fdata), (1, nf))
+    model = amp * xp.exp(
+        -(xp.abs((tdata - mu * fdata) / tau) ** (3 * alpha / 2)
+          + xp.abs(fdata / (dnu / np.log(2))) ** (3 / 2)) ** (2 / 3))
+    model = model * (1 - xp.abs(tdata) / tobs)
+    model = model * (1 - xp.abs(fdata) / bw)
+    return model.T if xp is torch else np.transpose(model)
 
 
 def _spike_weights(weights, shape):
     """The weights with the white-noise spike (the centre) zeroed."""
+    if isinstance(weights, torch.Tensor):
+        keep = torch.ones(shape, dtype=torch.bool, device=weights.device)
+        keep[-1, -1] = False
+        keep = torch.fft.ifftshift(keep)
+        return torch.where(keep, weights, torch.zeros_like(weights))
     if weights is None:
         weights = np.ones(shape)
     weights = np.fft.fftshift(np.asarray(weights))
@@ -280,16 +305,21 @@ def _inclination(p):
     if "KIN" in p:
         inc = p["KIN"] * np.pi / 180
     elif "COSI" in p:
-        inc = np.arccos(p["COSI"])
+        inc = _fn("arccos", p["COSI"])
     elif "SINI" in p:
-        inc = np.arcsin(p["SINI"])
+        inc = _fn("arcsin", p["SINI"])
     else:
         raise KeyError("inclination parameter (KIN, COSI, or SINI) "
                        "not found")
     if "sense" in p:
-        if p["sense"] < 0.5 and inc > np.pi / 2:
+        sense = p["sense"]
+        if _lib(inc, sense) is torch:
+            flip = (((sense < 0.5) & (inc > np.pi / 2))
+                    | ((sense >= 0.5) & (inc < np.pi / 2)))
+            return torch.where(torch.as_tensor(flip), np.pi - inc, inc)
+        if sense < 0.5 and inc > np.pi / 2:
             inc = np.pi - inc
-        if p["sense"] >= 0.5 and inc < np.pi / 2:
+        if sense >= 0.5 and inc < np.pi / 2:
             inc = np.pi - inc
     return inc
 
@@ -314,12 +344,13 @@ def effective_velocity_annual(params, true_anomaly, vearth_ra, vearth_dec,
             omega = OM
         INC = _inclination(p)
         KOM = p["KOM"] * np.pi / 180
-        vp_0 = (2 * np.pi * A1 * v_c) / (np.sin(INC) * PB * 86400
-                                         * np.sqrt(1 - ECC ** 2))
-        xo = _lib(omega)
-        vp_x = -vp_0 * (ECC * xo.sin(omega) + xp.sin(true_anomaly + omega))
-        vp_y = vp_0 * np.cos(INC) * (ECC * xo.cos(omega)
-                                     + xp.cos(true_anomaly + omega))
+        vp_0 = (2 * np.pi * A1 * v_c) / (_fn("sin", INC) * PB * 86400
+                                         * _fn("sqrt", 1 - ECC ** 2))
+        xp = _lib(true_anomaly, mjd, omega)
+        vp_x = -vp_0 * (ECC * _fn("sin", omega)
+                        + xp.sin(true_anomaly + omega))
+        vp_y = vp_0 * _fn("cos", INC) * (ECC * _fn("cos", omega)
+                                         + xp.cos(true_anomaly + omega))
     else:
         vp_x = 0.0
         vp_y = 0.0
@@ -330,8 +361,8 @@ def effective_velocity_annual(params, true_anomaly, vearth_ra, vearth_dec,
     pmdec_v = p.get("PMDEC", 0.0) * masrad * d / secperyr
     s = p["s"]
 
-    vp_ra = np.sin(KOM) * vp_x + np.cos(KOM) * vp_y
-    vp_dec = np.cos(KOM) * vp_x - np.sin(KOM) * vp_y
+    vp_ra = _fn("sin", KOM) * vp_x + _fn("cos", KOM) * vp_y
+    vp_dec = _fn("cos", KOM) * vp_x - _fn("sin", KOM) * vp_y
     veff_ra = s * vearth_ra + (1 - s) * (vp_ra + pmra_v)
     veff_dec = s * vearth_dec + (1 - s) * (vp_dec + pmdec_v)
     return veff_ra, veff_dec, vp_ra, vp_dec
@@ -361,11 +392,11 @@ def arc_curvature(params, ydata, weights, true_anomaly, vearth_ra,
     if nmodel > 0.5:  # anisotropic
         zeta = p["zeta"] * np.pi / 180
         if "vism_zeta" in p:
-            veff2 = (veff_ra * np.sin(zeta) + veff_dec * np.cos(zeta)
+            veff2 = (veff_ra * _fn("sin", zeta) + veff_dec * _fn("cos", zeta)
                      - p["vism_zeta"]) ** 2
         else:
-            veff2 = ((veff_ra - vism_ra) * np.sin(zeta)
-                     + (veff_dec - vism_dec) * np.cos(zeta)) ** 2
+            veff2 = ((veff_ra - vism_ra) * _fn("sin", zeta)
+                     + (veff_dec - vism_dec) * _fn("cos", zeta)) ** 2
     else:
         veff2 = (veff_ra - vism_ra) ** 2 + (veff_dec - vism_dec) ** 2
 
@@ -389,22 +420,21 @@ def veff_thin_screen(params, ydata, weights, true_anomaly, vearth_ra,
     kappa = p.get("kappa", 1)
     veff_ra, veff_dec, _, _ = effective_velocity_annual(
         params, true_anomaly, vearth_ra, vearth_dec, mjd=mjd)
-    xp = _lib(veff_ra, veff_dec)
     nmodel = p.get("nmodel", 1 if "psi" in p else 0)
     veff_ra = veff_ra - p.get("vism_ra", 0)
     veff_dec = veff_dec - p.get("vism_dec", 0)
     if nmodel > 0.5:
         R = p["R"]
         psi = p["psi"] * np.pi / 180
-        cosa, sina = np.cos(2 * psi), np.sin(2 * psi)
-        a = (1 - R * cosa) / np.sqrt(1 - R ** 2)
-        b = (1 + R * cosa) / np.sqrt(1 - R ** 2)
-        c = -2 * R * sina / np.sqrt(1 - R ** 2)
+        cosa, sina = _fn("cos", 2 * psi), _fn("sin", 2 * psi)
+        a = (1 - R * cosa) / _fn("sqrt", 1 - R ** 2)
+        b = (1 + R * cosa) / _fn("sqrt", 1 - R ** 2)
+        c = -2 * R * sina / _fn("sqrt", 1 - R ** 2)
     else:
         a, b, c = 1, 1, 0
-    coeff = 1 / np.sqrt(2 * d * (1 - s) / s)
-    veff = kappa * xp.sqrt(a * veff_dec ** 2 + b * veff_ra ** 2
-                           + c * veff_ra * veff_dec)
+    coeff = 1 / _fn("sqrt", 2 * d * (1 - s) / s)
+    veff = kappa * _fn("sqrt", a * veff_dec ** 2 + b * veff_ra ** 2
+                       + c * veff_ra * veff_dec)
     model = coeff * veff / s
     if weights is None:
         weights = 1.0

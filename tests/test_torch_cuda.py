@@ -756,3 +756,43 @@ def test_numpy_tiers_launch_the_kernels(cuda, tmp_path):
             seed=4, numsteps=600, n_iter=20, retries=0, device=cuda)
     assert out["summary"]["tier_counts"][TIER_NUMPY] == 2
     assert tap.arc_profile.launches == 2
+
+
+def test_sampler_and_correlator_stay_on_the_card(cuda):
+    """``run_ensemble_batched`` and ``correlate_bank`` keep their tensors
+    on the card, and a NaN lane leaves its neighbours' chains bitwise as
+    they were there too."""
+    from scintools_tpu_torch import detect as tdet
+    from scintools_tpu_torch.mcmc import likelihood as tlik
+    from scintools_tpu_torch.mcmc import sampler as tsamp
+
+    nt, nf, dt, df = 32, 16, 8.0, 0.4
+    build, _, lo, hi, key = tlik.make_acf1d_loglike(nt, nf, dt, df)
+    rng = np.random.default_rng(0)
+    tl, fl = dt * np.arange(nt), df * np.arange(nf)
+    yt = np.exp(-(tl / 150.0) ** (5 / 3)) + 0.02 * rng.normal(size=(3, nt))
+    yf = np.exp(-fl / 5.0) + 0.02 * rng.normal(size=(3, nf))
+    data = (yt, yf, np.full((3, nt), 4.0), np.full((3, nf), 2.8))
+    x0 = np.tile([100.0, 3.0, 1.0, np.log(0.1)], (3, 1))
+    out = tsamp.run_ensemble_batched(build, key, data, x0, lo, hi,
+                                     nwalkers=8, steps=40, seeds=[1, 2, 3],
+                                     device=cuda)
+    for v in out.values():
+        assert v.device.type == "cuda"
+    assert (out["ok"] == 0).all()
+    bad = tuple(d.copy() for d in data)
+    bad[0][1, 2] = np.nan
+    out_bad = tsamp.run_ensemble_batched(build, key, bad, x0, lo, hi,
+                                         nwalkers=8, steps=40,
+                                         seeds=[1, 2, 3], device=cuda)
+    assert int(out_bad["ok"][1]) & tguards.BAD_INPUT
+    assert torch.equal(out_bad["chain"][0], out["chain"][0])
+    assert torch.equal(out_bad["chain"][2], out["chain"][2])
+
+    bank = tdet.build_bank(64, 128, 30.0, 1.1, 1e-3, 3e-2, n_templates=8,
+                           device=cuda)
+    assert bank.templates.device.type == "cuda"
+    scores, ok = tdet.correlate_bank(
+        rng.normal(50.0, 3.0, (2, 64, 128)).astype(np.float32), bank)
+    assert scores.device.type == ok.device.type == "cuda"
+    assert scores.shape == (2, 8) and torch.isfinite(scores).all()

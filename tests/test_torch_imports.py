@@ -66,7 +66,17 @@ def test_import_leaves_jax_package_unloaded():
             " scintools_tpu_torch.utils.slog,"
             " scintools_tpu_torch.utils.profiling,"
             " scintools_tpu_torch.utils.misc,"
-            " scintools_tpu_torch.utils.archive, scintools_tpu_torch.compat;"
+            " scintools_tpu_torch.utils.archive, scintools_tpu_torch.compat,"
+            " scintools_tpu_torch.fit.ensemble, scintools_tpu_torch.mcmc,"
+            " scintools_tpu_torch.mcmc.likelihood,"
+            " scintools_tpu_torch.mcmc.posterior,"
+            " scintools_tpu_torch.mcmc.sampler,"
+            " scintools_tpu_torch.mcmc.survey, scintools_tpu_torch.detect,"
+            " scintools_tpu_torch.detect.bank,"
+            " scintools_tpu_torch.detect.correlate,"
+            " scintools_tpu_torch.detect.online,"
+            " scintools_tpu_torch.detect.refine,"
+            " scintools_tpu_torch.detect.trigger;"
             "bad = [m for m in sys.modules if m == 'scintools_tpu' or "
             "m.startswith('scintools_tpu.')];"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -17,8 +17,6 @@ CPU = "cpu"
 
 # JAX names the port does not define yet, with the item that brings them
 NOT_PORTED = {
-    "fit": {"sample_emcee", "sample_emcee_jax", "make_ensemble_sampler",
-            "make_logp"},                     # mcmc
     "thth": {"make_mosaic_fn", "plot_func"},  # mesh and plotting
 }
 
@@ -35,7 +33,7 @@ def _jax_exports(sub):
 
 
 CASES = [(sub, name) for sub in ("fit", "io", "ops", "thth", "utils",
-                                 "robust")
+                                 "robust", "mcmc", "detect")
          for name in _jax_exports(sub)
          if name not in NOT_PORTED.get(sub, ())]
 
