@@ -4,8 +4,8 @@ the façade, the survey arc fit, a psrflux file from write to θ-θ fit,
 the scintillation-parameter fits, the velocity and trapezoid
 rescaling, the scattered image and the zoom and chirp-Z transforms,
 the simulator with its closed generate → search → fit loop, the
-survey engine with the three surveys on it, and the posterior engine
-and the arc detector.
+survey engine with the three surveys on it, the posterior engine and
+the arc detector, and the serving daemon and the fleet.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -263,7 +263,45 @@ Phases, each of which exits non-zero on failure:
    and within 1e-3 of the port's CPU path on each epoch, ``eig_warmstart``
    launched by the confirmation and within 1e-4 of plain on its first
    call, no trigger on 16 noise epochs, a NaN lane alone, and a 2×-long
-   epoch found through 3 overlap-save blocks.
+   epoch found through 3 overlap-save blocks;
+15. serving and the fleet (``serve_fleet_phase``, on the inputs of
+   phases 13 and 14, whose workdirs live until it ends): 15.1
+   ``serve_psrflux_survey`` over 13.2's 66 files hard-linked into a
+   spool one every 20 ms (``bench.py:2135-2139``), 40 LM iterations:
+   64 ok and 2 ``MalformedInputError`` quarantines, each published once
+   and bitwise 13.2's journal, ``/metrics`` answering ``version=0.0.4``
+   and ``/healthz``, ``/readyz``, ``/report``, ``/state`` answering; a
+   restart on the same workdir over the same files republishes and
+   refits nothing; the wall, epochs/s, ingest→publish p50/p95, and the
+   throughput over 12 more files with a ``/metrics`` scraper every 20
+   ms beside it without (``bench.py:2119-2160``, printed, not gated);
+   15.2 the batched mode (``max_batch`` 8) over the same files linked at
+   once, after each bucket (2, 4, 8) has been built: B > 1, no new
+   build of ``fit.scint_params_serve`` (``retrace_guard``), each lane's
+   τ, Δν, amp within 1e-4 of 15.1's B = 1 fit, and one NaN epoch in a
+   group of 8 quarantined alone, its neighbours bitwise the clean
+   groups'; 15.3 14.4's 64 anisotropic epochs through a ``QueueSource``
+   daemon every 15 ms (``bench.py:2560-2612``), bare and with
+   ``ArcDetector.make_hook`` after ``ArcDetector.warmup`` as the
+   daemon's warm-up: ``eig_warmstart`` launched by the hook, each
+   ``detect`` record in ``/state`` equal to the detector called on the
+   epoch directly (floats within 1e-6, the rest equal), and the hooked
+   p95 within 2× the bare p95; 15.4 ``run_scenario_fleet`` at 13.1's
+   configuration by 3 worker processes (lease 5 s, the plane on an
+   ephemeral port), worker w1 SIGKILLed once it holds a claim: 1008
+   epochs, w1 dead, a steal if it died holding a claim, no merge
+   conflict, the merged journal line for line 13.1's, each survivor's
+   ``arc_profile`` launches > 0 on this card, and ``/metrics``
+   (``fleet_workers_alive`` 3) and ``/workers`` showing 3 workers
+   mid-run; each worker's start-up (imports, CUDA context, first
+   batch); 15.5 ``run_mcmc_fleet`` at 14.3's configuration by 2
+   worker processes: the merged journal and the coverage summary
+   14.3's, each worker's ``arc_profile`` launches > 0. The fleets run
+   the target ``chip_smoke:counted_scenario_workload``
+   (``counted_mcmc_workload``), which writes each worker's launches
+   beside its journal: a launch counter counts only in the process that
+   launches. ``python3 chip_smoke.py --phase15`` runs phase 15 alone,
+   its inputs made by the calls phases 13 and 14 make.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -293,7 +331,9 @@ around ``run_scenario_survey`` (13.1), for the eigenvector entry around
 ``run_wavefield_survey`` (13.3) and for eig_warmstart around both
 ``thth_search_ladder`` calls (13.4); for the arc profile again around
 ``run_mcmc_survey`` (14.3) and for eig_warmstart around the recall
-set's ``examine`` calls (14.4); for the cold-only entry
+set's ``examine`` calls (14.4); for eig_warmstart again around the
+hooked daemon's stream (15.3); for the arc profile in each fleet worker
+process, from its start (15.4, 15.5); for the cold-only entry
 (no path of the package calls it) around its own call in phase 2. Each
 must be > 0. It prints a ``{"kernels": [...]}`` line (``launches`` is
 the sum over the paths that run the kernel, with each path's count
@@ -307,6 +347,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -848,8 +889,12 @@ def main():
                   epochs=scen["epochs"], batch=scen["batch"],
                   wall_s=scen["wall_s"],
                   launches=simu["launches_scenario_loop"])
-    survey = survey_phase(dev, loop12, ds, prob, peak_row0)
-    post = posterior_detection_phase(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as tmp:
+        survey = survey_phase(dev, loop12, ds, prob, peak_row0, tmp)
+        post = posterior_detection_phase(dev, tmp)
+        serve = serve_fleet_phase(dev, tmp, survey, post)
+    survey["psrflux"].pop("paths")
+    post["detection"].pop("aniso")
 
     launches_h = hough.pop("launches")
     launches_1 = one.pop("launches_single_chunk")
@@ -867,6 +912,9 @@ def main():
     launches_ps = post["survey"]["launches"]
     arc_kernel["launches_posterior_survey"] = launches_ps
     arc_kernel["launches"] += launches_ps
+    for path in ("scenario_fleet", "mcmc_fleet"):
+        arc_kernel[f"launches_{path}"] = serve[path]["launches"]
+        arc_kernel["launches"] += serve[path]["launches"]
     vec_kernel = ret.pop("kernel")
     launches_wf = survey["wavefield"]["launches"]
     vec_kernel["launches_wavefield_survey"] = launches_wf
@@ -877,12 +925,14 @@ def main():
     launches_lad = (survey["ladder"]["launches"]
                     + survey["ladder"]["launches_staged"])
     launches_dc = post["detection"]["launches"]
+    launches_sd = serve["detect"]["launches"]
     print(json.dumps({"kernels": [{
         "name": "eig_warmstart", "route": "cuda",
         "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
         "replaces": "scintools_tpu/thth/pallas_eig.py:217",
         "launches": launches_ns + launches_f + launches_h + launches_1
-        + launches_r + launches_p + launches_lad + launches_dc,
+        + launches_r + launches_p + launches_lad + launches_dc
+        + launches_sd,
         "launches_north_star": launches_ns, "launches_facade": launches_f,
         "launches_hough_facade": launches_h,
         "launches_single_chunk": launches_1,
@@ -890,6 +940,7 @@ def main():
         "launches_psrflux_fit": launches_p,
         "launches_search_ladder": launches_lad,
         "launches_detect_confirm": launches_dc,
+        "launches_serve_detect_hook": launches_sd,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -910,7 +961,8 @@ def main():
         "single_chunk_and_retrieval": one, "thin_and_grid": thin,
         "psrflux": flux, "scintillation": scint, "velocity_zoom": vz,
         "simulation": simu, "survey": survey,
-        "posteriors_and_detection": post, "phase_s": PHASE_S}),
+        "posteriors_and_detection": post, "serving_and_fleet": serve,
+        "phase_s": PHASE_S}),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3471,7 +3523,7 @@ def rel_diff(a, b):
     return float(d.max()) if d.size else 0.0
 
 
-def survey_phase(dev, loop12, ds, prob, peak_row0):
+def survey_phase(dev, loop12, ds, prob, peak_row0, tmp):
     """Phase 13: the survey engine (``robust/``, ``parallel/``, ``obs/``)
     driving the three surveys and the θ-θ search ladder on the card:
     13.1 ``run_scenario_survey`` at 12.3's configuration, held lane by
@@ -3483,26 +3535,24 @@ def survey_phase(dev, loop12, ds, prob, peak_row0):
     (``peak_row0``); 13.5 a ``KernelError`` in the arc-profile launch
     propagates; 13.6 with the fused and staged tiers made to fail, the
     numpy tiers of the closed loop and of the wavefield survey still
-    launch their kernels. Returns its numbers with each kernel's
-    launches on the survey paths (``launches*``)."""
-    import tempfile
-
+    launch their kernels. Workdirs go under ``tmp``, where phase 15 reads
+    13.1's journal and 13.2's files. Returns its numbers with each
+    kernel's launches on the survey paths (``launches*``)."""
     card = smi()
     print(f"[13] survey engine (nvidia-smi: {card})", flush=True)
     out = {"card": card}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_survey_") as tmp:
-        out["scenario"] = scenario_survey_phase(dev, loop12, tmp)
-        lap("13.1 run_scenario_survey")
-        out["psrflux"] = psrflux_survey_phase(dev, tmp)
-        lap("13.2 run_psrflux_survey")
-        out["wavefield"] = wavefield_survey_phase(dev, ds, tmp)
-        lap("13.3 run_wavefield_survey")
-        out["ladder"] = ladder_phase(dev, prob, peak_row0)
-        lap("13.4 thth_search_ladder")
-        out["kernel_error"] = kernel_error_phase(dev, tmp)
-        lap("13.5 KernelError")
-        out["numpy_tier"] = numpy_tier_phase(dev, ds, tmp)
-        lap("13.6 numpy tier on the kernels")
+    out["scenario"] = scenario_survey_phase(dev, loop12, tmp)
+    lap("13.1 run_scenario_survey")
+    out["psrflux"] = psrflux_survey_phase(dev, tmp)
+    lap("13.2 run_psrflux_survey")
+    out["wavefield"] = wavefield_survey_phase(dev, ds, tmp)
+    lap("13.3 run_wavefield_survey")
+    out["ladder"] = ladder_phase(dev, prob, peak_row0)
+    lap("13.4 thth_search_ladder")
+    out["kernel_error"] = kernel_error_phase(dev, tmp)
+    lap("13.5 KernelError")
+    out["numpy_tier"] = numpy_tier_phase(dev, ds, tmp)
+    lap("13.6 numpy tier on the kernels")
     return out
 
 
@@ -3607,6 +3657,8 @@ def scenario_survey_phase(dev, loop12, tmp):
     check(again["n_resumed"] == loop12["epochs"] and again["n_ok"] == 0,
           "13.1: the rerun did not resume every epoch")
     return dict(wall_s=wall_s, loop_wall_s=loop12["wall_s"],
+                journal=os.path.join(wd, "journal.jsonl"),
+                kw={k: v for k, v in kw.items() if k != "device"},
                 summary={k: v for k, v in s.items()},
                 recovery=rec, journal_fsyncs=fsyncs, journal_bytes=jbytes,
                 descents=len(descent_s), descent_s=sum(descent_s),
@@ -3622,14 +3674,16 @@ def card_line():
 
 
 def psrflux_survey_phase(dev, tmp, n=64, nf=512, nt=128, n_bad=2,
-                         n_iter=40, n_window=8):
+                         n_iter=40, n_window=8, n_ref=8):
     """13.2: 64 psrflux files of phase 10's 512 × 128 epochs and 2
     truncated copies through ``run_psrflux_survey``, at the 40 LM
     iterations of the JAX bench's pipelined survey (``bench.py:1930``):
-    each epoch is one B = 1 fit whose launches pace it on the card. Each
-    fit is held to ``scint_params_batch`` at B = 1 on the same array; the
+    each epoch is one B = 1 fit whose launches pace it on the card. The
+    first ``n_ref`` fits are held to ``scint_params_batch`` at B = 1 on
+    the same array (15.1 holds all 64 bitwise to this journal); the
     pipelined and sequential journals, and the device busy share, are
-    taken on the first ``n_window`` files."""
+    taken on the first ``n_window`` files. Returns the files and the
+    journal for phase 15."""
     from scintools_tpu_torch import obs
     from scintools_tpu_torch import workloads as W
     from scintools_tpu_torch.dynspec import run_psrflux_survey
@@ -3667,7 +3721,7 @@ def psrflux_survey_phase(dev, tmp, n=64, nf=512, nt=128, n_bad=2,
     s = res["summary"]
     quar = [o for o in res["outcomes"] if o.status == "quarantined"]
     worst = 0.0
-    for path in files[:n]:
+    for path in files[:n_ref]:
         raw = load_psrflux(path)
         ref = scint_params_batch(
             torch.as_tensor(raw.dyn.astype(np.float32)[None], device=dev),
@@ -3694,7 +3748,8 @@ def psrflux_survey_phase(dev, tmp, n=64, nf=512, nt=128, n_bad=2,
           f"per file over {hist['count']} loads; ok {s['n_ok']}, "
           f"quarantined {s['n_quarantined']} "
           f"({sorted({o.error_class for o in quar})}); worst rel vs "
-          f"scint_params_batch at B = 1 {worst:.3e}; pipelined and "
+          f"scint_params_batch at B = 1 over the first {n_ref} "
+          f"{worst:.3e}; pipelined and "
           f"sequential journals of {n_window} files byte-identical "
           f"{same_journal}; run_report.json {report}; torch.profiler over "
           f"{n_window} epochs (a pipelined survey): "
@@ -3708,7 +3763,8 @@ def psrflux_survey_phase(dev, tmp, n=64, nf=512, nt=128, n_bad=2,
     check(same_journal, "13.2: pipelined and sequential journals differ")
     check(report, "13.2: run_report.json not written")
     return dict(files=len(files), n_iter=n_iter, write_s=write_s,
-                wall_s=wall_s,
+                wall_s=wall_s, n_ref=n_ref, paths=files,
+                journal=os.path.join(wd, "journal.jsonl"),
                 load_mean_s=load_mean, loads=hist["count"],
                 summary=s, worst_rel_vs_b1=worst,
                 journals_identical=same_journal, device_busy_share=share,
@@ -4026,7 +4082,7 @@ ANISO_GATES = {"n_ok": 0.9, "cov95": 0.45, "rank_mean": (0.05, 0.95),
                "rank_ks": 0.7}
 
 
-def posterior_detection_phase(dev):
+def posterior_detection_phase(dev, tmp):
     """Phase 14: the posterior engine and the arc detector on the card.
     14.1 the batched sampler at ``bench.py:2972-3046``'s width; 14.2
     ``Dynspec.get_scint_params`` with MCMC on phase 10's J0437-shaped
@@ -4034,9 +4090,8 @@ def posterior_detection_phase(dev):
     fit launches ``arc_profile``); 14.4 the template-bank detector at
     ``bench.py:2450-2520``'s width and ``tests/test_detect.py``'s recall
     set (its θ-θ confirmation launches ``eig_warmstart``). Returns its
-    numbers, with the kernels' launches on these paths."""
-    import tempfile
-
+    numbers, with the kernels' launches on these paths; 14.3's workdir
+    goes under ``tmp``, where phase 15 reads its journal."""
     card = smi()
     print(f"[14] posteriors and arc detection (nvidia-smi: {card})",
           flush=True)
@@ -4045,8 +4100,7 @@ def posterior_detection_phase(dev):
     lap("14.1 batched ensemble sampler")
     out["facade"] = mcmc_facade_phase(dev)
     lap("14.2 get_scint_params with MCMC")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mcmc_") as tmp:
-        out["survey"] = posterior_survey_phase(dev, tmp)
+    out["survey"] = posterior_survey_phase(dev, tmp)
     lap("14.3 run_mcmc_survey")
     out["detection"] = detection_phase(dev)
     lap("14.4 arc detection")
@@ -4398,6 +4452,8 @@ def posterior_survey_phase(dev, tmp, epochs_per_regime=48, batch=48):
     check(again["n_resumed"] == s["n_epochs"],
           "14.3: the rerun did not resume every epoch")
     return dict(wall_s=wall_s, epochs_per_s=s["n_epochs"] / wall_s,
+                journal=os.path.join(wd, "journal.jsonl"),
+                kw={k: v for k, v in kw.items() if k != "device"},
                 summary=dict(s), coverage=cov, coverage_ok=cov_ok,
                 device_busy_one_batch=share, launches=launches,
                 arc_profile_bitwise_plain=vs_plain,
@@ -4566,7 +4622,9 @@ def detection_phase(dev, B=64, K=48, ns=128, nf=64):
     check(nan_ok, "14.4: the NaN lane was not quarantined alone")
     check(long_rec["n_blocks"] == 3 and long_rec["triggered"],
           "14.4: the long epoch was not found through its blocks")
-    return dict(scan_first_s=first_s, scan_s=scan_s,
+    return dict(aniso=dict(dyns=dyns, nf=nf, ns=ns, dt=dt, df=df,
+                           eta_t=eta_t, K=K, freq=freq),
+                scan_first_s=first_s, scan_s=scan_s,
                 scan_epochs_per_s=B / scan_s, scan_hits=hits,
                 recall=recall, recall_s=recall_s,
                 confirmed_median_rel=float(np.median(rels)),
@@ -4576,5 +4634,715 @@ def detection_phase(dev, B=64, K=48, ns=128, nf=64):
                 nan_lane_ok=nan_ok, long_blocks=long_rec["n_blocks"])
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving and the fleet
+
+ARRIVAL_S = 0.02          # 15.1's spool cadence (bench.py:2135-2139)
+SCRAPE_S = 0.02           # the /metrics scraper's period (bench.py:2119-2160)
+DETECT_ARRIVAL_S = 0.015  # 15.3's queue cadence (bench.py:2491)
+
+
+def _proc_age_s():
+    """Seconds since this process started, from ``/proc``."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
+def _counted(make, params):
+    """``make(**params)``, the fleet workload; in a worker process
+    (``--worker-id`` on its command line) each call of its
+    ``process_batch`` and ``process`` also writes the worker's
+    ``arc_profile`` launches, the card's name and its start-up times
+    (imports, CUDA context, first batch; seconds since the process
+    started) to ``kernel_counts.json`` beside its journal: a launch
+    counter counts only in the process that launches."""
+    import argparse
+
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--out")
+    ap.add_argument("--worker-id")
+    args, _ = ap.parse_known_args(sys.argv[1:])
+    if not args.worker_id or not args.out:
+        return make(**params)
+    from scintools_tpu_torch.ops import arc_profile as AP
+
+    rec = {"worker": args.worker_id, "pid": os.getpid(),
+           "import_s": _proc_age_s()}
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    rec["context_s"] = _proc_age_s()
+    rec["device"] = torch.cuda.get_device_name()
+    wl = make(**params)
+    path = os.path.join(args.out, "workers", args.worker_id,
+                        "kernel_counts.json")
+
+    def counted(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec.setdefault("first_batch_s", _proc_age_s())
+            rec["launches"] = AP.arc_profile.launches
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path + ".tmp", "w") as fh:
+                json.dump(rec, fh)
+            os.replace(path + ".tmp", path)
+            return out
+
+        return call
+
+    for name in ("process_batch", "process"):
+        wl[name] = counted(wl[name])
+    return wl
+
+
+def counted_scenario_workload(**params):
+    """15.4's fleet workload: the port's ``scenario_workload`` with each
+    worker's launches written beside its journal (:func:`_counted`)."""
+    from scintools_tpu_torch.sim.scenario import scenario_workload
+
+    return _counted(scenario_workload, params)
+
+
+def counted_mcmc_workload(**params):
+    """15.5's fleet workload: the port's ``mcmc_scenario_workload``,
+    counted as :func:`counted_scenario_workload`."""
+    from scintools_tpu_torch.mcmc.survey import mcmc_scenario_workload
+
+    return _counted(mcmc_scenario_workload, params)
+
+
+def http_get(url, timeout=10):
+    """``(status, content type, body)`` of one GET; JSON bodies parsed."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        r = urllib.request.urlopen(url, timeout=timeout)
+        code, headers, body = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        code, headers, body = e.code, e.headers, e.read()
+    ctype = headers.get("Content-Type", "")
+    return code, ctype, (json.loads(body) if "json" in ctype
+                         else body.decode())
+
+
+def served(svc):
+    """Epochs a service has finished: published, resumed or dropped."""
+    c = svc.state_snapshot()["counts"]
+    return sum(c.get(k, 0) for k in ("ok", "quarantined", "resumed",
+                                      "duplicate"))
+
+
+def wait_for(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.01)
+
+
+def link_into(spool, files, every_s=0.0):
+    """Hard-link ``files`` into ``spool`` (an atomic arrival each),
+    ``every_s`` apart."""
+    os.makedirs(spool, exist_ok=True)
+    for f in files:
+        os.link(f, os.path.join(spool, os.path.basename(f)))
+        if every_s:
+            time.sleep(every_s)
+
+
+def serve_fleet_phase(dev, tmp, survey, post):
+    """Phase 15: serving and the fleet on the card, on the inputs of the
+    phases before it (``survey`` of 13, ``post`` of 14, their workdirs
+    under ``tmp``). 15.1 ``serve_psrflux_survey``, single dispatch, over
+    13.2's files; 15.2 its batched mode; 15.3 the arc detector as the
+    daemon's post-publish hook over 14.4's anisotropic epochs; 15.4
+    ``run_scenario_fleet`` at 13.1's configuration by three worker
+    processes, one SIGKILLed; 15.5 ``run_mcmc_fleet`` at 14.3's by two.
+    Returns its numbers with the kernels' launches on these paths."""
+    card = smi()
+    print(f"[15] serving and the fleet (nvidia-smi: {card})", flush=True)
+    flux = survey["psrflux"]
+    out = {"card": card}
+    out["single"] = serve_single_phase(dev, tmp, flux)
+    lap("15.1 serve_psrflux_survey")
+    out["batched"] = serve_batched_phase(dev, tmp, flux,
+                                         out["single"].pop("results"))
+    lap("15.2 batched service mode")
+    out["detect"] = serve_detect_phase(dev, tmp,
+                                       post["detection"]["aniso"])
+    lap("15.3 detection in the daemon")
+    out["scenario_fleet"] = scenario_fleet_phase(tmp, survey["scenario"])
+    lap("15.4 run_scenario_fleet")
+    out["mcmc_fleet"] = mcmc_fleet_phase(tmp, post["survey"])
+    lap("15.5 run_mcmc_fleet")
+    return out
+
+
+def serve_single_phase(dev, tmp, flux):
+    """15.1: 13.2's 66 files hard-linked into a spool one every 20 ms
+    and served at B = 1; every value bitwise 13.2's journal; a restart
+    republishes nothing; the scrape overhead on 12 more files."""
+    import threading
+
+    from scintools_tpu_torch import obs
+    from scintools_tpu_torch.dynspec import serve_psrflux_survey
+    from scintools_tpu_torch.parallel.checkpoint import EpochJournal
+
+    files, n_iter = flux["paths"], flux["n_iter"]
+    ref = EpochJournal(flux["journal"]).records()
+    wd = os.path.join(tmp, "serve")
+    obs.REGISTRY.reset()
+    svc = serve_psrflux_survey(os.path.join(tmp, "spool1"), wd,
+                               n_iter=n_iter, poll_s=0.02, device=dev)
+    url = f"http://127.0.0.1:{svc.http_port}"
+    t0 = time.perf_counter()
+    link_into(os.path.join(tmp, "spool1"), files, ARRIVAL_S)
+    wait_for(lambda: served(svc) >= len(files), 600, "15.1's epochs")
+    wall_s = time.perf_counter() - t0
+    surfaces = {p: http_get(url + p) for p in ("/metrics", "/healthz",
+                                               "/readyz", "/report",
+                                               "/state")}
+    pct = svc.latency_percentiles()
+    counts = svc.state_snapshot()["counts"]
+    svc.stop()
+    recs = svc.results()
+    lines = svc.store.valid_lines()
+    keys = [json.loads(ln)["epoch"] for ln in lines]
+    same = sum(json.dumps(recs[k].get("result"), sort_keys=True)
+               == json.dumps(ref[k].get("result"), sort_keys=True)
+               and recs[k]["status"] == ref[k]["status"]
+               and recs[k].get("error_class") == ref[k].get("error_class")
+               for k in ref if k in recs)
+    quar = sorted({r.get("error_class") for r in recs.values()
+                   if r["status"] == "quarantined"})
+    codes = {p: c for p, (c, _, _) in surfaces.items()}
+    ctype = surfaces["/metrics"][1]
+    print(f"    {len(files)} files, one every {ARRIVAL_S * 1e3:.0f} ms: wall "
+          f"{wall_s:.3f} s, {len(files) / wall_s:.2f} epochs/s "
+          f"({card_line()}); ingest→publish p50 {pct['p50_s']} s, p95 "
+          f"{pct['p95_s']} s; counts {counts}, quarantined as {quar}; "
+          f"values bitwise 13.2's journal {same}/{len(ref)}; surfaces "
+          f"{codes}, /metrics {ctype!r}", flush=True)
+    check(counts == {"ok": len(files) - 2, "quarantined": 2}
+          and quar == ["MalformedInputError"],
+          f"15.1: counts {counts}, quarantined as {quar}")
+    check(len(keys) == len(set(keys)) == len(files),
+          "15.1: an epoch was published twice or not at all")
+    check(same == len(ref) == len(files),
+          f"15.1: {len(ref) - same} values differ from 13.2's journal")
+    check(all(c == 200 for c in codes.values()), f"15.1: surfaces {codes}")
+    check(ctype.startswith("text/plain; version=0.0.4"),
+          f"15.1: /metrics content type {ctype!r}")
+
+    again = serve_psrflux_survey(os.path.join(tmp, "spool1b"), wd,
+                                 n_iter=n_iter, poll_s=0.02, http=False,
+                                 device=dev)
+    link_into(os.path.join(tmp, "spool1b"), files)
+    wait_for(lambda: served(again) >= len(files), 120, "15.1's restart")
+    counts2 = again.state_snapshot()["counts"]
+    again.stop()
+    n_lines = len(again.store.valid_lines())
+    print(f"    restart on the same workdir, the files linked again: counts "
+          f"{counts2}, store lines {n_lines}", flush=True)
+    check(counts2 == {"resumed": len(files)} and n_lines == len(files),
+          "15.1: the restart published or fitted an epoch again")
+
+    def rate(scrape, k=12):
+        name = "scraped" if scrape else "quiet"
+        svc = serve_psrflux_survey(os.path.join(tmp, f"spool_{name}"),
+                                   os.path.join(tmp, f"serve_{name}"),
+                                   n_iter=n_iter, poll_s=0.02,
+                                   heartbeat=False, device=dev)
+        stop, n = [False], [0]
+
+        def scraper():
+            while not stop[0]:
+                http_get(f"http://127.0.0.1:{svc.http_port}/metrics")
+                n[0] += 1
+                time.sleep(SCRAPE_S)
+
+        th = threading.Thread(target=scraper, daemon=True)
+        if scrape:
+            th.start()
+        t0 = time.perf_counter()
+        link_into(os.path.join(tmp, f"spool_{name}"), files[:k])
+        wait_for(lambda: served(svc) >= k, 300, "the scrape run")
+        dt = time.perf_counter() - t0
+        stop[0] = True
+        if scrape:
+            th.join(timeout=10)
+        svc.stop()
+        return k / dt, n[0]
+
+    quiet, _ = rate(False)
+    scraped, n_scrapes = rate(True)
+    overhead = 1.0 - scraped / quiet
+    print(f"    scrape overhead over 12 files: {quiet:.3f} epochs/s quiet, "
+          f"{scraped:.3f} with /metrics scraped every "
+          f"{SCRAPE_S * 1e3:.0f} ms ({n_scrapes} scrapes): "
+          f"scrape_overhead_frac {overhead:.4f} (printed, not gated)",
+          flush=True)
+    return dict(files=len(files), wall_s=wall_s,
+                epochs_per_s=len(files) / wall_s, latency=pct, counts=counts,
+                bitwise_vs_13_2=same, restart_counts=counts2,
+                quiet_epochs_per_s=quiet, scraped_epochs_per_s=scraped,
+                scrapes=n_scrapes, scrape_overhead_frac=overhead,
+                results={k: r.get("result") for k, r in recs.items()
+                         if r["status"] == "ok"})
+
+
+def serve_batched_phase(dev, tmp, flux, single, max_batch=8):
+    """15.2: the same 66 files linked at once into the batched mode
+    (``max_batch`` 8) after every bucket it can form has been built, so
+    the run rebuilds nothing; each lane within 1e-4 of 15.1's B = 1 fit;
+    then one NaN-poisoned epoch in a group of 8 is quarantined alone,
+    its neighbours bitwise what the same groups give clean."""
+    from scintools_tpu_torch import obs
+    from scintools_tpu_torch.dynspec import (_psrflux_survey_fns,
+                                             _survey_batch_fns,
+                                             serve_psrflux_survey)
+    from scintools_tpu_torch.obs.retrace import RetraceRegression, \
+        retrace_guard
+    from scintools_tpu_torch.robust import TIER_FUSED
+    from scintools_tpu_torch.serve import (AdaptiveBatchController,
+                                           QueueSource, SurveyService)
+
+    files, n_iter = flux["paths"], flux["n_iter"]
+    load_fn, process = _psrflux_survey_fns(None, 5 / 3, n_iter, dev)
+    process_batch, geometry_fn = _survey_batch_fns(5 / 3, n_iter, dev)
+    payloads = [load_fn(f) for f in files[:max_batch]]
+    b = 2
+    while b <= max_batch:
+        process_batch(payloads[:b])
+        b *= 2
+    obs.REGISTRY.reset()
+    max_b = [1]
+    try:
+        with retrace_guard(["fit.scint_params_serve"]) as grew:
+            svc = serve_psrflux_survey(
+                os.path.join(tmp, "spool2"), os.path.join(tmp, "batched"),
+                n_iter=n_iter, poll_s=0.02, max_batch=max_batch,
+                prefetch=16, heartbeat=False, device=dev)
+            t0 = time.perf_counter()
+            link_into(os.path.join(tmp, "spool2"), files)
+
+            def done():
+                max_b[0] = max(max_b[0], svc._controller.current)
+                return served(svc) >= len(files)
+
+            wait_for(done, 600, "15.2's epochs")
+            wall_s = time.perf_counter() - t0
+            svc.stop()
+    except RetraceRegression as e:
+        fail(f"15.2: the batched service rebuilt its program: {e}")
+    c = obs.REGISTRY.snapshot()["counters"]
+    batches = c.get("serve_batches_total", 0)
+    lanes = c.get("serve_batch_lanes_total", 0)
+    padded = c.get("serve_batch_padded_lanes_total", 0)
+    recs = svc.results()
+    worst = max(rel_diff([recs[k]["result"][q]], [single[k][q]])
+                for k in single for q in ("tau", "dnu", "amp"))
+    n_q = sum(r["status"] == "quarantined" for r in recs.values())
+    print(f"    batched: {len(files)} files linked at once, wall "
+          f"{wall_s:.3f} s ({len(files) / wall_s:.2f} epochs/s, "
+          f"{card_line()}); B reached {max_b[0]}; batches {batches}, lanes "
+          f"{lanes}, padded lanes {padded}; new builds {grew}; worst rel "
+          f"τ/Δν/amp vs 15.1's B = 1 {worst:.3e}; quarantined {n_q}",
+          flush=True)
+    check(max_b[0] > 1 and batches > 0, "15.2: the controller never left "
+          "B = 1")
+    check(worst <= 1e-4, f"15.2: a lane differs from B = 1 by {worst:.3e}")
+    check(n_q == 2 and len(recs) == len(files), "15.2: wrong counts")
+
+    bad = payloads[3][0].copy()
+    bad[::7, ::5] = np.nan
+    poisoned = list(payloads)
+    poisoned[3] = (bad,) + tuple(payloads[3][1:])
+    groups = []
+
+    def recorded(ps, tier=None):
+        groups.append([next(i for i, q in enumerate(poisoned) if q is p)
+                       for p in ps])
+        return process_batch(ps, tier=tier)
+
+    ctrl = AdaptiveBatchController(max_batch=max_batch)
+    ctrl.observe(max_batch)
+    src = QueueSource()
+    for i, p in enumerate(poisoned):
+        src.put(f"p{i}", p)
+    psvc = SurveyService(src, process, os.path.join(tmp, "poisoned"),
+                         process_batch=recorded, geometry_fn=geometry_fn,
+                         max_batch=max_batch, controller=ctrl,
+                         tiers=(TIER_FUSED,), prefetch=16, http=False,
+                         heartbeat=False, report=False)
+    with psvc:
+        wait_for(lambda: served(psvc) >= len(poisoned), 120,
+                 "the poisoned group")
+    precs = psvc.results()
+    clean = {}
+    for g in groups:
+        for i, r in zip(g, process_batch([payloads[i] for i in g])):
+            clean.setdefault(i, r)
+    alone = [k for k, r in precs.items() if r["status"] != "ok"] == ["p3"]
+    bitwise = all(json.dumps(precs[f"p{i}"]["result"], sort_keys=True)
+                  == json.dumps(clean[i], sort_keys=True)
+                  for i in range(len(poisoned)) if i != 3)
+    print(f"    a NaN epoch in a group of {len(poisoned)} (groups "
+          f"{groups}): quarantined alone {alone} "
+          f"({precs['p3'].get('error_class')}); neighbours bitwise the "
+          f"clean groups' {bitwise}", flush=True)
+    check(alone and bitwise, "15.2: the NaN lane was not quarantined alone "
+          "with bitwise neighbours")
+    return dict(wall_s=wall_s, epochs_per_s=len(files) / wall_s,
+                max_b=max_b[0], batches=batches, lanes=lanes,
+                padded_lanes=padded, worst_rel_vs_b1=worst,
+                nan_alone=alone, nan_neighbours_bitwise=bitwise)
+
+
+def serve_detect_phase(dev, tmp, aniso):
+    """15.3: 14.4's 64 anisotropic epochs put into a ``QueueSource``
+    daemon every 15 ms, once bare and once with ``ArcDetector``'s hook
+    (``bench.py:2560-2612``); the hook's θ-θ confirmation launches
+    ``eig_warmstart``, each ``detect`` record in ``/state`` matches the
+    detector called on the epoch directly, and the p95 ingest→publish
+    latency with the hook stays within 2× the bare one's."""
+    import threading
+
+    from scintools_tpu_torch import detect as D
+    from scintools_tpu_torch.detect import correlate as DC
+    from scintools_tpu_torch.detect import refine as DR
+    from scintools_tpu_torch.detect import trigger as DT
+    from scintools_tpu_torch.robust import TIER_FUSED
+    from scintools_tpu_torch.serve import QueueSource, SurveyService
+    from scintools_tpu_torch.thth import eig as E
+
+    dyns = aniso["dyns"]
+    det = D.ArcDetector(nf=aniso["nf"], nt=aniso["ns"], dt=aniso["dt"],
+                        df=aniso["df"],
+                        eta_range=(aniso["eta_t"] / 5, aniso["eta_t"] * 5),
+                        n_templates=aniso["K"], confirm=True,
+                        f0=aniso["freq"], device=dev)
+
+    def process(payload, tier=None):
+        x = torch.as_tensor(payload, device=dev)
+        return {"v": torch.fft.rfft2(x).abs().square().sum()}
+
+    process(dyns[0])
+
+    def stream(hooked):
+        src = QueueSource()
+        svc = SurveyService(src, process,
+                            os.path.join(tmp, f"detect{int(hooked)}"),
+                            tiers=(TIER_FUSED,), http=False,
+                            heartbeat=False, report=False,
+                            warmup=det.warmup if hooked else None)
+        if hooked:
+            svc.add_on_published(det.make_hook())
+        with svc:
+            if hooked:
+                wait_for(lambda: svc.ready()["warm"], 120, "the warm-up")
+            E.batched_eig_warmstart.launches = 0
+            for i in range(len(dyns)):
+                src.put(f"e{i:03d}", dyns[i])
+                time.sleep(DETECT_ARRIVAL_S)
+            wait_for(lambda: served(svc) >= len(dyns), 300,
+                     "15.3's epochs")
+        # stop() has joined the loop thread, so every hook has run
+        return (svc.latency_percentiles(), svc.state_snapshot(),
+                E.batched_eig_warmstart.launches)
+
+    threads = sorted(t.name for t in threading.enumerate())
+    plain, _, _ = stream(False)
+    hooked, state, launches = stream(True)
+    ratio = hooked["p95_s"] / plain["p95_s"]
+    got = {k: v.get("detect") for k, v in state["epochs"].items()}
+
+    def examine_all():
+        t0 = time.perf_counter()
+        recs = [det.examine(f"e{i:03d}", d) for i, d in enumerate(dyns)]
+        return recs, (time.perf_counter() - t0) / len(dyns) * 1e3
+
+    refs, graphed_ms = examine_all()
+    # the detector's programs once more without their CUDA graphs (each
+    # cached wrapper swapped for the function it captured): the records
+    # must not change, and the time per epoch says what the graphs save
+    caches = (DC._CORRELATE_CACHE, DR._REFINE_CACHE, DT._TRIGGER_CACHE)
+    saved = [dict(c) for c in caches]
+    for c in caches:
+        c.update({k: fn.fn for k, fn in c.items()})
+    try:
+        eager, eager_ms = examine_all()
+    finally:
+        for c, kept in zip(caches, saved):
+            c.clear()
+            c.update(kept)
+    same_eager = sum(json.dumps(a, sort_keys=True, default=str)
+                     == json.dumps(b, sort_keys=True, default=str)
+                     for a, b in zip(refs, eager))
+    worst, bitwise, mismatched = 0.0, 0, []
+    for i, ref in enumerate(refs):
+        key = f"e{i:03d}"
+        rec = got.get(key)
+        if rec is None or set(rec) != set(ref):
+            mismatched.append(key)
+            continue
+        bitwise += json.dumps(rec, sort_keys=True, default=str) \
+            == json.dumps(ref, sort_keys=True, default=str)
+        for name, a in ref.items():
+            b = rec[name]
+            if isinstance(a, float) and isinstance(b, float):
+                worst = max(worst, abs(a - b) / max(abs(a), 1e-30))
+            elif a != b and not (a is None and b is None):
+                mismatched.append(f"{key}.{name}")
+    print(f"    {len(dyns)} epochs every {DETECT_ARRIVAL_S * 1e3:.0f} ms: "
+          f"ingest→publish p95 bare {plain['p95_s']} s, hooked "
+          f"{hooked['p95_s']} s (ratio {ratio:.3f}, gate 2); /state detect "
+          f"{state.get('detect')}; eig_warmstart launches {launches}; "
+          f"records bitwise the direct examine {bitwise}/{len(dyns)}, worst "
+          f"rel float {worst:.3e}, mismatched {mismatched[:5]}", flush=True)
+    print(f"    direct examine {graphed_ms:.3f} ms/epoch with the detector's "
+          f"CUDA graphs, {eager_ms:.3f} without ({card_line()}); records "
+          f"equal {same_eager}/{len(dyns)}; threads before the streams "
+          f"{len(threads)} {threads}", flush=True)
+    check(launches > 0, "15.3: the hook never launched eig_warmstart")
+    check(same_eager == len(dyns),
+          f"15.3: {len(dyns) - same_eager} records differ without the CUDA "
+          "graphs")
+    check(not mismatched and worst <= 1e-6,
+          f"15.3: detect records differ from the direct examine: "
+          f"{mismatched[:5]}, worst rel {worst:.3e}")
+    check(ratio <= 2.0, f"15.3: p95 with the hook is {ratio:.2f}× without")
+    return dict(p95_plain_s=plain["p95_s"], p95_hooked_s=hooked["p95_s"],
+                latency_ratio=ratio, detect_counts=state.get("detect"),
+                examine_ms=graphed_ms, examine_eager_ms=eager_ms,
+                launches=launches, records_bitwise=bitwise,
+                records_worst_rel=worst)
+
+
+def worker_counts(wd):
+    """``{worker: kernel_counts.json}`` of a fleet run's workers."""
+    root = os.path.join(wd, "workers")
+    out = {}
+    for w in sorted(os.listdir(root)):
+        p = os.path.join(root, w, "kernel_counts.json")
+        if os.path.exists(p):
+            with open(p) as fh:
+                out[w] = json.load(fh)
+    return out
+
+
+def print_workers(fleet, counts):
+    for w, c in sorted(counts.items()):
+        info = fleet["workers"].get(w) or {}
+        print(f"      {w}: epochs {info.get('epochs')}, tasks "
+              f"{info.get('tasks')}, stolen {info.get('stolen')}; start-up "
+              f"(s since process start): imports {c['import_s']:.2f}, CUDA "
+              f"context {c['context_s']:.2f}, first batch "
+              f"{c.get('first_batch_s', float('nan')):.2f}; arc_profile "
+              f"launches {c.get('launches')} on {c['device']}", flush=True)
+
+
+def scenario_fleet_phase(tmp, scen13, victim="w1"):
+    """15.4: ``run_scenario_fleet`` at 13.1's configuration (3 regimes ×
+    336 epochs, batch 48) by 3 worker processes on the card, the plane
+    on an ephemeral port, a lease of 5 s, and worker ``victim`` SIGKILLed
+    once it holds a claim; the merged journal must equal 13.1's line for
+    line."""
+    import signal
+    import threading
+
+    from scintools_tpu_torch.obs.heartbeat import read_heartbeat_file
+    from scintools_tpu_torch.parallel.checkpoint import EpochJournal
+    from scintools_tpu_torch.sim.scenario import run_scenario_fleet
+
+    kw = dict(scen13["kw"])
+    batch = kw.pop("batch_size")
+    wd = os.path.join(tmp, "scenario_fleet")
+    box = {}
+
+    def run():
+        try:
+            box["out"] = run_scenario_fleet(
+                wd, n_workers=3, batch_size=batch, timeout=900.0,
+                plane_port=0, target="chip_smoke:counted_scenario_workload",
+                pod_options=dict(lease_s=5.0, skew_s=1.0, poll_s=0.2,
+                                 monitor_s=0.25), device="cuda", **kw)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    claims = os.path.join(wd, "queue", "claims", victim)
+    beats = [os.path.join(wd, "heartbeats", f"w{i}.json") for i in range(3)]
+    scrape, pid, held, t_kill = None, None, None, None
+    deadline = time.monotonic() + 600
+    while th.is_alive() and (scrape is None or pid is None):
+        check(time.monotonic() < deadline, "15.4: the fleet never started")
+        if scrape is None and os.path.exists(os.path.join(wd, "plane.json")) \
+                and all(read_heartbeat_file(b) for b in beats):
+            with open(os.path.join(wd, "plane.json")) as fh:
+                url = json.load(fh)["url"]
+            m = http_get(url + "/metrics")
+            wk = http_get(url + "/workers")
+            alive = [ln.split()[-1] for ln in m[2].splitlines()
+                     if ln.startswith("fleet_workers_alive ")]
+            scrape = dict(ctype=m[1], workers_alive=alive,
+                          workers=sorted(wk[2]["workers"]),
+                          n_alive=wk[2]["n_alive"])
+        if pid is None and os.path.isdir(claims) and any(
+                f.endswith(".json") for f in os.listdir(claims)):
+            pid = read_heartbeat_file(beats[1])["pid"]
+            time.sleep(1.0)                  # mid-task
+            os.kill(pid, signal.SIGKILL)
+            held = any(f.endswith(".json") for f in os.listdir(claims))
+            t_kill = round(time.perf_counter() - t0, 1)
+        time.sleep(0.05)
+    th.join(timeout=900)
+    wall_s = time.perf_counter() - t0
+    if "error" in box:
+        fail(f"15.4: run_scenario_fleet raised {box['error']!r}")
+    out = box["out"]
+    s, fleet = out["summary"], out["fleet"]
+    merged = EpochJournal(out["journal"]).valid_lines()
+    ref = EpochJournal(scen13["journal"]).valid_lines()
+    differ = [i for i, (a, b) in enumerate(zip(merged, ref)) if a != b]
+    counts = worker_counts(wd)
+    survivors = [w for w in counts if w != victim]
+    launches = sum(c.get("launches", 0) for c in counts.values())
+    print(f"    {s['n_epochs']} epochs by 3 processes: wall {wall_s:.3f} s "
+          f"({s['n_epochs'] / wall_s:.2f} epochs/s, {card_line()}; 13.1 "
+          f"single-process {scen13['wall_s']:.3f} s); {victim} (pid {pid}) "
+          f"SIGKILLed at {t_kill} s holding a claim {held}; ok "
+          f"{s['n_ok']}, quarantined {s['n_quarantined']}; dead "
+          f"{fleet['dead_workers']}, steals {fleet['steals']}, merge "
+          f"{fleet['merge']}; merged journal == 13.1's: "
+          f"{merged == ref} ({len(merged)} lines, {len(differ)} differ); "
+          f"plane mid-run: {scrape}", flush=True)
+    print_workers(fleet, counts)
+    if differ:
+        i = differ[0]
+        print(f"    first differing line {i}:\n      fleet {merged[i]}\n"
+              f"      13.1  {ref[i]}", flush=True)
+    check(s["n_epochs"] == len(ref)
+          and s["n_ok"] + s["n_quarantined"] == len(ref),
+          f"15.4: summary {s}, 13.1 journaled {len(ref)}")
+    check(victim in fleet["dead_workers"], "15.4: the victim is not dead")
+    check(not held or fleet["steals"] >= 1,
+          "15.4: the victim's claim was never stolen")
+    check(fleet["merge"]["conflicts"] == 0, "15.4: merge conflicts")
+    check(merged == ref, "15.4: the merged journal differs from 13.1's")
+    check(sorted(survivors) == ["w0", "w2"]
+          and all(counts[w].get("launches", 0) > 0
+                  and counts[w]["device"] == torch.cuda.get_device_name(0)
+                  for w in survivors),
+          f"15.4: a surviving worker launched no arc_profile: {counts}")
+    check(scrape is not None
+          and scrape["ctype"].startswith("text/plain; version=0.0.4")
+          and [float(v) for v in scrape["workers_alive"]] == [3.0]
+          and scrape["n_alive"] == 3
+          and scrape["workers"] == ["w0", "w1", "w2"],
+          f"15.4: the plane showed {scrape}")
+    return dict(wall_s=wall_s, epochs_per_s=s["n_epochs"] / wall_s,
+                summary=s, dead=fleet["dead_workers"],
+                steals=fleet["steals"], victim_held=held,
+                merge=fleet["merge"], journal_equal=merged == ref,
+                plane=scrape, workers=counts, launches=launches)
+
+
+def mcmc_fleet_phase(tmp, post14, n_workers=2):
+    """15.5: ``run_mcmc_fleet`` at 14.3's configuration by 2 worker
+    processes; the merged journal and the coverage summary equal
+    14.3's."""
+    from scintools_tpu_torch.mcmc.survey import run_mcmc_fleet
+    from scintools_tpu_torch.parallel.checkpoint import EpochJournal
+
+    kw = dict(post14["kw"])
+    batch = kw.pop("batch_size")
+    wd = os.path.join(tmp, "mcmc_fleet")
+    t0 = time.perf_counter()
+    out = run_mcmc_fleet(wd, n_workers=n_workers, batch_size=batch,
+                         timeout=600.0,
+                         target="chip_smoke:counted_mcmc_workload",
+                         pod_options=dict(lease_s=20.0, poll_s=0.2,
+                                          monitor_s=0.25),
+                         device="cuda", **kw)
+    wall_s = time.perf_counter() - t0
+    s = out["summary"]
+    merged = EpochJournal(out["journal"]).valid_lines()
+    ref = EpochJournal(post14["journal"]).valid_lines()
+    counts = worker_counts(wd)
+    same_cov = out["coverage"] == post14["coverage"]
+    print(f"    {s['n_epochs']} epochs by {n_workers} processes: wall "
+          f"{wall_s:.3f} s ({s['n_epochs'] / wall_s:.2f} epochs/s, "
+          f"{card_line()}; 14.3 single-process {post14['wall_s']:.3f} s); "
+          f"ok {s['n_ok']}; merged journal == 14.3's {merged == ref} "
+          f"({len(merged)} lines); coverage equal {same_cov}", flush=True)
+    print_workers(out["fleet"], counts)
+    check(merged == ref, "15.5: the merged journal differs from 14.3's")
+    check(same_cov, "15.5: the coverage summary differs from 14.3's")
+    check(len(counts) == n_workers
+          and all(c.get("launches", 0) > 0 for c in counts.values()),
+          f"15.5: a worker launched no arc_profile: {counts}")
+    return dict(wall_s=wall_s, epochs_per_s=s["n_epochs"] / wall_s,
+                summary=s, journal_equal=merged == ref,
+                coverage_equal=same_cov, workers=counts,
+                launches=sum(c["launches"] for c in counts.values()))
+
+
+def phase15_main():
+    """``python3 chip_smoke.py --phase15``: phase 15 alone, its inputs
+    made by the same calls as phases 13 and 14 make them (13.1's and
+    14.3's surveys at their configurations, 13.2, 14.4), without their
+    other gates."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    from scintools_tpu_torch import _build
+    from scintools_tpu_torch.mcmc import survey as MS
+    from scintools_tpu_torch.sim import scenario as SC
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
+    print(f"[1] device {card}; nvidia-smi: {smi()}", flush=True)
+    _build.build()
+    lap("1 device and build")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as tmp:
+        kw13 = dict(epochs_per_regime=336, batch_size=48, seed=5,
+                    numsteps=1000, n_iter=40)
+        t0 = time.perf_counter()
+        SC.run_scenario_survey(os.path.join(tmp, "scenario"), device=dev,
+                               **kw13)
+        scen = dict(journal=os.path.join(tmp, "scenario", "journal.jsonl"),
+                    kw=kw13, wall_s=time.perf_counter() - t0)
+        lap("13.1 run_scenario_survey")
+        flux = psrflux_survey_phase(dev, tmp)
+        lap("13.2 run_psrflux_survey")
+        kw14 = dict(epochs_per_regime=48, batch_size=48)
+        t0 = time.perf_counter()
+        res = MS.run_mcmc_survey(os.path.join(tmp, "posterior"),
+                                 device=dev, **kw14)
+        post_survey = dict(
+            journal=os.path.join(tmp, "posterior", "journal.jsonl"),
+            kw=kw14, wall_s=time.perf_counter() - t0,
+            coverage=res["coverage"])
+        lap("14.3 run_mcmc_survey")
+        det = detection_phase(dev)
+        lap("14.4 arc detection")
+        serve = serve_fleet_phase(
+            dev, tmp, {"psrflux": flux, "scenario": scen},
+            {"survey": post_survey, "detection": det})
+    print(json.dumps({"serving_and_fleet": serve, "phase_s": PHASE_S}),
+          flush=True)
+    print(smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    phase15_main() if "--phase15" in sys.argv[1:] else main()

@@ -17,7 +17,10 @@ generate → search → fit workload, ``Brightness``) makes its screens and
 propagates them on the card too. Surveys run through the journaled,
 pipelined runner with its fallback ladder (``robust/``, ``obs/``,
 ``parallel/``): ``run_psrflux_survey``, ``run_wavefield_survey`` and
-``sim.scenario.run_scenario_survey``. Entry points take
+``sim.scenario.run_scenario_survey``; ``serve_psrflux_survey`` runs a
+survey as a long-lived daemon over a spool directory (``serve/``), and
+``run_scenario_fleet`` / ``run_mcmc_fleet`` run one by N worker
+processes through a work queue (``fleet/``). Entry points take
 ``device=None``, meaning the card; pass ``device="cpu"`` to run the
 plain PyTorch versions on the CPU.
 
@@ -27,7 +30,8 @@ names it keeps.
 """
 
 from .dynspec import (BasicDyn, Dynspec, HoloDyn, MatlabDyn, SimDyn,
-                      run_psrflux_survey, run_wavefield_survey, sort_dyn)
+                      run_psrflux_survey, run_wavefield_survey,
+                      serve_psrflux_survey, sort_dyn)
 from .io.psrflux import load_psrflux, write_psrflux
 from .ops.sspec import secondary_spectrum
 from .sim import (ACF, DEFAULT_REGIMES, SIM_GROUP_SIZE, Brightness,
@@ -44,6 +48,6 @@ __all__ = ["ACF", "BasicDyn", "Brightness", "DEFAULT_REGIMES", "Dynspec",
            "grid_retrieval_batch", "lane_keys_from_seeds", "load_psrflux",
            "mosaic_device", "multi_chunk_search", "multi_chunk_search_thin",
            "recovery_summary", "run_psrflux_survey", "run_wavefield_survey",
-           "scenario_truths", "secondary_spectrum",
+           "scenario_truths", "secondary_spectrum", "serve_psrflux_survey",
            "simulate_scenarios", "simulate_screens", "sort_dyn",
            "write_psrflux"]

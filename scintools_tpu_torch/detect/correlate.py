@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import fifo_cached, resolve_device
+from ..backend import cuda_graphed, fifo_cached, resolve_device
 from ..obs import retrace as _retrace
 
 VARIANTS = ("half", "dense")
@@ -89,8 +89,9 @@ def correlate_program(nf, nt, n_batch, n_templates, *, variant=None,
         _retrace.record_build("detect.correlate", key)
         wins = None
         if window is not None:
-            wins = get_window(int(nt), int(nf), window=window,
-                              frac=window_frac)
+            wins = tuple(torch.as_tensor(w, dtype=torch.float32, device=dev)
+                         for w in get_window(int(nt), int(nf), window=window,
+                                             frac=window_frac))
 
         def run(dyns, T, valid):
             in_ok = guards.chunk_finite_ok(dyns)
@@ -115,7 +116,7 @@ def correlate_program(nf, nt, n_batch, n_templates, *, variant=None,
             ok = guards.health_code(input_ok=in_ok, cs_ok=cs_ok)
             return scores, ok
 
-        return run
+        return cuda_graphed(run)
 
     return fifo_cached(_CORRELATE_CACHE, key, make, _MAX_CACHED)
 

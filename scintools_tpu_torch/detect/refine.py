@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import fifo_cached
+from ..backend import cuda_graphed, fifo_cached
 from ..obs import retrace as _retrace
 from ..ops.sspec import fft_shapes, sspec_axes, zoom_band
 
@@ -74,8 +74,9 @@ def refine_program(nf, nt, dt, df, *, n_eta=DEFAULT_N_ETA, n_r=None,
         _retrace.record_build("detect.refine", key)
         wins = None
         if window is not None:
-            wins = get_window(int(nt), int(nf), window=window,
-                              frac=window_frac)
+            wins = tuple(torch.as_tensor(w, dtype=torch.float32, device=dev)
+                         for w in get_window(int(nt), int(nf), window=window,
+                                             frac=window_frac))
         nr, nc = int(n_r), int(n_c)
         dtau = float(tdel[1] - tdel[0])     # native delay bin width
         tau_scale = float(np.float32(1.0 / (nrfft * df)))   # bin → µs
@@ -114,7 +115,7 @@ def refine_program(nf, nt, dt, df, *, n_eta=DEFAULT_N_ETA, n_r=None,
             t = t / torch.clamp(nrm, min=1e-20)
             return (t * xhat[None]).sum(dim=(1, 2))
 
-        return run
+        return cuda_graphed(run)
 
     return fifo_cached(_REFINE_CACHE, key, make, _MAX_CACHED)
 

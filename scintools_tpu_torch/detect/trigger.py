@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import fifo_cached, resolve_device
+from ..backend import cuda_graphed, fifo_cached, resolve_device
 from ..obs import retrace as _retrace
 
 #: defaults calibrated on the scenario factory's closed loop: against the
@@ -81,7 +81,7 @@ def trigger_program(n_batch, n_templates, *, threshold=None, score_min=None,
             hit = (z_best >= threshold) & (s_best >= score_min) & (ok == 0)
             return z, best.to(torch.int32), s_best, z_best, hit
 
-        return run
+        return cuda_graphed(run)
 
     return fifo_cached(_TRIGGER_CACHE, key, make, _MAX_CACHED)
 

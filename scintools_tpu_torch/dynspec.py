@@ -1930,6 +1930,141 @@ def _psrflux_loader(path, load_fn):
     return load
 
 
+def _survey_batch_fns(alpha, n_iter, dev):
+    """The batched-service pair: ``process_batch(payloads, tier=...)``
+    fits a whole assembled lane group through ONE guarded program on
+    ``dev`` (``fit.batch.make_scint_params_serve``: a per-lane ``ok``
+    health bitmask, bad lanes NaN and flagged, their neighbours
+    bitwise untouched) and brings the group's results to the host in
+    one transfer per field, not one per lane; ``geometry_fn(payload)``
+    keys the lane assembler, so only same-geometry epochs share a
+    batch. Payloads are the survey loaders' ``(dyn, dt, df)``."""
+    import torch
+
+    from .fit.batch import make_scint_params_serve
+
+    def process_batch(payloads, tier=None):
+        dyns = torch.as_tensor(
+            np.stack([np.asarray(p[0], dtype=np.float32)
+                      for p in payloads]), device=dev)
+        dt, df = float(payloads[0][1]), float(payloads[0][2])
+        B, nf, nt = dyns.shape
+        program = make_scint_params_serve(B, nf, nt, dt, df, alpha=alpha,
+                                          n_iter=n_iter, device=dev)
+        out = {k: v.cpu().numpy() for k, v in program(dyns).items()}
+        return [{k: (int(v[i]) if k == "ok" else float(v[i]))
+                 for k, v in out.items()} for i in range(B)]
+
+    def geometry_fn(payload):
+        dyn, dt, df = payload
+        return (tuple(np.shape(dyn)), round(float(dt), 9),
+                round(float(df), 9))
+
+    return process_batch, geometry_fn
+
+
+def _serve(load_fn, process, spool_dir, workdir, pattern, poll_s, host,
+           port, start, max_batch, alpha, n_iter, dev, service_kw):
+    """The service both serving entries build: a :class:`SpoolWatcher`
+    over ``spool_dir`` feeding a :class:`SurveyService` (batched when
+    ``max_batch`` > 1), with one tier as :func:`run_psrflux_survey`."""
+    from .robust.ladder import TIER_FUSED
+    from .serve import SpoolWatcher, SurveyService
+
+    if max_batch is not None and max_batch > 1:
+        process_batch, geometry_fn = _survey_batch_fns(alpha, n_iter, dev)
+        service_kw.setdefault("process_batch", process_batch)
+        service_kw.setdefault("geometry_fn", geometry_fn)
+        service_kw.setdefault("max_batch", max_batch)
+    service_kw.setdefault("tiers", (TIER_FUSED,))
+    service_kw.setdefault("http", (host, port))
+    source = SpoolWatcher(spool_dir, pattern=pattern, poll_s=poll_s)
+    service = SurveyService(source, process, workdir, load_fn=load_fn,
+                            **service_kw)
+    return service.start() if start else service
+
+
+def serve_psrflux_survey(spool_dir, workdir, crop=None, alpha=5 / 3,
+                         n_iter=100, pattern="*.dynspec", poll_s=0.2,
+                         host="127.0.0.1", port=0, start=True,
+                         max_batch=None, device=None, **service_kw):
+    """Survey as a service on ``device`` (``None``: the card): watch
+    ``spool_dir`` for arriving psrflux epochs and stream them through
+    the pipelined fit engine for as long as the process lives.
+
+    Each matching file, once COMPLETE (the
+    :class:`~scintools_tpu_torch.serve.SpoolWatcher` admits a file only
+    after its size stops changing), becomes one epoch: parsed in the
+    background prefetch workers, fitted as :func:`run_psrflux_survey`
+    fits it (the same ``process``, one tier, the same quarantine),
+    fenced, published to the append-only ``workdir/results.jsonl``
+    store, deduped by content hash and resumed across restarts. The
+    live telemetry listener binds ``host:port`` (``port=0`` =
+    ephemeral; see ``service.http_port``): ``/metrics``, ``/healthz``,
+    ``/readyz``, ``/report``, ``/state``, ``/ledger``.
+
+    Returns the (started, unless ``start=False``)
+    :class:`~scintools_tpu_torch.serve.SurveyService`; call ``stop()``
+    for a graceful drain and the final RunReport, or SIGKILL it — the
+    next start resumes. Remaining ``service_kw`` pass to
+    :class:`~scintools_tpu_torch.serve.SurveyService` (``heartbeat``,
+    ``prefetch``/``inflight``/``loader_workers``, ``validate``,
+    ``warmup``, ``tenant_policy``, ``tiers``).
+
+    ``max_batch`` (> 1) turns on the batched mode: arrivals assemble
+    into lanes of one guarded program per geometry, the batch size
+    tracking the backlog up to ``max_batch`` and draining back to
+    single-epoch dispatch at idle. Tenant subdirectories of the spool
+    become tenant namespaces."""
+    dev = resolve_device(device)
+    load_fn, process = _psrflux_survey_fns(crop, alpha, n_iter, dev)
+    return _serve(load_fn, process, spool_dir, workdir, pattern, poll_s,
+                  host, port, start, max_batch, alpha, n_iter, dev,
+                  service_kw)
+
+
+def serve_fits_survey(spool_dir, workdir, dt, df, crop=None, alpha=5 / 3,
+                      n_iter=100, pattern="*.fits", poll_s=0.2,
+                      host="127.0.0.1", port=0, start=True, max_batch=None,
+                      device=None, **service_kw):
+    """FITS counterpart of :func:`serve_psrflux_survey`: watch
+    ``spool_dir`` for simple FITS images (``io.fitsio.read_fits_image``,
+    a primary-HDU 2-D dynspec) and stream them through the same fit.
+    A simple FITS image carries no axis calibration, so the caller
+    gives the shared ``dt`` [s] and ``df`` [MHz]. A truncated or
+    malformed file raises ``MalformedInputError`` in the loader and is
+    quarantined while the stream flows on; everything else is shared
+    with the psrflux entry."""
+    dev = resolve_device(device)
+    load_fn, process = _fits_survey_fns(dt, df, crop, alpha, n_iter, dev)
+    return _serve(load_fn, process, spool_dir, workdir, pattern, poll_s,
+                  host, port, start, max_batch, alpha, n_iter, dev,
+                  service_kw)
+
+
+def _fits_survey_fns(dt, df, crop, alpha, n_iter, dev):
+    """The ``(load_fn, process)`` pair of the FITS serving entry:
+    ``load_fn`` parses one primary-HDU image into the shared ``(dyn, dt,
+    df)`` payload; ``process`` is the psrflux entries' fit."""
+    from .io.fitsio import read_fits_image
+    from .io.psrflux import MalformedInputError
+
+    _, process = _psrflux_survey_fns(crop, alpha, n_iter, dev)
+
+    def load_fn(path):
+        dyn = np.asarray(read_fits_image(path, survey=True),
+                         dtype=np.float32)
+        if dyn.ndim != 2:
+            raise MalformedInputError(
+                path, f"expected a 2-D dynspec image, got shape "
+                      f"{dyn.shape}")
+        if crop is not None:
+            dyn = dyn[:crop[0], :crop[1]]
+        return dyn, float(dt), float(df)
+
+    return load_fn, process
+
+
 def _chunk_slices(cf, ct, cwf, cwt, fit=True):
     """Frequency and time slices of chunk (cf, ct): fitting chunks tile
     the plane; retrieval chunks (``fit=False``) half-overlap."""

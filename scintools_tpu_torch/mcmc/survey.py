@@ -460,11 +460,36 @@ def run_mcmc_survey(workdir, batch_size=48, resume=True, heartbeat=None,
     return out
 
 
-def run_mcmc_fleet(*args, **kwargs):
-    """The distributed posterior survey needs ``fleet/``, which the port
-    does not have yet."""
-    raise NotImplementedError("run_mcmc_fleet is not ported yet: it needs "
-                              "fleet/ (ROADMAP item 12)")
+def run_mcmc_fleet(workdir, n_workers=3, batch_size=48, timeout=900.0,
+                   pod_options=None, plane_port=None,
+                   target="scintools_tpu_torch.mcmc.survey:"
+                          "mcmc_scenario_workload",
+                   **workload_params):
+    """The posterior survey DISTRIBUTED over the fleet: epoch-batch
+    tasks on the shared work queue, lease-based stealing, per-worker
+    journals merged deterministically, and (``plane_port``) the merged
+    telemetry plane. ``workload_params`` are
+    :func:`mcmc_scenario_workload` parameters and travel to the worker
+    processes as JSON (``device`` a string or None, the card);
+    ``target`` names the workload callable as in
+    :func:`~scintools_tpu_torch.sim.scenario.run_scenario_fleet`.
+    Returns the pod result extended with ``"coverage"``."""
+    from ..fleet.pod import run_pod
+
+    spec = {"target": target, "params": dict(workload_params)}
+    options = dict(pod_options or {})
+    if plane_port is not None:
+        options.setdefault("plane_port", plane_port)
+    out = run_pod(workdir, spec, n_workers=n_workers,
+                  batch_size=batch_size, timeout=timeout, **options)
+    cov = coverage_summary(out["results"])
+    out["coverage"] = cov
+    slog.log_event("mcmc.coverage_summary",
+                   n_epochs=out["summary"]["n_epochs"],
+                   coverage={r: {k: (round(v, 4) if isinstance(v, float)
+                                     else v) for k, v in d.items()}
+                             for r, d in cov.items()})
+    return out
 
 
 def model_evidence_batched(build_loglike, key, data, x0, lo, hi,

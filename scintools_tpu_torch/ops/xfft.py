@@ -182,6 +182,9 @@ def _f64(v, device):
     as float64 on ``device``."""
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=torch.float64)
+    if np.ndim(v) == 0:
+        # a fill on the device, no host copy: a CUDA graph can hold it
+        return torch.full((), float(v), dtype=torch.float64, device=device)
     return torch.tensor(v, dtype=torch.float64, device=device)
 
 

@@ -316,11 +316,41 @@ def run_scenario_survey(workdir, regimes=DEFAULT_REGIMES,
     return out
 
 
-def run_scenario_fleet(*args, **kwargs):
-    """The distributed closed-loop survey needs ``fleet/``, which the
-    port does not have yet."""
-    raise NotImplementedError("run_scenario_fleet is not ported yet: it "
-                              "needs fleet/ (ROADMAP item 12)")
+def run_scenario_fleet(workdir, n_workers=3, batch_size=48,
+                       timeout=900.0, pod_options=None, plane_port=None,
+                       target="scintools_tpu_torch.sim.scenario:"
+                              "scenario_workload",
+                       **workload_params):
+    """The scenario survey DISTRIBUTED: the same closed
+    generate → search → fit loop, run by ``n_workers`` worker processes
+    through the fleet work queue (fleet/pod.py) — epoch-batch tasks,
+    lease-based work-stealing, per-worker journals merged
+    deterministically into one survey journal and a merged RunReport.
+    ``workload_params`` are :func:`scenario_workload` parameters and
+    travel to the workers as JSON, so ``device`` is a string (``"cuda"``,
+    ``"cpu"``) or None (the card). ``target`` names the workload
+    callable (``"module:callable"`` with :func:`scenario_workload`'s
+    signature and result; a wrapper may add instrumentation). Returns
+    the pod result with the per-regime ``"recovery"`` summary, as
+    :func:`run_scenario_survey` does.
+
+    ``plane_port`` (0 = ephemeral, advertised in ``<workdir>/plane.json``)
+    starts the fleet observability plane: one port serving the merged
+    ``/metrics``, ``/state``, ``/report`` and ``/workers`` of the run."""
+    from ..fleet.pod import run_pod
+
+    spec = {"target": target, "params": dict(workload_params)}
+    options = dict(pod_options or {})
+    if plane_port is not None:
+        options.setdefault("plane_port", plane_port)
+    out = run_pod(workdir, spec, n_workers=n_workers,
+                  batch_size=batch_size, timeout=timeout, **options)
+    out["recovery"] = recovery_summary(out["results"])
+    slog.log_event("sim.scenario_summary",
+                   n_epochs=out["summary"]["n_epochs"],
+                   recovery={r: {k: round(v, 4) for k, v in d.items()}
+                             for r, d in out["recovery"].items()})
+    return out
 
 
 def recovery_summary(results):

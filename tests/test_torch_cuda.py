@@ -5,8 +5,10 @@ chunk and a batch), the
 wavefield retrieval, the survey arc fit, the acf2d fit, the trapezoid
 rescale, the zoom and off-grid transforms and the scattered image's
 interpolation run on the card
-against the same calls on the CPU, and the scintillation fits' NaN lanes
-leave their neighbours bit for bit unchanged on the card.
+against the same calls on the CPU, the scintillation fits' NaN lanes
+leave their neighbours bit for bit unchanged on the card, the serving
+daemon fits a spool there as on the CPU, and a fleet's workers launch
+the arc-profile kernel.
 
 Every test skips without a CUDA card. The file imports only the port,
 so on a machine with a card and no JAX it runs on its own:
@@ -796,3 +798,121 @@ def test_sampler_and_correlator_stay_on_the_card(cuda):
         rng.normal(50.0, 3.0, (2, 64, 128)).astype(np.float32), bank)
     assert scores.device.type == ok.device.type == "cuda"
     assert scores.shape == (2, 8) and torch.isfinite(scores).all()
+
+
+def test_cuda_graphed_replays_the_function(cuda):
+    """``backend.cuda_graphed`` on the card: every replay equals the
+    function run eagerly bit for bit, a later replay leaves an earlier
+    result alone, and a new signature captures a second graph."""
+    from scintools_tpu_torch.backend import cuda_graphed
+
+    def fn(x, w):
+        s = torch.fft.rfft2(x).abs().square().reshape(x.shape[0], -1)
+        med = torch.nanquantile(s, 0.5, dim=1, keepdim=True)
+        return s @ w - med, (s > 0).all(dim=1)
+
+    g = cuda_graphed(fn)
+    rng = np.random.default_rng(3)
+    xs = [torch.as_tensor(rng.normal(size=(4, 32, 32)), dtype=torch.float32,
+                          device=cuda) for _ in range(3)]
+    w = torch.as_tensor(rng.normal(size=(32 * 17, 8)), dtype=torch.float32,
+                        device=cuda)
+    first = g(xs[0], w)
+    second = g(xs[1], w)
+    for got, x in ((first, xs[0]), (second, xs[1])):
+        assert all(torch.equal(a, b) for a, b in zip(got, fn(x, w)))
+    assert len(g.graphs) == 1
+    third = g(xs[2][:2], w)
+    assert all(torch.equal(a, b) for a, b in zip(third, fn(xs[2][:2], w)))
+    assert len(g.graphs) == 2
+
+
+def test_detector_graphs_keep_the_records(cuda):
+    """The detector's CUDA-graphed correlation, trigger and refinement
+    give the records that the same functions give run eagerly (each
+    cached wrapper swapped for the function it captured)."""
+    from scintools_tpu_torch import detect as tdet
+    from scintools_tpu_torch.detect import correlate as tcor
+    from scintools_tpu_torch.detect import refine as tref
+    from scintools_tpu_torch.detect import trigger as ttrig
+
+    dyn, times, freqs, _ = _arc_epoch()
+    det = tdet.ArcDetector(nf=64, nt=64, dt=30.0, df=0.2,
+                           eta_range=(0.05, 2.0), n_templates=16,
+                           device=cuda)
+    rng = np.random.default_rng(5)
+    epochs = [dyn + 0.05 * rng.normal(size=dyn.shape) for _ in range(3)]
+    graphed = [det.examine(f"e{i}", d) for i, d in enumerate(epochs)]
+    caches = (tcor._CORRELATE_CACHE, tref._REFINE_CACHE,
+              ttrig._TRIGGER_CACHE)
+    saved = [dict(c) for c in caches]
+    assert any(fn.graphs for c in saved for fn in c.values())
+    for c in caches:
+        c.update({k: fn.fn for k, fn in c.items()})
+    try:
+        eager = [det.examine(f"e{i}", d) for i, d in enumerate(epochs)]
+    finally:
+        for c, kept in zip(caches, saved):
+            c.clear()
+            c.update(kept)
+    assert graphed == eager
+    assert graphed[0]["triggered"]
+
+
+def test_serve_on_card_matches_cpu(cuda, tmp_path):
+    """The daemon fits the same spool on the card as on the CPU (rel
+    1e-4, the tolerance the survey fit is held to), single and batched,
+    and its store journals numbers only."""
+    import os
+    import time
+
+    from scintools_tpu_torch.dynspec import serve_psrflux_survey
+    from scintools_tpu_torch.io.psrflux import RawDynSpec, write_psrflux
+
+    spool = tmp_path / "spool"
+    spool.mkdir()
+    for i in range(6):
+        dyn = make_arc_dynspec(64, 96, 2.0, 0.05, 1400.0, 5e-4, 24, 11 + i)
+        write_psrflux(RawDynSpec(dyn=dyn, times=2.0 * np.arange(64),
+                                 freqs=1400.0 + 0.05 * np.arange(96)),
+                      tmp_path / "e.tmp")
+        os.replace(tmp_path / "e.tmp", spool / f"e{i}.dynspec")
+
+    def served(workdir, **kw):
+        svc = serve_psrflux_survey(spool, tmp_path / workdir, n_iter=30,
+                                   poll_s=0.02, heartbeat=False,
+                                   http=False, **kw)
+        deadline = time.monotonic() + 120
+        while len(svc.results()) < 6 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        svc.stop()
+        return {k: v["result"] for k, v in svc.results().items()}
+
+    ref = served("cpu", device="cpu")
+    for kw in ({"device": cuda}, {"device": None, "max_batch": 4}):
+        got = served(f"card{len(kw)}", **kw)
+        assert set(got) == set(ref)
+        for e in ref:
+            for k in ("tau", "dnu", "amp"):
+                assert isinstance(got[e][k], float)
+                np.testing.assert_allclose(got[e][k], ref[e][k], rtol=1e-4)
+
+
+def test_thread_fleet_on_card_launches_arc_profile(cuda, tmp_path):
+    """A thread-mode scenario fleet on the card launches the arc-profile
+    kernel and merges to the card's own single-process survey."""
+    from scintools_tpu_torch.parallel.checkpoint import EpochJournal
+    from scintools_tpu_torch.sim import scenario as tsc
+
+    kw = dict(epochs_per_regime=4, ns=64, nf=32, seed=3, numsteps=600,
+              n_iter=20, device="cuda")
+    tap.arc_profile.launches = 0
+    out = tsc.run_scenario_fleet(str(tmp_path / "fleet"), n_workers=2,
+                                 batch_size=4, timeout=300.0,
+                                 pod_options={"mode": "thread"}, **kw)
+    assert tap.arc_profile.launches > 0
+    assert out["summary"]["n_epochs"] == 12
+    tsc.run_scenario_survey(str(tmp_path / "ref"), batch_size=4,
+                            report=False, **kw)
+    assert EpochJournal(out["journal"]).valid_lines() == EpochJournal(
+        str(tmp_path / "ref" / "journal.jsonl")).valid_lines()

@@ -181,6 +181,20 @@ class TestCorrelate:
         np.testing.assert_array_equal(T.extract_blocks(dyn, 6, hop=3),
                                       J.extract_blocks(dyn, 6, hop=3))
 
+    def test_cpu_calls_capture_nothing(self, epochs, banks):
+        """The correlation is CUDA-graphed on the card
+        (``backend.cuda_graphed``); CPU tensors go to the function
+        itself: the same scores and health bits, no graph."""
+        dyns, _ = epochs
+        _, carried, _, _ = banks
+        prog = T.correlate_program(NF, NS, len(dyns), carried.n_templates,
+                                   device=CPU)
+        x = torch.as_tensor(dyns)
+        got = prog(x, carried.templates, carried.valid)
+        ref = prog.fn(x, carried.templates, carried.valid)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert prog.graphs == {}
+
     def test_geometry_mismatch_refused(self, banks):
         _, carried, _, _ = banks
         with pytest.raises(ValueError, match="geometry"):

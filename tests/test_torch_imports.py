@@ -76,10 +76,51 @@ def test_import_leaves_jax_package_unloaded():
             " scintools_tpu_torch.detect.correlate,"
             " scintools_tpu_torch.detect.online,"
             " scintools_tpu_torch.detect.refine,"
-            " scintools_tpu_torch.detect.trigger;"
+            " scintools_tpu_torch.detect.trigger, scintools_tpu_torch.serve,"
+            " scintools_tpu_torch.serve.daemon, scintools_tpu_torch.serve.http,"
+            " scintools_tpu_torch.serve.lanes, scintools_tpu_torch.serve.store,"
+            " scintools_tpu_torch.serve.watch, scintools_tpu_torch.obs.plane,"
+            " scintools_tpu_torch.fleet, scintools_tpu_torch.fleet.chaos,"
+            " scintools_tpu_torch.fleet.elastic,"
+            " scintools_tpu_torch.fleet.fsops,"
+            " scintools_tpu_torch.fleet.merge, scintools_tpu_torch.fleet.pod,"
+            " scintools_tpu_torch.fleet.queue,"
+            " scintools_tpu_torch.fleet.telemetry,"
+            " scintools_tpu_torch.fleet.worker;"
             "bad = [m for m in sys.modules if m == 'scintools_tpu' or "
             "m.startswith('scintools_tpu.')];"
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_fleet_worker_process_leaves_jax_unloaded(tmp_path):
+    """``python -m scintools_tpu_torch.fleet.worker`` drains a queue on
+    the CPU with neither JAX nor the JAX package in ``sys.modules``."""
+    import json
+
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"workload": {
+        "target": "scintools_tpu_torch.fleet.worker:demo_workload",
+        "params": {"n_epochs": 4, "device": "cpu"}}}))
+    code = ("import runpy, sys; sys.argv = ['worker', '--queue', "
+            f"{str(tmp_path / 'q')!r}, '--out', {str(tmp_path / 'out')!r},"
+            f" '--spec', {str(spec)!r}];"
+            "from scintools_tpu_torch.fleet import WorkQueue, demo_workload;"
+            f"WorkQueue({str(tmp_path / 'q')!r}).seed("
+            "[('t0', demo_workload(n_epochs=4)['epochs'])]);"
+            "rc = 0\n"
+            "try:\n"
+            "    runpy.run_module('scintools_tpu_torch.fleet.worker',"
+            " run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'jaxlib',"
+            " 'scintools_tpu') or m.startswith(('jax.', 'jaxlib.',"
+            " 'scintools_tpu.'))]\n"
+            "print('BAD', bad, 'RC', rc); sys.exit(1 if bad or rc else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert '"epochs": 4' in r.stdout

@@ -785,8 +785,15 @@ class TestSurvey:
         assert out2["summary"]["n_resumed"] == 8
         assert out2["results"] == out["results"]
         assert (tmp_path / "journal.jsonl").read_bytes() == journal1
-        with pytest.raises(NotImplementedError, match="item 12"):
-            run_mcmc_fleet(tmp_path)
+        # the fleet entry is ported (tests/test_torch_fleet.py runs it):
+        # the JAX signature, plus the workload target before the params
+        import inspect
+
+        from scintools_tpu.mcmc.survey import run_mcmc_fleet as jfleet
+
+        want = list(inspect.signature(jfleet).parameters)
+        got = list(inspect.signature(run_mcmc_fleet).parameters)
+        assert got == want[:-1] + ["target", want[-1]]
 
     def test_numpy_tier_launches_the_b1_fit(self, monkeypatch):
         """The numpy tier samples on the host and fits the arc through

@@ -437,7 +437,9 @@ class TestScenario:
 
     def test_runners_wait_for_their_items(self):
         # the survey engine is ported: run_scenario_survey takes the JAX
-        # signature plus device=; the fleet runner still waits for fleet/
+        # signature plus device=; the fleet runner (ported with fleet/,
+        # run by tests/test_torch_fleet.py) the JAX signature plus the
+        # workload target before the workload's parameters
         import inspect
 
         from scintools_tpu.sim import scenario as jsc
@@ -445,8 +447,9 @@ class TestScenario:
         want = list(inspect.signature(jsc.run_scenario_survey).parameters)
         got = list(inspect.signature(tsc.run_scenario_survey).parameters)
         assert got == want + ["device"]
-        with pytest.raises(NotImplementedError):
-            tsc.run_scenario_fleet("wd")
+        want = list(inspect.signature(jsc.run_scenario_fleet).parameters)
+        got = list(inspect.signature(tsc.run_scenario_fleet).parameters)
+        assert got == want[:-1] + ["target", want[-1]]
 
     def test_batch_wrappers(self):
         from scintools_tpu_torch.sim.simulation import (
