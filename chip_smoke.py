@@ -301,7 +301,45 @@ Phases, each of which exits non-zero on failure:
    (``counted_mcmc_workload``), which writes each worker's launches
    beside its journal: a launch counter counts only in the process that
    launches. ``python3 chip_smoke.py --phase15`` runs phase 15 alone,
-   its inputs made by the calls phases 13 and 14 make.
+   its inputs made by the calls phases 13 and 14 make;
+16. plotting, host matplotlib under Agg (``plotting_phase``): absent
+   matplotlib it prints so and draws nothing (plotting has no device code
+   of its own). Otherwise every plot option and method of the façade on
+   phase 9's processed file, ``thetatheta_single(plot=True)`` and
+   ``fit_thetatheta(plot=True)`` on phase 4's façade, and the plots of
+   ``Simulation`` (12.1's), ``ACF()`` and ``Brightness()``: each expected
+   file written and non-empty, each checked figure drawing the array its
+   call leaves on the object, a call with ``plot=True`` leaving results
+   bitwise the call's without it with the same launches (``eig_warmstart``
+   > 0 on the θ-θ plots); each figure's ms;
+17. the single-host mesh (``mesh_phase``): 4 virtual shards of this card
+   (``make_mesh(4, devices=[card] * 4)``, 2 data × 2 seq; with more
+   cards, also the cards), each path at an earlier phase's width against
+   that phase's unsharded result, the sharded wall beside the unsharded
+   one: 17.1 ``fit_thetatheta(mesh=)`` on the north star, η per chunk
+   within 1e-4 of phase 4's; 17.2 the thin fit within 1e-3 of phase 8's
+   (``tests/test_parallel.py``'s thin façade gate); 17.3
+   ``fit_arc_batch(mesh=)`` on phase 6's 128 epochs of 256², bitwise;
+   17.4 ``retrieve_wavefield(mesh=)`` on phase 4's façade, intensities
+   within rel L2 5e-3 and corr 0.9999 of the unsharded kernel route
+   (phase 5's); 17.5 ``gerchberg_saxton`` on a data-axis-1 mesh
+   (``make_mesh(4, seq=4)``) within rel L2 1e-5 of the unsharded loop
+   (complex64; the JAX test's 1e-9 is float64's); 17.6
+   ``make_sspec_power_sharded`` (its halved frame and a 128 × 64 zoom
+   band) on 64 of phase 10's epochs, rtol 1e-5 with atol 1e-6 of the
+   peak (``tests/test_parallel.py:38``); 17.7 ``make_survey_step`` on
+   them, the cuts within 2e-4, the spectra as 17.6's, and each lane's
+   τ, Δν, amp within 1e-3 relative of the unsharded ``scint_params_batch``
+   and nearer its own lane than any other (a permuted gather fails);
+   17.8 ``make_acf2d_fit_sharded`` on phase 10.3's 32 crops of 65, each
+   lane's τ and Δν within 1e-4 and every parameter within 1e-2 of the
+   unsharded batch, lanes in order as in 17.7; 17.9
+   ``make_eta_search_sharded`` on north-star chunk 0 (rtol 1e-6,
+   ``:185``); 17.10 ``make_scenario_factory_sharded`` at 12.2's width,
+   bitwise. On one card the virtual shards measure only the cost of
+   splitting and gathering: no speed-up is expected.
+   ``python3 chip_smoke.py --phase17`` runs phases 16 and 17 alone,
+   their references made as phases 4 and 8 make them.
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -333,7 +371,10 @@ around ``run_scenario_survey`` (13.1), for the eigenvector entry around
 ``run_mcmc_survey`` (14.3) and for eig_warmstart around the recall
 set's ``examine`` calls (14.4); for eig_warmstart again around the
 hooked daemon's stream (15.3); for the arc profile in each fleet worker
-process, from its start (15.4, 15.5); for the cold-only entry
+process, from its start (15.4, 15.5); for eig_warmstart around the θ-θ
+plots (16, when matplotlib is there) and the mesh fit (17.1), for the
+eigenvector entry around the mesh retrieval (17.4) and for the arc
+profile around the mesh arc fit (17.3); for the cold-only entry
 (no path of the package calls it) around its own call in phase 2. Each
 must be > 0. It prints a ``{"kernels": [...]}`` line (``launches`` is
 the sum over the paths that run the kernel, with each path's count
@@ -849,9 +890,10 @@ def main():
                   times=prob["dt"] * np.arange(nt))
     ds = Dynspec(dyn=bd, process=False, verbose=False)
     ds.calc_sspec()
-    ds.prep_thetatheta(cwf=512, cwt=512, npad=1, eta_min=0.5 * eta_true,
-                       eta_max=2 * eta_true, neta=N_ETA, nedge=256,
-                       edges_lim=prob["th_lim"])
+    prep4 = dict(cwf=512, cwt=512, npad=1, eta_min=0.5 * eta_true,
+                 eta_max=2 * eta_true, neta=N_ETA, nedge=256,
+                 edges_lim=prob["th_lim"])
+    ds.prep_thetatheta(**prep4)
     ds.fit_thetatheta()
     torch.cuda.synchronize()
     facade_s = time.perf_counter() - t0
@@ -869,6 +911,7 @@ def main():
     check(np.isfinite(ds.ththeta)
           and abs(ds.ththeta - eta_true) / eta_true < 0.05,
           "façade ththeta not within 5% of truth")
+    facade_evo = ds.eta_evo.copy()          # phase 17's reference
 
     lap("4 facade")
     hough = hough_phase(prob, bd, eta_true)
@@ -893,6 +936,12 @@ def main():
         survey = survey_phase(dev, loop12, ds, prob, peak_row0, tmp)
         post = posterior_detection_phase(dev, tmp)
         serve = serve_fleet_phase(dev, tmp, survey, post)
+        plots = plotting_phase(dev, processed, ds, tmp)
+        lap("16 plotting")
+        mesh = mesh_phase(dev, ds, facade_evo, thin.pop("eta_evo"), prep4,
+                          bd)
+        lap("17 mesh")
+    launches_m = mesh.pop("launches")
     survey["psrflux"].pop("paths")
     post["detection"].pop("aniso")
 
@@ -915,6 +964,8 @@ def main():
     for path in ("scenario_fleet", "mcmc_fleet"):
         arc_kernel[f"launches_{path}"] = serve[path]["launches"]
         arc_kernel["launches"] += serve[path]["launches"]
+    arc_kernel["launches_mesh_arc_fit"] = launches_m["arc_profile"]
+    arc_kernel["launches"] += launches_m["arc_profile"]
     vec_kernel = ret.pop("kernel")
     launches_wf = survey["wavefield"]["launches"]
     vec_kernel["launches_wavefield_survey"] = launches_wf
@@ -922,17 +973,20 @@ def main():
     launches_nt = survey["numpy_tier"]["launches_eigvec_warmstart"]
     vec_kernel["launches_numpy_tier"] = launches_nt
     vec_kernel["launches"] += launches_nt
+    vec_kernel["launches_mesh_retrieval"] = launches_m["eigvec_warmstart"]
+    vec_kernel["launches"] += launches_m["eigvec_warmstart"]
     launches_lad = (survey["ladder"]["launches"]
                     + survey["ladder"]["launches_staged"])
     launches_dc = post["detection"]["launches"]
     launches_sd = serve["detect"]["launches"]
+    launches_thp = plots.pop("launches_thth_plots", 0)
     print(json.dumps({"kernels": [{
         "name": "eig_warmstart", "route": "cuda",
         "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
         "replaces": "scintools_tpu/thth/pallas_eig.py:217",
         "launches": launches_ns + launches_f + launches_h + launches_1
         + launches_r + launches_p + launches_lad + launches_dc
-        + launches_sd,
+        + launches_sd + launches_m["eig_warmstart"] + launches_thp,
         "launches_north_star": launches_ns, "launches_facade": launches_f,
         "launches_hough_facade": launches_h,
         "launches_single_chunk": launches_1,
@@ -941,6 +995,8 @@ def main():
         "launches_search_ladder": launches_lad,
         "launches_detect_confirm": launches_dc,
         "launches_serve_detect_hook": launches_sd,
+        "launches_mesh_facade": launches_m["eig_warmstart"],
+        "launches_thth_plots": launches_thp,
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -962,7 +1018,7 @@ def main():
         "psrflux": flux, "scintillation": scint, "velocity_zoom": vz,
         "simulation": simu, "survey": survey,
         "posteriors_and_detection": post, "serving_and_fleet": serve,
-        "phase_s": PHASE_S}),
+        "plotting": plots, "mesh": mesh, "phase_s": PHASE_S}),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1857,6 +1913,7 @@ def thin_grid_phase(prob, bd, eta_true, dev):
                grid_vs_rows_rel=worst_grid, thin_grid_ms=thin_ms,
                thin_grid_rows_ms=thin_row_ms, thin_grid_peak_gib=thin_peak,
                thin_grid_vs_rows_rel=worst_thin)
+    out["eta_evo"] = evo          # phase 17's reference (popped by main)
     return out
 
 
@@ -2135,6 +2192,20 @@ def acf2d_epochs(nc, n, dev):
                                   np.ones((nc, nc)), dev)
     return np.stack([clean + 0.01 * clean.max()
                      * rng.standard_normal((nc, nc)) for _ in range(n)])
+
+
+def lanes_in_order(got, ref):
+    """Each lane (row) of ``got`` lies nearer, by the largest relative gap
+    over its values, to the same lane of ``ref`` than to any other, so a
+    gather that permuted lanes fails. Returns (ok, the largest gap of a
+    lane to its own, the least gap of a lane to another)."""
+    got, ref = np.asarray(got, dtype=float), np.asarray(ref, dtype=float)
+    gap = np.nanmax(np.abs(got[:, None] - ref[None]) / np.abs(ref[None]),
+                    axis=-1)
+    own = np.diag(gap).copy()
+    np.fill_diagonal(gap, np.inf)
+    return (bool(np.all(own < gap.min(axis=1))), float(own.max()),
+            float(gap.min()))
 
 
 def within(a, b, err, rel):
@@ -5294,6 +5365,488 @@ def mcmc_fleet_phase(tmp, post14, n_workers=2):
                 launches=sum(c["launches"] for c in counts.values()))
 
 
+def _mpl_figures(call):
+    """``(figures the call opened, its host ms)``; figures it saved stay
+    open (``plotting._finish`` closes a saved figure) so that their
+    arrays can be read."""
+    import matplotlib.pyplot as plt
+
+    before = set(plt.get_fignums())
+    close = plt.close
+    plt.close = lambda *a, **k: None
+    t0 = time.perf_counter()
+    try:
+        call()
+    finally:
+        plt.close = close
+    ms = (time.perf_counter() - t0) * 1e3
+    return [plt.figure(n) for n in sorted(plt.get_fignums())
+            if n not in before], ms
+
+
+def _first_mesh(fig):
+    from matplotlib.collections import QuadMesh
+
+    for ax in fig.axes:
+        for c in ax.collections:
+            if isinstance(c, QuadMesh):
+                return np.ma.filled(np.ma.asarray(c.get_array(), dtype=float),
+                                    np.nan)
+    return None
+
+
+def plotting_phase(dev, da, ds4, tmp, sim_ns=512, sim_nf=1024):
+    """Phase 16: the plots (host matplotlib under Agg, low dpi). Absent
+    matplotlib it prints so and runs nothing: plotting has no device code
+    of its own. Otherwise on phase 9's processed file ``da`` every plot
+    option and method of the façade, on phase 4's fitted façade ``ds4``
+    ``thetatheta_single(plot=True)`` and ``fit_thetatheta(plot=True)``,
+    then phase 12's ``Simulation``, an ``ACF()`` and a ``Brightness()``.
+    Gates: each expected file exists and is non-empty; the arrays a
+    figure draws equal the attribute the call leaves on the object; a
+    call with ``plot=True`` leaves results bitwise those of the call
+    without it, with the same kernel launches (``eig_warmstart`` > 0 on
+    the θ-θ plots). Prints each figure's ms."""
+    import importlib.util
+
+    print("[16] plotting", flush=True)
+    if importlib.util.find_spec("matplotlib") is None:
+        print("    matplotlib is not installed on this machine: phase 16 "
+              "draws nothing", flush=True)
+        return {"matplotlib": False}
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from scintools_tpu_torch import ACF, Brightness, Simulation
+    from scintools_tpu_torch.thth import eig as E
+
+    out = {"matplotlib": matplotlib.__version__, "figure_ms": {}}
+    d = os.path.join(tmp, "plots")
+    os.makedirs(d, exist_ok=True)
+    dpi = 20
+
+    def draw(name, call, files=(), attr=None):
+        figs, ms = _mpl_figures(call)
+        out["figure_ms"][name] = round(ms, 3)
+        for f in files:
+            path = os.path.join(d, f)
+            check(os.path.exists(path) and os.path.getsize(path) > 0,
+                  f"16: {name} wrote no {f}")
+        if attr is not None:
+            got = _first_mesh(figs[0])
+            want = np.asarray(attr, dtype=float)
+            check(got is not None and got.shape == want.shape
+                  and np.array_equal(np.isnan(got), np.isnan(want))
+                  and np.array_equal(np.nan_to_num(got),
+                                     np.nan_to_num(want)),
+                  f"16: {name} does not draw the object's array")
+        plt.close("all")
+        print(f"    {name}: {len(figs)} figure(s), {ms:.1f} ms", flush=True)
+
+    f = lambda name: os.path.join(d, name)  # noqa: E731
+    sspec0 = np.array(da.sspec)
+    draw("calc_sspec(plot=True)", lambda: da.calc_sspec(plot=True),
+         attr=sspec0)
+    check(np.array_equal(da.sspec, sspec0, equal_nan=True),
+          "16: calc_sspec(plot=True) changed the spectrum")
+    draw("plot_dyn", lambda: da.plot_dyn(filename=f("dyn.png"), dpi=dpi),
+         ["dyn.png"], da.dyn)
+    draw("plot_sspec", lambda: da.plot_sspec(filename=f("sspec.png"),
+                                             dpi=dpi), ["sspec.png"], da.sspec)
+    draw("plot_acf", lambda: da.plot_acf(input_acf=da.acf, input_t=da.times,
+                                         input_f=da.freqs,
+                                         filename=f("acf.png"), dpi=dpi),
+         ["acf.png"])
+    draw("cut_dyn(plot=True)", lambda: da.cut_dyn(
+        tcuts=1, fcuts=1, plot=True, filename=f("cuts.png"), dpi=dpi),
+        ["cuts_dynspec.png", "cuts_acf.png", "cuts_sspec.png"])
+    draw("get_scint_params(plot=True)", lambda: da.get_scint_params(
+        plot=True, filename=f("fit.png"), dpi=dpi), ["fit_1Dfit.png"])
+    draw("get_acf_tilt(plot=True)", lambda: da.get_acf_tilt(
+        plot=True, filename=f("tilt.png"), dpi=dpi),
+        ["tilt_tilt_fit.png", "tilt_tilt_acf.png"])
+    draw("fit_arc(plot=True, plot_spec=True)", lambda: da.fit_arc(
+        plot=True, plot_spec=True, filename=f("arc.png"), dpi=dpi,
+        display=False), ["arc.png"])
+    draw("norm_sspec(plot=True)", lambda: da.norm_sspec(
+        plot=True, filename=f("norm.png"), dpi=dpi),
+        ["norm.png", "norm_1d.png", "norm_power.png"])
+    draw("calc_scattered_image(plot=True)",
+         lambda: da.calc_scattered_image(sampling=64, plot=True))
+    draw("plot_scattered_image", lambda: da.plot_scattered_image(
+        plot_log=False, filename=f("scat.png"), dpi=dpi), ["scat.png"],
+        da.scattered_image)
+    draw("plot_all", lambda: da.plot_all(filename=f("all.png"), dpi=dpi),
+         ["all.png"])
+
+    # the θ-θ plots on the fitted north-star façade: the same search, the
+    # same launches and bits as without plot=True
+    E.batched_eig_warmstart.launches = 0
+    res0 = ds4.thetatheta_single(0, 0)
+    n0 = E.batched_eig_warmstart.launches
+    E.batched_eig_warmstart.launches = 0
+    res = {}
+    draw("thetatheta_single(plot=True)", lambda: res.update(r=ds4.
+         thetatheta_single(0, 0, plot=True, fname=f("chunk.png"))),
+         ["chunk.png"])
+    n1 = E.batched_eig_warmstart.launches
+    check(n1 == n0 > 0 and np.array_equal(res["r"].eigs, res0.eigs)
+          and (res["r"].eta == res0.eta or np.isnan(res0.eta)),
+          f"16: thetatheta_single(plot=True) differs ({n1} launches "
+          f"against {n0})")
+    evo0 = ds4.eta_evo.copy()
+    E.batched_eig_warmstart.launches = 0
+    ds4.fit_thetatheta()
+    n0 = E.batched_eig_warmstart.launches
+    E.batched_eig_warmstart.launches = 0
+    draw("fit_thetatheta(plot=True)", lambda: ds4.fit_thetatheta(plot=True))
+    n1 = E.batched_eig_warmstart.launches
+    check(n1 == n0 > 0 and np.array_equal(ds4.eta_evo, evo0,
+                                          equal_nan=True),
+          f"16: fit_thetatheta(plot=True) differs ({n1} launches against "
+          f"{n0})")
+    out["launches_thth_plots"] = n1
+
+    sim = Simulation(ns=sim_ns, nf=sim_nf, dlam=0.25, seed=11, dt=2.0,
+                     device=dev)
+    for name in ("plot_screen", "plot_intensity", "plot_dynspec",
+                 "plot_efield", "plot_delay", "plot_pulse", "plot_all"):
+        draw(f"Simulation.{name}", lambda name=name: getattr(sim, name)(
+            filename=f(f"sim_{name}.png"), dpi=dpi), [f"sim_{name}.png"],
+            np.transpose(sim.xyp) if name == "plot_screen" else None)
+    acf = ACF(device=dev)
+    draw("ACF.plot_acf", lambda: acf.plot_acf(display=False), attr=acf.acf)
+    draw("ACF.plot_acf_efield", lambda: acf.plot_acf_efield(display=False),
+         attr=acf.acf_efield)
+    draw("ACF.plot_sspec", lambda: acf.plot_sspec(display=False))
+    br = Brightness(device=dev)
+    for name in ("plot_acf_efield", "plot_brightness", "plot_sspec",
+                 "plot_acf", "plot_cuts"):
+        draw(f"Brightness.{name}", lambda name=name: getattr(br, name)(
+            display=False), attr=br.LSS if name == "plot_sspec" else None)
+    return out
+
+
+# 17.7 and 17.8 hold the sharded LM fits to the unsharded run of the same
+# code. The limits sit well above the readings they were set from
+# (NVIDIA H100 80GB HBM3, 700.00 W): 17.8's τ and Δν 5.4e-6 and its
+# weakly set parameters 1.75e-3 (a lane's LM steps round with its batch's
+# size), 17.7's τ, Δν and amp 4.5e-7. The least gap between two lanes,
+# 7.1e-4 (17.7) and 3.3e-4 (17.8), lies above each lane's gap to its own,
+# so the lane-order check can tell a permuted gather.
+SURVEY_STEP_REL = 1e-3
+ACF2D_TAU_DNU_REL = 1e-4
+ACF2D_ALL_REL = 1e-2
+
+
+def mesh_phase(dev, ds4, facade_evo, thin_evo, prep, bd, n_shards=4,
+               n_epochs=64, sim_nf1=512, sim_nt1=128, arc_B=128, arc_n=256,
+               acf_nc=65, acf_n=32, fac=(64, 256, 64)):
+    """Phase 17: the mesh, ``n_shards`` virtual shards of this card
+    (``make_mesh(n, devices=[dev] * n)``; with more than one card also
+    the cards themselves): each path at the width an earlier phase runs
+    it, against that phase's unsharded result. On one card virtual shards
+    measure only the cost of splitting and gathering: no speed-up is
+    expected or claimed. Each kernel's launches are zeroed before its
+    path and read after it. ``prep`` is phase 4's ``prep_thetatheta``
+    (phase 8 the same with the thin proc)."""
+    from scintools_tpu_torch import Dynspec
+    from scintools_tpu_torch import parallel as P
+    from scintools_tpu_torch import workloads as W
+    from scintools_tpu_torch.fit import acf2d as A2
+    from scintools_tpu_torch.fit import batch as FB
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.ops.fitarc import fit_arc_batch
+    from scintools_tpu_torch.ops.sspec import secondary_spectrum_power
+    from scintools_tpu_torch.ops.windows import get_window
+    from scintools_tpu_torch.sim import factory as FA
+    from scintools_tpu_torch.thth import core as C
+    from scintools_tpu_torch.thth import eig as E
+    from scintools_tpu_torch.thth import retrieval as R
+    from scintools_tpu_torch.thth import search as S
+
+    mesh = P.make_mesh(n_shards, devices=[dev] * n_shards)
+    print(f"[17] mesh {mesh}", flush=True)
+    out = {"mesh": dict(mesh.shape)}
+
+    def walls(name, unsharded_s, sharded_s, **extra):
+        out[name] = {"unsharded_s": unsharded_s, "sharded_s": sharded_s,
+                     **extra}
+        print(f"    {name}: unsharded {unsharded_s:.4f} s, sharded "
+              f"{sharded_s:.4f} s; " + ", ".join(
+                  f"{k} {v}" for k, v in extra.items()), flush=True)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # 17.1 the façade's θ-θ fit on the north star against phase 4
+    du = Dynspec(dyn=bd, process=False, verbose=False, device=dev)
+    du.prep_thetatheta(**prep)
+    _, t_u = wall(du.fit_thetatheta)
+    dm = Dynspec(dyn=bd, process=False, verbose=False, device=dev)
+    dm.prep_thetatheta(**prep)
+    E.batched_eig_warmstart.launches = 0
+    _, t_m = wall(lambda: dm.fit_thetatheta(mesh=mesh))
+    launches_f = E.batched_eig_warmstart.launches
+    both = np.isfinite(facade_evo)
+    rel = float(np.max(np.abs(dm.eta_evo[both] / facade_evo[both] - 1)))
+    walls("17.1 fit_thetatheta", t_u, t_m, eta_max_rel_vs_phase4=rel,
+          bitwise=bool(np.array_equal(dm.eta_evo, facade_evo,
+                                      equal_nan=True)),
+          eig_warmstart_launches=launches_f)
+    check(launches_f > 0, "17.1: the mesh fit never launched eig_warmstart")
+    check(np.array_equal(np.isfinite(dm.eta_evo), both) and rel <= 1e-4,
+          "17.1: mesh η per chunk not within 1e-4 of phase 4")
+    check(abs(dm.ththeta / du.ththeta - 1) <= 1e-4, "17.1: mesh ththeta")
+
+    # 17.2 the thin fit against phase 8
+    du = Dynspec(dyn=bd, process=False, verbose=False, device=dev)
+    du.prep_thetatheta(fitting_proc="thin", **prep)
+    _, t_u = wall(du.fit_thetatheta)
+    dt_ = Dynspec(dyn=bd, process=False, verbose=False, device=dev)
+    dt_.prep_thetatheta(fitting_proc="thin", **prep)
+    _, t_m = wall(lambda: dt_.fit_thetatheta(mesh=mesh))
+    both = np.isfinite(thin_evo)
+    rel = float(np.max(np.abs(dt_.eta_evo[both] / thin_evo[both] - 1)))
+    walls("17.2 thin fit_thetatheta", t_u, t_m, eta_max_rel_vs_phase8=rel,
+          bitwise=bool(np.array_equal(dt_.eta_evo, thin_evo,
+                                      equal_nan=True)))
+    check(np.array_equal(np.isfinite(dt_.eta_evo), both) and rel <= 1e-3,
+          "17.2: thin mesh η not within 1e-3 of phase 8")
+
+    # 17.3 the survey arc fit, phase 6's 128 epochs of 256², bitwise
+    pa = W.make_survey_arc_problem(B=arc_B, n=arc_n, device=dev)
+    args = (pa["sspecs"], pa["tdel"], pa["fdop"])
+    kw = dict(numsteps=pa["numsteps"])
+    fit_arc_batch(*args, **kw, mesh=mesh)                # builds
+    fit_arc_batch(*args, **kw, device=dev)
+    a, t_u = wall(lambda: fit_arc_batch(*args, **kw, device=dev))
+    AP.arc_profile.launches = 0
+    b, t_m = wall(lambda: fit_arc_batch(*args, **kw, mesh=mesh))
+    launches_a = AP.arc_profile.launches
+    same = all(np.array_equal([x.eta, x.etaerr, x.etaerr2, x.noise],
+                              [y.eta, y.etaerr, y.etaerr2, y.noise],
+                              equal_nan=True)
+               and np.array_equal(x.profile, y.profile, equal_nan=True)
+               for x, y in zip(a, b))
+    walls("17.3 fit_arc_batch", t_u, t_m, epochs=len(a), bitwise=same,
+          arc_profile_launches=launches_a)
+    check(same, "17.3: mesh arc fit not bitwise the unsharded one")
+    check(launches_a > 0, "17.3: the mesh arc fit never launched arc_profile")
+
+    # 17.4 retrieval on phase 4's façade against the unsharded kernel route
+    wf0, t_u = wall(lambda: np.array(ds4.retrieve_wavefield()))
+    E.batched_eigvec_warmstart.launches = 0
+    wf, t_m = wall(lambda: np.array(ds4.retrieve_wavefield(mesh=mesh)))
+    launches_r = E.batched_eigvec_warmstart.launches
+    rel, corr = intensity_gap(wf, wf0)
+    walls("17.4 retrieve_wavefield", t_u, t_m, intensity_rel_l2=rel,
+          intensity_corr=corr, bitwise=bool(np.array_equal(wf, wf0)),
+          eigvec_warmstart_launches=launches_r)
+    check(launches_r > 0, "17.4: the mesh retrieval never launched "
+          "eigvec_warmstart")
+    check(rel < 5e-3 and corr > 0.9999, "17.4: mesh wavefield off phase 5's")
+
+    # 17.5 Gerchberg–Saxton over a data-axis-1 mesh
+    gs_mesh = P.make_mesh(n_shards, seq=n_shards, devices=[dev] * n_shards)
+    gsa = (wf0, ds4.dyn)
+    gkw = dict(freqs=ds4.freqs[: wf0.shape[0]], niter=3)
+    g0, t_u = wall(lambda: R.gerchberg_saxton(*gsa, device=dev, **gkw))
+    g1, t_m = wall(lambda: R.gerchberg_saxton(*gsa, mesh=gs_mesh, **gkw))
+    rel = float(np.linalg.norm(g1 - g0) / np.linalg.norm(g0))
+    walls("17.5 gerchberg_saxton", t_u, t_m, shape=list(wf0.shape),
+          rel_l2=rel)
+    check(rel < 1e-5, "17.5: sharded GS off the unsharded one")
+
+    # 17.6-17.7 spectra and the survey step on phase 10's epochs
+    dt, df = 2.0, 0.05
+    host = np.stack([W.make_arc_dynspec(sim_nt1, sim_nf1, dt, df, 1400.0,
+                                        5e-4, 96, seed=77 + b)
+                     for b in range(n_epochs)])
+    dyns = torch.as_tensor(host, dtype=torch.float32, device=dev)
+    wins = get_window(sim_nt1, sim_nf1, window="hanning", frac=0.1)
+    fn = P.make_sspec_power_sharded(mesh, sim_nf1, sim_nt1, window_arrays=wins)
+    fn(dyns)
+    secondary_spectrum_power(dyns, window_arrays=wins)
+    p0, t_u = wall(lambda: secondary_spectrum_power(dyns, window_arrays=wins))
+    p1, t_m = wall(lambda: fn(dyns))
+    err = float((p1 - p0).abs().max() / p0.abs().max())
+    ok = bool(torch.all((p1 - p0).abs()
+                        <= 1e-6 * p0.abs().max() + 1e-5 * p0.abs()))
+    band = ((0.0, 64.0, 128), (-32.0, 32.0, 64))
+    z0 = secondary_spectrum_power(dyns, window_arrays=wins, zoom=band)
+    z1 = P.make_sspec_power_sharded(mesh, sim_nf1, sim_nt1,
+                                    window_arrays=wins, zoom=band)(dyns)
+    zerr = float((z1 - z0).abs().max() / z0.abs().max())
+    walls("17.6 make_sspec_power_sharded", t_u, t_m, epochs=n_epochs,
+          max_err_rel_peak=err, zoom_max_err_rel_peak=zerr)
+    check(ok and zerr <= 1e-6, "17.6: sharded spectra off the unsharded")
+    step = P.make_survey_step(mesh, sim_nf1, sim_nt1, dt=dt, df=df)
+    step(dyns)
+    FB.scint_params_batch(dyns, dt, df, device=dev)
+    ref, t_u = wall(lambda: FB.scint_params_batch(dyns, dt, df, device=dev))
+    (params, chisq, power, tcut, fcut), t_m = wall(lambda: step(dyns))
+    tc, fc = FB.acf_cuts_batch(dyns, device=dev)
+    cuts_ok = bool(torch.allclose(tcut, tc, rtol=2e-4, atol=2e-4)
+                   and torch.allclose(fcut, fc, rtol=2e-4, atol=2e-4))
+    power_ok = bool(torch.all((power - p0).abs()
+                              <= 1e-6 * p0.abs().max() + 1e-5 * p0.abs()))
+    names = ("tau", "dnu", "amp")
+    got = np.stack([params[k].cpu().numpy() for k in names], axis=1)
+    want = np.stack([np.asarray(ref[k]) for k in names], axis=1)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    order_ok, _, sep = lanes_in_order(got, want)
+    walls("17.7 make_survey_step", t_u, t_m, epochs=n_epochs,
+          cuts_within_2e_4=cuts_ok, power_as_17_6=power_ok,
+          tau_dnu_amp_max_rel=rel, lanes_in_order=order_ok,
+          least_gap_between_lanes=sep)
+    check(cuts_ok and power_ok and rel <= SURVEY_STEP_REL and order_ok
+          and bool(torch.isfinite(chisq).all()),
+          "17.7: sharded survey step off the unsharded fits")
+
+    # 17.8 the acf2d LM on phase 10.3's 32 crops of 65
+    nc, n3 = acf_nc, acf_n
+    pr = acf2d_survey_params(nc, 1600.0, 5.0, 0.9, 45.0)
+    crops = acf2d_epochs(nc, n3, dev)
+    cfg = [A2._epoch_config(pr, y) for y in crops]
+    _, p, dtc, dfc, vary, lo, hi = cfg[0]
+    tri = np.outer(1 - np.abs(np.linspace(-nc * dfc, nc * dfc, nc)) / p["bw"],
+                   1 - np.abs(np.linspace(-nc * dtc, nc * dtc, nc))
+                   / p["tobs"])
+    lane = [np.stack(v) for v in zip(*[
+        ([p[n] for n in vary], y, A2._spike_zero_weights(None, y.shape), tri,
+         [float(p.get(n, 0.0)) for n in A2.MODEL_ARGS], [dtc, dfc])
+        for y, *_ in cfg])]
+    lane = [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in lane]
+    cfit = (nc, nc, abs(p["ar"]), p["alpha"], p["theta"], abs(p["tau"]), dtc,
+            vary, lo, hi)
+    one = A2.make_acf2d_fit_one(*cfit, device=dev)
+    fn, _ = P.make_acf2d_fit_sharded(mesh, *cfit)
+    fn(*lane)
+    one(*lane)
+    r0, t_u = wall(lambda: one(*lane))
+    r1, t_m = wall(lambda: fn(*lane))
+    x0, x1 = r0["x"].double().cpu().numpy(), r1["x"].double().cpu().numpy()
+    rel = np.abs(x1 - x0) / np.abs(x0)
+    # τ and Δν lead the vary set; a lane's LM steps round with its
+    # batch's size, so the weakly set parameters move most (PERF.md §6)
+    order_ok, _, sep = lanes_in_order(x1[:, :2], x0[:, :2])
+    walls("17.8 make_acf2d_fit_sharded", t_u, t_m, crops=n3,
+          tau_dnu_max_rel=float(np.nanmax(rel[:, :2])),
+          all_params_max_rel=float(np.nanmax(rel)), lanes_in_order=order_ok,
+          least_gap_between_lanes=sep)
+    check(float(np.nanmax(rel[:, :2])) <= ACF2D_TAU_DNU_REL
+          and float(np.nanmax(rel)) <= ACF2D_ALL_REL and order_ok
+          and np.array_equal(r0["ok"].cpu().numpy(), r1["ok"].cpu().numpy()),
+          "17.8: sharded acf2d fit off the unsharded batch")
+
+    # 17.9 the η curve of north-star chunk 0 split over the mesh
+    dspec2, freq2, time2 = ds4._chunk(0, 0)
+    etas, edges = ds4._thth_row_geometry(freq2)
+    CS, tau, fd = S.chunk_conjugate_spectrum(dspec2, time2, freq2,
+                                             npad=ds4.npad)
+    cs = torch.as_tensor(C.cs_to_ri(CS), dtype=torch.float32, device=dev)
+    ev = C.make_eval_fn(tau, fd, edges, iters=200, device=dev)
+    es = P.make_eta_search_sharded(mesh, tau, fd, edges, iters=200)
+    es(cs, etas)
+    ev(cs, etas)
+    l0, t_u = wall(lambda: ev(cs, etas))
+    l1, t_m = wall(lambda: es(cs, etas))
+    rel = float(((l1 - l0).abs() / l0.abs()).max())
+    walls("17.9 make_eta_search_sharded", t_u, t_m, etas=len(etas),
+          max_rel=rel)
+    check(rel <= 1e-6, "17.9: sharded η curve off the unsharded one")
+
+    # 17.10 the scenario factory at 12.2's width, bitwise
+    B, ns, nf = fac
+    rng = np.random.default_rng(101)
+    sweep = dict(mb2=rng.uniform(0.5, 16.0, B), ar=rng.uniform(1.0, 2.0, B),
+                 psi=rng.uniform(0.0, 90.0, B), alpha=np.full(B, 5 / 3))
+    keys = np.random.Generator(np.random.PCG64(101)).integers(0, 2 ** 62,
+                                                              size=B)
+    sf = P.make_scenario_factory_sharded(mesh, ns=ns, nf=nf, nscreens=B)
+    sf(keys, **sweep)
+    unsharded = (lambda: FA.simulate_scenarios(
+        B, ns=ns, nf=nf, keys=keys, with_ok=True, device_out=True,
+        device=dev, **sweep))
+    unsharded()
+    (y0, k0), t_u = wall(unsharded)
+    (y1, k1), t_m = wall(lambda: sf(keys, **sweep))
+    same = bool(torch.equal(y0, y1) and torch.equal(k0, k1))
+    walls("17.10 make_scenario_factory_sharded", t_u, t_m, screens=B,
+          bitwise=same)
+    check(same, "17.10: the sharded factory is not bitwise the unsharded")
+
+    if torch.cuda.device_count() > 1:
+        cards = P.make_mesh()
+        AP.arc_profile.launches = 0
+        c, t_m = wall(lambda: fit_arc_batch(*args, **kw, mesh=cards))
+        same = all(np.array_equal([x.eta, x.etaerr], [y.eta, y.etaerr],
+                                  equal_nan=True) for x, y in zip(a, c))
+        walls("17.11 fit_arc_batch over the cards", float("nan"), t_m,
+              mesh=dict(cards.shape), bitwise=same,
+              arc_profile_launches=AP.arc_profile.launches)
+        check(same, "17.11: the card mesh's arc fit is not bitwise")
+        launches_a += AP.arc_profile.launches
+    out["launches"] = {"eig_warmstart": launches_f,
+                       "eigvec_warmstart": launches_r,
+                       "arc_profile": launches_a}
+    return out
+
+
+def phase17_main():
+    """``python3 chip_smoke.py --phase17``: phases 16 and 17 alone, their
+    references made as phases 4 and 8 make them (the north-star façade
+    and its thin twin, fitted); prints ``{"plotting": ..., "mesh": ...}``
+    and the device line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    from scintools_tpu_torch import BasicDyn, Dynspec, _build
+    from scintools_tpu_torch import workloads as W
+
+    dev = torch.device("cuda")
+    print(f"[1] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi()}",
+          flush=True)
+    _build.build()
+    lap("1 build")
+    nf = nt = 4096
+    prob = W.make_north_star_problem(nf, nt, n_variants=2)
+    eta_true = prob["eta_true"]
+    bd = BasicDyn(prob["dyns"][1], name="north_star",
+                  freqs=prob["f0"] + prob["df"] * np.arange(nf),
+                  times=prob["dt"] * np.arange(nt))
+    prep4 = dict(cwf=512, cwt=512, npad=1, eta_min=0.5 * eta_true,
+                 eta_max=2 * eta_true, neta=N_ETA, nedge=256,
+                 edges_lim=prob["th_lim"])
+    ds = Dynspec(dyn=bd, process=False, verbose=False)
+    ds.calc_sspec()
+    ds.prep_thetatheta(**prep4)
+    ds.fit_thetatheta()
+    thin = Dynspec(dyn=bd, process=False, verbose=False)
+    thin.prep_thetatheta(fitting_proc="thin", **prep4)
+    thin.fit_thetatheta()
+    lap("4, 8 references")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as tmp:
+        # phase 9's processed file stands in as the north-star façade
+        plots = plotting_phase(dev, ds, ds, tmp)
+        lap("16 plotting")
+        mesh = mesh_phase(dev, ds, ds.eta_evo.copy(), thin.eta_evo, prep4,
+                          bd)
+        lap("17 mesh")
+    print(json.dumps({"plotting": plots, "mesh": mesh, "phase_s": PHASE_S},
+                     default=str), flush=True)
+    print(smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def phase15_main():
     """``python3 chip_smoke.py --phase15``: phase 15 alone, its inputs
     made by the same calls as phases 13 and 14 make them (13.1's and
@@ -5345,4 +5898,9 @@ def phase15_main():
 
 
 if __name__ == "__main__":
-    phase15_main() if "--phase15" in sys.argv[1:] else main()
+    if "--phase15" in sys.argv[1:]:
+        phase15_main()
+    elif "--phase17" in sys.argv[1:]:
+        phase17_main()
+    else:
+        main()

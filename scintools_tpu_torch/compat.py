@@ -23,8 +23,7 @@ svd_model             utils.misc.svd_model
 The fullMos/rot hand-derived gradient/Hessian entry points
 (ththmod.py:1708-2310) are intentionally collapsed into
 ``refine_mosaic`` — autodiff supplies the derivatives. The port's own
-copy of ``scintools_tpu/compat.py``; ``plot_func`` waits for the port's
-plotting.
+copy of ``scintools_tpu/compat.py``.
 """
 
 from .thth.core import (eval_calc as Eval_calc,  # noqa: N811
@@ -42,6 +41,7 @@ from .thth.retrieval import (
     rot_mos as rotMos,        # noqa: N811
     rot_init as rotInit,      # noqa: N811
     refine_mosaic)
+from .thth.plots import plot_func
 from .utils.misc import svd_model
 from .ops.acf import autocorr_direct as autocorr  # scint_utils.py:67-84
 
@@ -53,7 +53,7 @@ __all__ = [
     "ext_find", "fft_axis", "unit_checks", "single_search",
     "single_search_thin", "chi_par", "single_chunk_retrieval",
     "mosaic", "mask_func", "gerchberg_saxton", "calc_asymmetry",
-    "svd_model", "autocorr",
+    "plot_func", "svd_model", "autocorr",
 ]
 
 

@@ -10,7 +10,7 @@ and ``_trim_time``), ``crop_dyn`` (:246), ``zap`` (:269), ``refill``
 (:276, every method), ``correct_dyn`` (:298), ``scale_dyn`` (:357,
 equal-wavelength, velocity or orbit, and trapezoid), ``_select_dyn``
 (:441), ``calc_sspec`` (:462),
-``calc_acf`` (:511), ``cut_dyn`` (:533, without ``plot``),
+``calc_acf`` (:511), ``cut_dyn`` (:533),
 ``_select_sspec`` (:575), ``fit_arc`` (:596), ``norm_sspec`` (:689,
 with ``fit_spectrum``), ``get_scint_params`` (:758, methods ``nofit``,
 ``acf1d``, ``acf2d_approx`` and ``acf2d``), ``get_acf_tilt`` (:1070),
@@ -24,7 +24,9 @@ branch :1443-1489, the serial branch :1527-1536 and the weighted global
 ``retrieve_wavefield`` (:1934), ``gerchberg_saxton`` (:1974),
 ``calc_asymmetry`` (:1990), ``calc_scattered_image`` (:1137),
 ``auto_processing``, ``default_processing``
-and ``info`` (:2033-2061), ``BasicDyn`` (:2148), ``MatlabDyn`` (:2177),
+and ``info`` (:2033-2061), the sharded fit ``_fit_thetatheta_sharded``
+and ``_fit_thetatheta_sharded_fused`` (:1587-1785, one method here), the
+plot methods ``plot_dyn`` … ``plot_all`` (:2065-2145), ``BasicDyn`` (:2148), ``MatlabDyn`` (:2177),
 ``SimDyn`` (:2209), ``HoloDyn`` (:2236) and ``sort_dyn`` (:2646). A
 ``sim.Simulation`` loads directly too (``Dynspec(dyn=sim)``). Every shared method takes the reference's
 parameters in the reference's order; the port's own (``eig``,
@@ -41,10 +43,13 @@ ephemeris and orbit, the λ and velocity resamplings) stay on the host;
 the trapezoid resampling and the scattered image's interpolation run on
 ``self.device``.
 
-Not ported: MCMC fits (``mcmc``, ``method="mcmc"``), the ``sspec``
-fitting method, plotting and the ``mesh`` options raise
-``NotImplementedError``. ``pool`` is accepted and ignored, as the JAX
-package does off its numpy backend.
+Plots (every ``plot=``, ``plot_spec=`` and ``plot_fit=`` option and the
+``plot_*`` methods) are drawn on the host by :mod:`.plotting` from the
+numpy state, after the same device work as without them; ``mesh=``
+(:func:`.parallel.make_mesh`) spreads the θ-θ fit, the retrieval and
+Gerchberg–Saxton over a device mesh. Not ported: the ``sspec`` fitting
+method (disabled upstream) raises ``NotImplementedError``. ``pool`` is
+accepted and ignored, as the JAX package does off its numpy backend.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from .backend import resolve_device
 from .fit import models as mdl
@@ -532,11 +538,9 @@ class Dynspec:
         ``self.trapsspec`` of the velocity or trapezoid spectra with
         ``velocity`` or ``trap``), ``self.fdop`` and ``self.tdel``. With
         ``input_dyn`` (a spectrum of its own) or ``return_sspec`` nothing
-        is stored and ``(fdop, tdel or beta, sec)`` is returned. The
-        port has no plotting (``plot``; ``input_x`` and ``input_y`` label
-        its axes)."""
-        if plot:
-            raise NotImplementedError("the port has no plotting")
+        is stored and ``(fdop, tdel or beta, sec)`` is returned. ``plot``
+        draws the spectrum (:meth:`plot_sspec`; ``input_x`` and
+        ``input_y`` label its axes when given)."""
         if input_dyn is None:
             dyn = self._select_dyn(lamsteps=lamsteps, velocity=velocity,
                                    trap=trap)
@@ -551,6 +555,13 @@ class Dynspec:
         _, tdel, beta = sspec_ops.sspec_axes(nf, nt, self.dt, self.df,
                                              halve=halve, dlam=dlam)
         if input_dyn is not None or return_sspec:
+            if plot:
+                self.plot_sspec(input_sspec=sec, lamsteps=lamsteps,
+                                input_x=(input_x if input_x is not None
+                                         else fdop),
+                                input_y=(input_y if input_y is not None
+                                         else (beta if lamsteps
+                                               else tdel)))
             return fdop, (beta if lamsteps else tdel), sec
         self.fdop, self.tdel = fdop, tdel
         if lamsteps:
@@ -558,6 +569,8 @@ class Dynspec:
         name = ("vlamsspec" if velocity else "lamsspec") if lamsteps else (
             "vsspec" if velocity else "trapsspec" if trap else "sspec")
         setattr(self, name, sec)
+        if plot:
+            self.plot_sspec(lamsteps=lamsteps, trap=trap)
 
     def calc_acf(self, method="direct", input_dyn=None, normalise=True,
                  window_frac=0.1):
@@ -591,11 +604,10 @@ class Dynspec:
         each tile's secondary spectrum and ACF: ``self.cutdyn``,
         ``self.cutsspec``, ``self.cutacf``, the tiles' axes
         ``self.cut_times``, ``self.cut_freqs`` and the spectra's axes
-        ``self.cut_sspec_x``, ``self.cut_sspec_y``. The port has no
-        plotting (``plot``; ``filename``, ``dpi``, ``maxfdop``,
-        ``figsize`` and ``display`` configure it)."""
-        if plot:
-            raise NotImplementedError("the port has no plotting")
+        ``self.cut_sspec_x``, ``self.cut_sspec_y``. ``plot`` draws the
+        tiles' spectra, ACFs and secondary spectra
+        (:func:`.plotting.plot_cut_tiles`; ``filename``, ``dpi``,
+        ``maxfdop``, ``figsize`` and ``display`` configure it)."""
         nchan, nsub = len(self.freqs), len(self.times)
         fnum = int(np.floor(nchan / (fcuts + 1)))
         tnum = int(np.floor(nsub / (tcuts + 1)))
@@ -622,6 +634,13 @@ class Dynspec:
                           for ii in range(fcuts + 1)]
         self.cut_sspec_x = np.asarray(sspec_x)
         self.cut_sspec_y = np.asarray(sspec_y)
+        if plot:
+            from . import plotting
+
+            plotting.plot_cut_tiles(self, lamsteps=lamsteps,
+                                    maxfdop=maxfdop, filename=filename,
+                                    display=display, figsize=figsize,
+                                    dpi=dpi)
 
     # ------------------------------------------------------------------
     # arc curvature
@@ -649,11 +668,10 @@ class Dynspec:
         ``self.eta``, their errors, the profile and its η grid. Explicit
         ``etamin``/``etamax``/``constraint`` in the non-lamsteps path are
         β values at ``ref_freq``, converted to η [s³] at this spectrum's
-        frequency. The port has no plotting (``plot``, ``plot_spec``;
-        ``filename``, ``display``, ``figsize``, ``dpi`` and ``figN``
-        configure it)."""
-        if plot or plot_spec:
-            raise NotImplementedError("the port has no plotting")
+        frequency. ``plot_spec`` draws the normalised spectrum at the
+        fitted curvature (:meth:`norm_sspec`), ``plot`` the fit
+        (:func:`.plotting.plot_arc_fit`; ``filename``, ``display``,
+        ``figsize``, ``dpi`` and ``figN`` configure it)."""
         if not hasattr(self, "tdel"):
             self.calc_sspec()
         sspec, yaxis = self._select_sspec(lamsteps=lamsteps,
@@ -698,6 +716,22 @@ class Dynspec:
             setattr(self, "norm_sspec_avg" + num, fit.profile)
             setattr(self, "prob_eta_peak" + num, fit.prob_eta_peak)
         self.eta_array = fits[0].eta_array
+        if plot_spec:
+            # norm_sspec takes an explicit η of the non-lamsteps path as a
+            # β value at ref_freq: convert the fitted η back to that form
+            eta_plot = fits[0].eta
+            if not lamsteps:
+                eta_plot = (eta_plot * (self.freq / ref_freq) ** 2
+                            / (SPEED_OF_LIGHT * 1e6 / (ref_freq * 1e6) ** 2))
+            self.norm_sspec(eta=eta_plot, delmax=delmax_t, plot=True,
+                            lamsteps=lamsteps, ref_freq=ref_freq,
+                            display=display)
+        if plot:
+            from . import plotting
+
+            plotting.plot_arc_fit(fits[0], lamsteps=lamsteps,
+                                  filename=filename, display=display,
+                                  figsize=figsize, dpi=dpi, figN=figN)
         return fits
 
     def norm_sspec(self, eta=None, delmax=None, plot=False, startbin=1,
@@ -712,12 +746,10 @@ class Dynspec:
         :meth:`fit_arc` when None; in the non-lamsteps path an explicit
         ``eta`` is a β value at ``ref_freq``). Sets ``self.normsspecavg``,
         ``self.normsspec`` (masked), ``self.powerspectrum``, … and returns
-        the :class:`~.ops.normsspec.NormSspec`. The port has no plotting
-        (``plot``; ``scrunched``, ``plot_fit``, ``filename``,
-        ``display``, ``unscrunched``, ``powerspec``, ``figsize`` and
-        ``dpi`` configure it)."""
-        if plot:
-            raise NotImplementedError("the port has no plotting")
+        the :class:`~.ops.normsspec.NormSspec`. ``plot`` draws its panels
+        (:func:`.plotting.plot_norm_sspec`; ``scrunched``, ``plot_fit``,
+        ``filename``, ``display``, ``unscrunched``, ``powerspec``,
+        ``figsize`` and ``dpi`` configure it)."""
         if not hasattr(self, "tdel"):
             self.calc_sspec()
         sspec, yaxis = self._select_sspec(lamsteps=lamsteps,
@@ -754,6 +786,15 @@ class Dynspec:
             val = getattr(ns, attr)
             if val is not None:
                 setattr(self, attr, val)
+        if plot:
+            from . import plotting
+
+            plotting.plot_norm_sspec(self, scrunched=scrunched,
+                                     unscrunched=unscrunched,
+                                     powerspec=powerspec, plot_fit=plot_fit,
+                                     maxnormfac=maxnormfac, lamsteps=lamsteps,
+                                     filename=filename, display=display,
+                                     figsize=figsize, dpi=dpi)
         return ns
 
     # ------------------------------------------------------------------
@@ -788,8 +829,10 @@ class Dynspec:
         samples every fit of the method instead of the least squares;
         the 2-D fits then sample the ``__lnsigma`` noise term unless
         ``lnsigma=False``, and ``"acf2d"`` samples the analytic model
-        (never the LM). ``"sspec"`` and ``plot`` raise (``workers``,
-        ``display``, ``filename`` and ``dpi`` configure them)."""
+        (never the LM). ``"sspec"`` raises. ``plot`` draws the fit
+        (:func:`.plotting.plot_scint_fit_1d` or ``_2d``; ``display``,
+        ``filename`` and ``dpi`` configure it; ``workers`` is the scipy
+        fit's)."""
         methods = ("nofit", "acf1d", "acf2d_approx", "acf2d", "sspec",
                    "mcmc")
         if method not in methods:
@@ -798,8 +841,6 @@ class Dynspec:
         if method == "sspec":
             raise NotImplementedError(
                 "the sspec fitting method is disabled upstream")
-        if plot:
-            raise NotImplementedError("the port has no plotting")
         if not hasattr(self, "acf"):
             self.calc_acf()
 
@@ -1011,6 +1052,19 @@ class Dynspec:
             if verbose:
                 print(self.report)
 
+        if plot:
+            from . import plotting
+
+            if method == "acf1d":
+                plotting.plot_scint_fit_1d(
+                    self, results, xdata_t, ydata_t, t_errors, xdata_f,
+                    ydata_f, f_errors, filename=filename, display=display,
+                    dpi=dpi)
+            elif method.startswith("acf2d"):
+                plotting.plot_scint_fit_2d(
+                    self, results, method, tdata, fdata, ydata_2d,
+                    filename=filename, display=display, dpi=dpi)
+
         # results and finite-scintle errors
         self.tau = results.params["tau"].value
         self.dnu = results.params["dnu"].value
@@ -1069,12 +1123,11 @@ class Dynspec:
         ``fmax`` (``nscale``·Δν by default; ``get_scint_params(method)``
         runs first when there is no fit), then a line fitted to the peaks
         weighted by their errors. Sets ``self.acf_tilt``,
-        ``self.acf_tilt_err`` and ``self.fse_tilt``. The port has no
-        plotting (``plot``; ``display``, ``filename``, ``nscaleplot``,
-        ``dpi``, ``tmaxplot`` and ``fmaxplot`` configure it); ``tmax`` is
-        accepted and unused, as in the JAX package."""
-        if plot:
-            raise NotImplementedError("the port has no plotting")
+        ``self.acf_tilt_err`` and ``self.fse_tilt``. ``plot`` draws the
+        peaks with the line and the ACF with the tilt
+        (:func:`.plotting.plot_acf_tilt`; ``display``, ``filename``,
+        ``nscaleplot``, ``dpi``, ``tmaxplot`` and ``fmaxplot`` configure
+        it); ``tmax`` is accepted and unused, as in the JAX package."""
         if not hasattr(self, "acf"):
             self.calc_acf()
         if not hasattr(self, "dnu") or self.scint_param_method == "nofit":
@@ -1121,6 +1174,14 @@ class Dynspec:
         fse_dnu = self.dnu / (2 * np.sqrt(N))
         self.fse_tilt = self.acf_tilt * np.sqrt(
             (fse_dnu / self.dnu) ** 2 + (fse_tau / self.tau) ** 2)
+        if plot:
+            from . import plotting
+
+            yfit = params[0] * peaks + params[1]
+            plotting.plot_acf_tilt(
+                self, peaks, peakerrs, ys, yfit, nscaleplot=nscaleplot,
+                tmaxplot=tmaxplot, fmaxplot=fmaxplot, filename=filename,
+                display=display, dpi=dpi)
 
     # ------------------------------------------------------------------
     # θ-θ pipeline
@@ -1251,10 +1312,9 @@ class Dynspec:
         :func:`~.thth.search.single_search_thin`, its arclet edges the
         chunk's frequency-scaled edges within ``self.arclet_lim``.
         Returns the :class:`~.thth.search.ChunkSearchResult`, or with
-        ``arrays`` its ``(etas, eigs, popt)``. The port has no plotting
-        (``plot``; ``fname`` names its file)."""
-        if plot:
-            raise NotImplementedError("the port has no plotting")
+        ``arrays`` its ``(etas, eigs, popt)``. ``plot`` draws the chunk's
+        diagnostic (:func:`.thth.plots.plot_func`) into the file ``fname``
+        or shows it."""
         if not hasattr(self, "cwf"):
             self.prep_thetatheta(verbose=verbose)
         cf = min(cf, self.ncf_fit - 1)
@@ -1269,9 +1329,41 @@ class Dynspec:
                 npad=self.npad,
                 coher=(self.thetatheta_proc != "incoherent"),
                 tau_mask=self.thth_tau_mask, device=self.device, eig=eig)
+        if plot:
+            self._plot_chunk(res, dspec2, freq2, time2, etas, edges, fname)
         if arrays:
             return res.etas, res.eigs, res.popt
         return res
+
+    def _plot_chunk(self, res, dspec2, freq2, time2, etas, edges, fname):
+        """The θ-θ diagnostic of one searched chunk."""
+        from .thth.plots import plot_func
+
+        CS, tau, fd = thth_search.chunk_conjugate_spectrum(
+            dspec2, time2, freq2, npad=self.npad, tau_mask=self.thth_tau_mask)
+        # a marginal chunk can leave no finite point of its curve: fall
+        # back to the raw η grid so the diagnostic still draws
+        if len(res.etas) and np.any(np.isfinite(res.eigs)):
+            petas, peigs = res.etas, res.eigs
+        else:
+            petas, peigs = etas, np.full(len(etas), np.nan)
+        if np.isfinite(res.eta):
+            e_pk = res.eta
+        elif np.any(np.isfinite(peigs)):
+            e_pk = petas[np.nanargmax(peigs)]
+        else:
+            e_pk = petas.mean()
+        sel = np.abs(petas - e_pk) < self.fw * e_pk
+        fig = plot_func(dspec2, time2, freq2, CS, fd, tau, edges, res.eta,
+                        res.eta_sig, petas, peigs, petas[sel], res.popt,
+                        device=self.device)
+        if fname is not None:
+            fig.savefig(fname, bbox_inches="tight")
+        else:
+            import matplotlib.pyplot as plt
+
+            plt.show()
+        return fig
 
     def fit_thetatheta(self, verbose=False, plot=False, pool=None,
                        time_avg=False, mesh=None, eig="kernel"):
@@ -1286,11 +1378,15 @@ class Dynspec:
         is held to); the thin-screen search has no kernel and runs its
         device power iteration under either value. ``time_avg`` fits the
         rows' time-averaged η, weighted by their scatter over time, in
-        place of every chunk's. ``pool`` is accepted and ignored;
-        ``plot`` and ``mesh`` are not ported."""
-        if plot:
-            raise NotImplementedError("the port has no plotting")
-        _not_ported(mesh=mesh)
+        place of every chunk's. ``pool`` is accepted and ignored. ``plot``
+        draws η against frequency with the fit
+        (:func:`.plotting.plot_eta_evolution`).
+
+        ``mesh`` (:func:`.parallel.make_mesh`) searches the whole chunk
+        grid at once, the chunks spread over the mesh's devices
+        (:meth:`_fit_thetatheta_sharded`), each chunk with the η grid and
+        edges of its row, so a chunk gets the η it gets without the
+        mesh."""
         if eig not in ("kernel", "plain"):
             raise ValueError(f"unknown eig {eig!r} (want 'kernel' or "
                              "'plain')")
@@ -1301,7 +1397,9 @@ class Dynspec:
         self.eta_evo_ok = np.zeros((self.ncf_fit, self.nct_fit), dtype=int)
         self.f0s = np.zeros(self.ncf_fit)
         self.t0s = np.zeros(self.nct_fit)
-        for cf in range(self.ncf_fit):
+        if mesh is not None:
+            self._fit_thetatheta_sharded(mesh, eig=eig, verbose=verbose)
+        for cf in range(self.ncf_fit if mesh is None else 0):
             if self.nct_fit > 1:
                 chunks, tlist, freq2 = [], [], None
                 for ct in range(self.nct_fit):
@@ -1352,6 +1450,71 @@ class Dynspec:
 
         self.ththeta, self.ththetaerr = global_eta_fit(
             self.eta_evo, self.eta_evo_err, self.f0s, self.fref, time_avg)
+        if plot:
+            from . import plotting
+
+            plotting.plot_eta_evolution(self, time_avg=time_avg)
+
+    def _fit_thetatheta_sharded(self, mesh, verbose=False, eig="kernel"):
+        """The whole fitting chunk grid over ``mesh``: every (cf, ct) chunk
+        with its row's η grid and edges, raw chunks in, and on each shard
+        the spectrum, the θ-θ gather, the eigen curve, the closed-form
+        peak fit and the health bitmask of each row's fused search: the
+        warm-start eigensolver for the single-curvature procs
+        (:func:`.parallel.make_fused_grid_search_sharded`,
+        ``method="auto"``), the thin search's 200 power steps for the thin
+        proc (:func:`.parallel.make_fused_thin_grid_search_sharded`). The
+        JAX package's sharded route takes 64 cold power steps and, for the
+        thin proc, host spectra and the scipy peak fit; here every chunk
+        gets the η the per-row search gives it. Fills ``eta_evo``,
+        ``eta_evo_err``, ``eta_evo_ok``, ``f0s`` and ``t0s``."""
+        from . import parallel as par
+
+        thin = self.thetatheta_proc == "thin"
+        chunks, edges_l, etas_l, arclet_l, meta = [], [], [], [], []
+        for cf in range(self.ncf_fit):
+            for ct in range(self.nct_fit):
+                dspec2, freq2, time2 = self._chunk(cf, ct)
+                etas, edges = self._thth_row_geometry(freq2)
+                chunks.append(np.asarray(dspec2, dtype=np.float32))
+                etas_l.append(etas)
+                edges_l.append(edges)
+                if thin:
+                    arclet_l.append(edges[np.abs(edges) < self.arclet_lim])
+                meta.append((cf, ct, float(freq2.mean()),
+                             float(time2.mean())))
+        fd = thth_core.fft_axis(time2, pad=self.npad, scale=1e3)
+        tau = thth_core.fft_axis(freq2, pad=self.npad, scale=1.0)
+        nf_c, nt_c = chunks[0].shape
+        args = [torch.as_tensor(np.stack(chunks)),
+                torch.as_tensor(np.stack(edges_l))]
+        common = dict(npad=self.npad,
+                      coher=self.thetatheta_proc != "incoherent",
+                      tau_mask=self.thth_tau_mask, fw=self.fw)
+        if thin:
+            from .thth.batch import pad_arclet_edges
+
+            arclet_b = pad_arclet_edges(arclet_l, np.abs(self.edges).max())
+            args.append(torch.as_tensor(arclet_b))
+            fn = par.make_fused_thin_grid_search_sharded(
+                mesh, tau, fd, len(self.edges), arclet_b.shape[1],
+                self.center_cut, nf_c, nt_c, **common)
+        else:
+            fn = par.make_fused_grid_search_sharded(
+                mesh, tau, fd, len(self.edges), nf_c, nt_c, method="auto",
+                eig=eig, **common)
+        args.append(torch.as_tensor(np.stack(etas_l)))
+        _, eta, sig, _, ok = (t.cpu().numpy() for t in fn(*args))
+        for i, (cf, ct, f_m, t_m) in enumerate(meta):
+            self.eta_evo[cf, ct] = eta[i]
+            self.eta_evo_err[cf, ct] = sig[i]
+            self.eta_evo_ok[cf, ct] = int(ok[i])
+            self.f0s[cf] = f_m
+            self.t0s[ct] = t_m
+        if verbose:
+            print(f"Sharded chunk grid: "
+                  f"{int(np.isfinite(self.eta_evo).sum())}/{len(meta)} "
+                  f"chunk fits on {mesh.size} devices")
 
     # ------------------------------------------------------------------
     # wavefield retrieval
@@ -1382,10 +1545,10 @@ class Dynspec:
         or with ``memmap`` row by row into a complex128 ``np.memmap`` on
         the file ``memmap.dat`` of the working directory, so that one
         frequency row of chunks is in memory at a time. ``pool`` is
-        accepted and ignored; ``mesh`` is not ported yet."""
-        _not_ported(mesh=mesh)
+        accepted and ignored; ``mesh`` spreads the chunks over its
+        devices (and the fit, when one runs first)."""
         if not hasattr(self, "ththeta"):
-            self.fit_thetatheta(verbose=verbose)
+            self.fit_thetatheta(verbose=verbose, mesh=mesh)
         nct = self.nct_ret
         dt, df = self._steps()
         if memmap:
@@ -1399,7 +1562,7 @@ class Dynspec:
                 self.chunks[cf] = thth_ret.chunk_retrieval_batch(
                     np.stack([r[0] for r in row]),
                     self.edges * (freq / self.fref), eta, dt, df,
-                    npad=self.npad, tau_mask=self.thth_tau_mask,
+                    npad=self.npad, tau_mask=self.thth_tau_mask, mesh=mesh,
                     device=self.device)
                 if verbose:
                     print(f"retrieved row {cf + 1}/{self.ncf_ret} ({nct} "
@@ -1409,7 +1572,7 @@ class Dynspec:
         E = thth_ret.grid_retrieval_batch(
             chunks.reshape(-1, self.cwf, self.cwt),
             np.repeat(edges_rows, nct, axis=0), np.repeat(etas_rows, nct),
-            dt, df, npad=self.npad, tau_mask=self.thth_tau_mask,
+            dt, df, npad=self.npad, tau_mask=self.thth_tau_mask, mesh=mesh,
             device=self.device)
         self.chunks = E.reshape(self.ncf_ret, nct, self.cwf, self.cwt)
         if verbose:
@@ -1423,17 +1586,20 @@ class Dynspec:
         retrieving them first if needed (``memmap`` as in
         :meth:`thetatheta_chunks`); ``gs`` then runs
         :meth:`gerchberg_saxton`. ``pool`` is accepted and ignored;
-        ``mesh`` and ``gs_mesh`` are not ported yet."""
-        _not_ported(mesh=mesh, gs_mesh=gs_mesh)
+        ``mesh`` spreads the retrieval over its devices, ``gs_mesh`` (a
+        data-axis-1 mesh, ``make_mesh(n, seq=n)``) splits the GS loop's
+        FFTs: the grid wants chunk fan-out, GS one wavefield over
+        devices."""
         if not hasattr(self, "chunks"):
-            self.thetatheta_chunks(verbose=verbose, memmap=memmap)
+            self.thetatheta_chunks(verbose=verbose, memmap=memmap,
+                                   mesh=mesh)
         if device_mosaic:
             self.wavefield = thth_ret.mosaic_device(self.chunks,
                                                     device=self.device)
         else:
             self.wavefield = thth_ret.mosaic(self.chunks)
         if gs:
-            self.gerchberg_saxton(niter=niter, verbose=verbose)
+            self.gerchberg_saxton(niter=niter, verbose=verbose, mesh=gs_mesh)
         return self.wavefield
 
     def retrieve_wavefield(self, verbose=False, mesh=None, gs=False,
@@ -1446,16 +1612,18 @@ class Dynspec:
         (``"plain"``, ``"eigh"`` and ``"power"`` as in
         :func:`~.thth.retrieval.grid_retrieval_batch`); ``mark`` is the
         stage callback of
-        :func:`~.thth.retrieval.campaign_retrieval_batch`."""
-        _not_ported(mesh=mesh, gs_mesh=gs_mesh)
+        :func:`~.thth.retrieval.campaign_retrieval_batch`. ``mesh``
+        spreads the chains over its devices in whole chains (every chunk
+        as without it; the wavefield is stitched on its first device),
+        ``gs_mesh`` splits the GS loop as in :meth:`calc_wavefield`."""
         if not hasattr(self, "ththeta"):
-            self.fit_thetatheta(verbose=verbose)
+            self.fit_thetatheta(verbose=verbose, mesh=mesh)
         chunks, edges_rows, etas_rows = self._retrieval_grid_inputs()
         dt, df = self._steps()
         wf, ok = thth_ret.campaign_retrieval_batch(
             chunks[None], edges_rows, etas_rows, dt, df, npad=self.npad,
-            tau_mask=self.thth_tau_mask, method=method, device=self.device,
-            mark=mark)
+            tau_mask=self.thth_tau_mask, method=method, mesh=mesh,
+            device=self.device, mark=mark)
         self.wavefield = wf[0]
         self.wavefield_ok = ok[0]
         slog.log_event("thth.retrieve_wavefield",
@@ -1466,19 +1634,19 @@ class Dynspec:
             print(f"retrieved {self.ncf_ret}x{self.nct_ret} chunks, "
                   f"{int(np.count_nonzero(ok))} quarantined")
         if gs:
-            self.gerchberg_saxton(niter=niter, verbose=verbose)
+            self.gerchberg_saxton(niter=niter, verbose=verbose, mesh=gs_mesh)
         return self.wavefield
 
     def gerchberg_saxton(self, niter=1, verbose=False, pool=None, mesh=None):
         """Gerchberg–Saxton iterations on ``self.wavefield`` (``pool`` is
-        accepted and ignored; ``mesh`` is not ported yet)."""
-        _not_ported(mesh=mesh)
+        accepted and ignored; ``mesh``, a data-axis-1 mesh, splits the
+        loop's FFTs over its ``seq`` shards)."""
         if not hasattr(self, "wavefield"):
             self.calc_wavefield(verbose=verbose)
         self.wavefield = thth_ret.gerchberg_saxton(
             self.wavefield, self.dyn,
             freqs=self.freqs[: self.wavefield.shape[0]], niter=niter,
-            device=self.device)
+            mesh=mesh, device=self.device)
         return self.wavefield
 
 
@@ -1529,11 +1697,10 @@ class Dynspec:
         axis, tiny powers are refilled (``clean``), and on uniform axes
         the cubic-convolution interpolation runs on ``self.device``
         (``ops.scatim``); other axes take the host
-        ``RectBivariateSpline``. The port has no plotting (``plot``,
-        ``plot_fit``; ``plot_log``, ``use_angle``, ``use_spatial``,
-        ``s``, ``veff`` and ``d`` configure it)."""
-        if plot or plot_fit:
-            raise NotImplementedError("the port has no plotting")
+        ``RectBivariateSpline``. ``plot_fit`` draws the arc fit it runs,
+        ``plot`` the image (:meth:`plot_scattered_image`; ``plot_log``,
+        ``use_angle``, ``use_spatial``, ``s``, ``veff`` and ``d``
+        configure it)."""
         if input_sspec is None:
             sspec, yaxis = self._select_sspec(lamsteps=lamsteps, trap=trap)
             fdop = np.array(self.fdop)
@@ -1546,7 +1713,8 @@ class Dynspec:
         linsspec = 10 ** (np.asarray(sspec) / 10)
         if input_eta is None and fit_arc:
             if not hasattr(self, "betaeta") and not hasattr(self, "eta"):
-                self.fit_arc(lamsteps=lamsteps, log_parabola=True)
+                self.fit_arc(lamsteps=lamsteps, log_parabola=True,
+                             plot=plot_fit)
             if lamsteps:
                 beta_to_eta = SPEED_OF_LIGHT * 1e6 / (ref_freq * 1e6) ** 2
                 eta = (self.betaeta / (self.freq / ref_freq) ** 2
@@ -1604,6 +1772,10 @@ class Dynspec:
         scat_im[0:ny - 1, :] = image[ny - 1:0:-1, :]
         self.scattered_image = scat_im
         self.scattered_image_ax = fdop_x
+        if plot:
+            self.plot_scattered_image(plot_log=plot_log, use_angle=use_angle,
+                                      use_spatial=use_spatial, s=s,
+                                      veff=veff, d=d)
         return scat_im
 
     # ------------------------------------------------------------------
@@ -1626,6 +1798,84 @@ class Dynspec:
         if lamsteps:
             self.scale_dyn()
         self.calc_sspec(lamsteps=lamsteps)
+
+    # ------------------------------------------------------------------
+    # plotting (host matplotlib, :mod:`.plotting`)
+    # ------------------------------------------------------------------
+    def plot_dyn(self, lamsteps=False, input_dyn=None, filename=None,
+                 input_x=None, input_y=None, trap=False, display=True,
+                 figsize=(9, 9), dpi=200, title=None, velocity=False):
+        from . import plotting
+
+        return plotting.plot_dyn(self, lamsteps=lamsteps, input_dyn=input_dyn,
+                                 filename=filename, input_x=input_x,
+                                 input_y=input_y, trap=trap, display=display,
+                                 figsize=figsize, dpi=dpi, title=title,
+                                 velocity=velocity)
+
+    def plot_acf(self, method="acf1d", alpha=5 / 3, contour=False,
+                 filename=None, input_acf=None, input_t=None, input_f=None,
+                 nscale=4, mcmc=False, display=True, crop=False, tlim=None,
+                 flim=None, figsize=(9, 9), verbose=False, dpi=200):
+        from . import plotting
+
+        return plotting.plot_acf(self, method=method, alpha=alpha,
+                                 contour=contour, filename=filename,
+                                 input_acf=input_acf, input_t=input_t,
+                                 input_f=input_f, nscale=nscale, mcmc=mcmc,
+                                 display=display, crop=crop, tlim=tlim,
+                                 flim=flim, figsize=figsize, verbose=verbose,
+                                 dpi=dpi)
+
+    def plot_sspec(self, lamsteps=False, input_sspec=None, filename=None,
+                   input_x=None, input_y=None, trap=False, prewhite=False,
+                   plotarc=False, maxfdop=np.inf, delmax=None, cutmid=0,
+                   startbin=0, display=True, colorbar=True, title=None,
+                   figsize=(9, 9), subtract_artefacts=False,
+                   overplot_curvature=None, dpi=200, velocity=False,
+                   vmin=None, vmax=None, **kwargs):
+        # the reference's signature; ``ref_freq`` alone is tolerated (the
+        # JAX package's earlier releases took it), anything else raises
+        kwargs.pop("ref_freq", None)
+        if kwargs:
+            raise TypeError("plot_sspec() got unexpected keyword "
+                            f"arguments {sorted(kwargs)}")
+        from . import plotting
+
+        return plotting.plot_sspec(
+            self, lamsteps=lamsteps, input_sspec=input_sspec,
+            filename=filename, input_x=input_x, input_y=input_y, trap=trap,
+            prewhite=prewhite, plotarc=plotarc, maxfdop=maxfdop,
+            delmax=delmax, cutmid=cutmid, startbin=startbin, display=display,
+            colorbar=colorbar, title=title, figsize=figsize,
+            subtract_artefacts=subtract_artefacts,
+            overplot_curvature=overplot_curvature, dpi=dpi,
+            velocity=velocity, vmin=vmin, vmax=vmax)
+
+    def plot_scattered_image(self, input_scattered_image=None,
+                             input_fdop=None, display=True, s=None,
+                             veff=None, d=None, use_angle=False,
+                             use_spatial=False, plot_log=True, colorbar=True,
+                             title=None, filename=None, figsize=(9, 9),
+                             dpi=200):
+        from . import plotting
+
+        return plotting.plot_scattered_image(
+            self, input_scattered_image=input_scattered_image,
+            input_fdop=input_fdop, display=display, plot_log=plot_log,
+            colorbar=colorbar, title=title, use_angle=use_angle,
+            use_spatial=use_spatial, s=s, veff=veff, d=d, filename=filename,
+            figsize=figsize, dpi=dpi)
+
+    def plot_all(self, dyn=1, sspec=3, acf=2, norm_sspec=4, colorbar=True,
+                 lamsteps=False, filename=None, display=True, figsize=(9, 9),
+                 dpi=200):
+        from . import plotting
+
+        return plotting.plot_all(self, dyn=dyn, sspec=sspec, acf=acf,
+                                 norm_sspec=norm_sspec, colorbar=colorbar,
+                                 lamsteps=lamsteps, filename=filename,
+                                 display=display, figsize=figsize, dpi=dpi)
 
     def info(self):
         """Print the observation's properties."""

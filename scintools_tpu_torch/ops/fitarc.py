@@ -259,20 +259,37 @@ def fit_arc(sspec, yaxis, fdop, asymm=False, delmax=None, numsteps=1e4,
 
 def _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps, nsmooth,
                 low_power_diff, high_power_diff, constraint, noise_error,
-                on_device, dev):
+                on_device, dev, mesh=None):
     """The built function of :func:`fit_arc_batch` for one geometry and
     set of fit parameters on ``dev``: the whole device fit
-    (``on_device``) or the folded profiles for the host tail. Built on
-    the first call and kept, with its device grids, in a FIFO of 8."""
+    (``on_device``) or the folded profiles for the host tail; with
+    ``mesh`` its sharded form (:func:`~..parallel.survey.
+    make_arc_fit_sharded`, :func:`~..parallel.survey.
+    make_arc_profile_sharded`). Built on the first call and kept, with
+    its device grids, in a FIFO of 8."""
     fit_key = ((int(nsmooth), float(low_power_diff), float(high_power_diff),
                 tuple(map(float, constraint)), bool(noise_error))
                if on_device else None)
     key = (yaxis.tobytes(), fdop.tobytes(), float(delmax), int(startbin),
-           int(cutmid), int(numsteps), fit_key, bool(on_device), str(dev))
+           int(cutmid), int(numsteps), fit_key, bool(on_device), str(dev),
+           None if mesh is None else mesh.key)
 
     def build():
         ARC_FIT_CACHE_STATS["builds"] += 1
         _retrace.record_build("ops.arc_fit_device", key)
+        if mesh is not None:
+            from ..parallel import survey as par_survey
+
+            if not on_device:
+                return par_survey.make_arc_profile_sharded(
+                    mesh, yaxis, fdop, delmax=delmax, startbin=startbin,
+                    cutmid=cutmid, numsteps=numsteps, fold=True)[0]
+            return par_survey.make_arc_fit_sharded(
+                mesh, yaxis, fdop, delmax=delmax, startbin=startbin,
+                cutmid=cutmid, numsteps=numsteps, nsmooth=nsmooth,
+                low_power_diff=low_power_diff,
+                high_power_diff=high_power_diff, constraint=constraint,
+                noise_error=noise_error)[0]
         if not on_device:
             return make_arc_profile_batch_fn(
                 yaxis, fdop, delmax=delmax, startbin=startbin,
@@ -316,9 +333,12 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
     float64 host tail on the fetched profiles. With the device tail,
     ``full_output=False`` skips the profile fetch and leaves the
     diagnostic fields (profile, eta_array, prob_eta_peak, xdata, yfit)
-    None. ``mesh`` is not ported yet."""
+    None. ``mesh`` (:func:`~..parallel.mesh.make_mesh`) splits the
+    epochs over its devices, one kernel launch per shard, and gathers on
+    its first device (``device`` is then the mesh's); every epoch's fit
+    is what it is without the mesh."""
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
+        device = mesh.first
     dev = resolve_device(device)
     if sspecs_device is not None:
         if sspecs is not None and \
@@ -356,7 +376,7 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
     e_dev = as_tensor(etamin_b, dev, torch.float64)
     fn = _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps,
                      nsmooth, low_power_diff, high_power_diff, constraint,
-                     noise_error, on_device, dev)
+                     noise_error, on_device, dev, mesh=mesh)
 
     if on_device:
         from .fitarc_device import eta_crop_lengths, eta_grid

@@ -7,12 +7,14 @@ from .brightness import Brightness
 from .factory import (SIM_GROUP_SIZE, lane_keys_from_seeds,
                       make_scenario_factory, simulate_scenarios,
                       simulate_screens)
-from .scenario import (DEFAULT_REGIMES, recovery_summary, scenario_truths,
+from .scenario import (DEFAULT_REGIMES, recovery_summary,
+                       run_scenario_survey, scenario_truths,
                        scenario_workload)
 from .simulation import Simulation, simulate_dynspec_batch
 
 __all__ = ["ACF", "Brightness", "DEFAULT_REGIMES", "SIM_GROUP_SIZE",
            "Simulation", "lane_keys_from_seeds", "make_scenario_factory",
-           "recovery_summary", "scenario_truths", "scenario_workload",
+           "recovery_summary", "run_scenario_survey", "scenario_truths",
+           "scenario_workload",
            "simulate_dynspec_batch", "simulate_scenarios",
            "simulate_screens"]

@@ -303,8 +303,6 @@ class ACF:
                  spatial_factor=2, resolution_factor=1, core_factor=2,
                  auto_sampling=True, plot=False, display=True,
                  backend=None, device=None):
-        if plot:
-            raise NotImplementedError("the port has no plotting")
         if backend is not None:
             raise NotImplementedError(
                 "backend is the JAX package's and must stay None: the "
@@ -336,6 +334,8 @@ class ACF:
         self.dsp = 4 * taumax / (nt - 1)
         self.device = resolve_device(device)
         self.calc_acf()
+        if plot:
+            self.plot_acf(display=display)
 
     def calc_acf(self):
         """Build the full ACF: ``self.acf`` (nf, nt), its axes ``fn``,
@@ -437,6 +437,22 @@ class ACF:
         mag = torch.sqrt((F * torch.conj(F)).real)
         self.sspec = (10 * torch.log10(mag)).cpu().numpy()
         return self.sspec
+
+    # -- plotting (scint_sim.py:680-765) -------------------------------
+    def plot_acf(self, display=True, contour=True, filled=False,
+                 **kwargs):
+        from .plots import plot_acf_model
+        return plot_acf_model(self, display=display, contour=contour,
+                              filled=filled, **kwargs)
+
+    def plot_acf_efield(self, display=True, **kwargs):
+        from .plots import plot_acf_efield_model
+        return plot_acf_efield_model(self, display=display, **kwargs)
+
+    def plot_sspec(self, display=True, vmin=None, vmax=None, **kwargs):
+        from .plots import plot_acf_sspec
+        return plot_acf_sspec(self, display=display, vmin=vmin,
+                              vmax=vmax, **kwargs)
 
 
 def theoretical_acf(**kwargs):

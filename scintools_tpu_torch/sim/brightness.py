@@ -7,7 +7,7 @@ ACF (as in the JAX package); the map to (delay, Doppler) runs on the
 device in float64 — the Jacobian over the whole grid at once and the
 bilinear lookup on the regular brightness grid as gathers (NaN outside
 it), then the point-mirrored sum — and the ACF is an FFT of the
-spectrum on the device. Plotting is not ported.
+spectrum on the device. The plots are :mod:`.plots`'s.
 """
 
 from __future__ import annotations
@@ -51,8 +51,6 @@ class Brightness:
         if backend is not None:
             raise NotImplementedError(
                 "backend= is the JAX package's; the port runs on device=")
-        if plot:
-            raise NotImplementedError("the port has no plotting")
         self.device = resolve_device(device)
         self.ar = ar
         self.alpha = alpha
@@ -70,10 +68,18 @@ class Brightness:
         self.ncuts = ncuts
 
         self.calc_brightness()
+        if plot:
+            self.plot_acf_efield(figsize=figsize)
+            self.plot_brightness(figsize=figsize)
         if calc_sspec:
             self.calc_SS()
+            if plot:
+                self.plot_sspec(figsize=figsize)
+                self.plot_cuts(figsize=figsize)
         if calc_acf:
             self.calc_acf()
+            if plot:
+                self.plot_acf(figsize=figsize, contour=contour)
 
     def calc_brightness(self):
         """E-field ACF → fft2 → brightness B(θx, θy), host float64
@@ -139,9 +145,24 @@ class Brightness:
         acf = acf.real
         self.acf = (acf / acf.max()).cpu().numpy()
 
-    # -- plotting (scint_sim.py:960-1065): not ported --------------------
-    def _no_plot(self, *args, **kwargs):
-        raise NotImplementedError("the port has no plotting")
+    # -- plotting (scint_sim.py:960-1065) ------------------------------
+    def plot_acf_efield(self, figsize=(6, 6), **kwargs):
+        from .plots import plot_brightness_efield
+        return plot_brightness_efield(self, figsize=figsize, **kwargs)
 
-    plot_acf_efield = plot_brightness = plot_sspec = plot_acf = _no_plot
-    plot_cuts = _no_plot
+    def plot_brightness(self, figsize=(6, 6), **kwargs):
+        from .plots import plot_brightness_dist
+        return plot_brightness_dist(self, figsize=figsize, **kwargs)
+
+    def plot_sspec(self, figsize=(6, 6), **kwargs):
+        from .plots import plot_brightness_sspec
+        return plot_brightness_sspec(self, figsize=figsize, **kwargs)
+
+    def plot_acf(self, figsize=(6, 6), contour=True, **kwargs):
+        from .plots import plot_brightness_acf
+        return plot_brightness_acf(self, figsize=figsize,
+                                   contour=contour, **kwargs)
+
+    def plot_cuts(self, figsize=(6, 6), **kwargs):
+        from .plots import plot_brightness_cuts
+        return plot_brightness_cuts(self, figsize=figsize, **kwargs)

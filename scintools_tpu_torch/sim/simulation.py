@@ -24,7 +24,8 @@ once per frequency channel:
 - the impulse response (``get_pulse``), the lazy last-plane intensity
   ``xyi`` and the packaging stay host numpy, as in the JAX package.
 
-Plotting (``plot=`` and the ``plot_*`` methods) is not ported.
+``plot=`` and the ``plot_*`` methods draw the host arrays
+(:mod:`.plots`).
 """
 
 from __future__ import annotations
@@ -173,8 +174,6 @@ class Simulation:
         if backend is not None:
             raise NotImplementedError(
                 "backend= is the JAX package's; the port runs on device=")
-        if plot:
-            raise NotImplementedError("the port has no plotting")
         self.device = resolve_device(device)
         self.mb2 = mb2
         self.rf = rf
@@ -207,6 +206,8 @@ class Simulation:
         if verbose:
             print("Getting impulse response...")
         self.get_pulse()
+        if plot:
+            self.plot_all()  # scint_sim.py:78-79
 
         # physical-units packaging (scint_sim.py:81-134)
         self.name = "sim:mb2={0},ar={1},psi={2},dlam={3}".format(
@@ -351,12 +352,34 @@ class Simulation:
         self.pulsewin = np.transpose(np.roll(p, self.nf, axis=-1))
         self.dm = self.xyp[:, int(self.ny / 2)] * self.dlam / np.pi
 
-    # -- plotting (scint_sim.py:313-415): not ported --------------------
-    def _no_plot(self, *args, **kwargs):
-        raise NotImplementedError("the port has no plotting")
+    # -- plotting (scint_sim.py:313-415) -------------------------------
+    def plot_screen(self, subplot=False, **kwargs):
+        from .plots import plot_screen
+        return plot_screen(self, subplot=subplot, **kwargs)
 
-    plot_screen = plot_intensity = plot_dynspec = plot_efield = _no_plot
-    plot_delay = plot_pulse = plot_all = _no_plot
+    def plot_intensity(self, subplot=False, **kwargs):
+        from .plots import plot_intensity
+        return plot_intensity(self, subplot=subplot, **kwargs)
+
+    def plot_dynspec(self, subplot=False, **kwargs):
+        from .plots import plot_sim_dynspec
+        return plot_sim_dynspec(self, subplot=subplot, **kwargs)
+
+    def plot_efield(self, subplot=False, **kwargs):
+        from .plots import plot_efield
+        return plot_efield(self, subplot=subplot, **kwargs)
+
+    def plot_delay(self, **kwargs):
+        from .plots import plot_delay
+        return plot_delay(self, **kwargs)
+
+    def plot_pulse(self, **kwargs):
+        from .plots import plot_pulse
+        return plot_pulse(self, **kwargs)
+
+    def plot_all(self, **kwargs):
+        from .plots import plot_sim_all
+        return plot_sim_all(self, **kwargs)
 
 
 def make_dynspec_batch_fn(mb2=2, rf=1, ds=0.01, alpha=5 / 3, ar=1, psi=0,

@@ -1,7 +1,6 @@
 """thth layer of the PyTorch/CUDA port: θ-θ maps, the curvature
 searches and the wavefield retrieval. Re-exports the names of
-``scintools_tpu/thth/__init__.py`` that the port defines
-(``plot_func`` waits for the port's plotting)."""
+``scintools_tpu/thth/__init__.py``."""
 
 from .batch import (make_fused_grid_eval_fn, make_fused_search_fn,
                     make_fused_thin_search_fn, make_multi_eval_fn,
@@ -12,9 +11,11 @@ from .core import (arc_edges, chisq_calc, cs_to_ri, eval_calc,
                    singularvalue_calc, thth_map, thth_redmap,
                    two_curve_map, unit_checks)
 from .peakfit import fit_eig_peak_batch_device, fit_eig_peak_device
+from .plots import plot_func
 from .retrieval import (calc_asymmetry, campaign_retrieval_batch,
                         chunk_retrieval_batch, err_string,
-                        gerchberg_saxton, grid_retrieval_batch, mask_func,
+                        gerchberg_saxton, grid_retrieval_batch,
+                        make_mosaic_fn, mask_func,
                         mosaic, mosaic_device, refine_mosaic,
                         resolve_retrieval_method, single_chunk_retrieval,
                         vlbi_chunk_retrieval, vlbi_retrieval_batch)
@@ -38,4 +39,5 @@ __all__ = [
     "grid_retrieval_batch", "campaign_retrieval_batch", "mosaic",
     "mosaic_device", "resolve_retrieval_method", "refine_mosaic",
     "gerchberg_saxton", "calc_asymmetry", "mask_func", "err_string",
+    "make_mosaic_fn", "plot_func",
 ]

@@ -7,7 +7,8 @@ Counterpart of ``scintools_tpu/thth/batch.py``: ``_geometry`` (:47),
 ``make_thin_eval_fn`` (:368), ``_chunk_cs_to_ri`` (:478),
 ``_tau_keep_mask`` (:506), ``_health_and_quarantine`` (:513),
 ``make_fused_search_fn`` (:538), ``make_fused_thin_search_fn`` (:598)
-and ``make_fused_grid_eval_fn`` (:632).
+and ``make_fused_grid_eval_fn`` (:632), with the port's own
+``make_fused_thin_grid_eval_fn`` beside them.
 
 All chunks of one frequency row share (tau, fd, edges, η grid), so the
 θ-θ gather indices depend only on the geometry and η: they are built
@@ -18,13 +19,16 @@ matrices are then laid out chunk-major as (B, neta, 2, N, N) float32
 for the warm-start eigensolver (thth/eig.py), which walks η in order
 within each chunk.
 
-The thin-screen evaluators and the traced-geometry grid evaluators take
-the cold ``iters``-step power iteration (:func:`.core.dominant_eig_power`)
-in both packages, never the warm-start eigensolver, whose chained warm
-start is another algorithm. The thin search takes the largest singular
-value of the two-curve θ-θ as √λ_max(AᴴA): each (chunk, η) matrix is
-scaled by its largest modulus before the complex Gram product (float32
-squaring would overflow otherwise) and σ scaled back. The grid
+The thin-screen evaluators take the cold ``iters``-step power iteration
+(:func:`.core.dominant_eig_power`) in both packages, never the
+warm-start eigensolver, whose chained warm start is another algorithm;
+so do the traced-geometry grid evaluators unless asked for the
+warm-start route (``method="auto"``, the port's own, which the sharded
+façade fit takes so that a chunk gets the per-row search's curve).
+The thin search takes the largest singular value of the two-curve θ-θ
+as √λ_max(AᴴA): each (chunk, η) matrix is scaled by its largest modulus
+before the complex Gram product (float32 squaring would overflow
+otherwise) and σ scaled back. The grid
 evaluators give every chunk its own edges and η, so their index maps
 are built per chunk on the device in float64.
 """
@@ -174,7 +178,8 @@ def _grid_inputs(CS_ri, etas_b, dev, *edges_b):
     return (CS_c,) + tuple(f64)
 
 
-def make_grid_eval_fn(tau, fd, n_edges, iters=200, device=None):
+def make_grid_eval_fn(tau, fd, n_edges, iters=200, method="power",
+                      eig="kernel", device=None):
     """Whole-chunk-grid η search with per-chunk geometry:
     ``fn(CS_ri[B, 2, ntau, nfd], edges[B, n_edges], etas[B, neta]) →
     |λ|[B, neta]`` on ``device`` (``None``: the CUDA card).
@@ -182,9 +187,17 @@ def make_grid_eval_fn(tau, fd, n_edges, iters=200, device=None):
     The façade scales edges and η per frequency row (η ∝ f⁻², θ ∝ f), so
     chunks of different rows have different geometry: each chunk's θ-θ
     is built from its own edge and η rows with the standard map's
-    formulas (index maps in float64 on the device), and every (chunk, η)
-    matrix then takes ``iters`` cold power steps. ``fn.build(CS_ri,
-    edges, etas)`` is the gather alone, (B, neta, n, n) complex64."""
+    formulas (index maps in float64 on the device). With
+    ``method="power"`` (the JAX package's only route) every (chunk, η)
+    matrix then takes ``iters`` cold power steps; ``method="auto"``
+    walks each chunk's η row with the warm-start eigensolver instead, as
+    :func:`make_multi_eval_fn` does at its default steps (``eig`` as
+    there), so a chunk gets the |λ| curve of the per-row
+    search. ``fn.build(CS_ri, edges, etas)`` is the gather alone,
+    (B, neta, n, n) complex64."""
+    if method not in ("auto", "power"):
+        raise ValueError(f"unknown method {method!r} (want 'auto' or "
+                         "'power')")
     dev = resolve_device(device)
     tau_a = np.asarray(unit_checks(tau, "tau"), dtype=float)
     fd_a = np.asarray(unit_checks(fd, "fd"), dtype=float)
@@ -228,10 +241,25 @@ def make_grid_eval_fn(tau, fd, n_edges, iters=200, device=None):
             out[b] = thth * (valid[:, None, :] & valid[:, :, None])
         return out
 
-    def fn(CS_ri, edges_b, etas_b):
-        lam, _ = dominant_eig_power(build(CS_ri, edges_b, etas_b),
-                                    iters=iters)
-        return lam.abs()
+    if method == "auto":
+        solver = (batched_eig_warmstart if eig == "kernel"
+                  else batched_eig_warmstart_plain)
+        n_pad = pad_to_multiple(n_th)
+
+        def fn(CS_ri, edges_b, etas_b):
+            thth = build(CS_ri, edges_b, etas_b)
+            B, neta = thth.shape[:2]
+            a_ri = torch.zeros((B, neta, 2, n_pad, n_pad),
+                               dtype=torch.float32, device=dev)
+            a_ri[:, :, 0, :n_th, :n_th] = thth.real
+            a_ri[:, :, 1, :n_th, :n_th] = thth.imag
+            del thth
+            return solver(a_ri, n_th // 2).abs()
+    else:
+        def fn(CS_ri, edges_b, etas_b):
+            lam, _ = dominant_eig_power(build(CS_ri, edges_b, etas_b),
+                                        iters=iters)
+            return lam.abs()
 
     fn.build = build
     return fn
@@ -505,19 +533,22 @@ def make_fused_thin_search_fn(tau, fd, edges, edges_arclet, center_cut, nf,
 
 
 def make_fused_grid_eval_fn(tau, fd, n_edges, nf, nt, npad=3, coher=True,
-                            tau_mask=0.0, fw=0.1, iters=200, device=None):
+                            tau_mask=0.0, fw=0.1, iters=200, method="power",
+                            eig="kernel", device=None):
     """Fused whole-chunk-grid search with per-chunk geometry on
     ``device`` (``None``: the CUDA card): ``fn(dspecs[B, nf, nt],
     edges[B, n_edges], etas[B, neta]) → (|λ|[B, neta], eta[B],
     eta_sig[B], popt[B, 3], ok[B])``; the per-chunk-geometry counterpart
-    of :func:`make_fused_search_fn` over :func:`make_grid_eval_fn`."""
+    of :func:`make_fused_search_fn` over :func:`make_grid_eval_fn`
+    (``method`` and ``eig`` as there)."""
     device = resolve_device(device)
     tau_a, tau_keep = _tau_keep_mask(tau, tau_mask)
     if len(tau_a) != (npad + 1) * nf:
         raise ValueError(
             f"tau length {len(tau_a)} != (npad+1)*nf = "
             f"{(npad + 1) * nf}")
-    grid = make_grid_eval_fn(tau, fd, n_edges, iters=iters, device=device)
+    grid = make_grid_eval_fn(tau, fd, n_edges, iters=iters, method=method,
+                             eig=eig, device=device)
 
     def fn(dspecs, edges_b, etas_b):
         cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep,
@@ -530,4 +561,38 @@ def make_fused_grid_eval_fn(tau, fd, n_edges, nf, nt, npad=3, coher=True,
         return eigs, eta, sig, popt, ok
 
     fn.grid = grid
+    return fn
+
+
+def make_fused_thin_grid_eval_fn(tau, fd, n_edges, n_arclet_edges,
+                                 center_cut, nf, nt, npad=3, coher=True,
+                                 tau_mask=0.0, fw=0.1, iters=200,
+                                 device=None):
+    """Fused whole-chunk-grid thin-screen search with per-chunk geometry
+    on ``device`` (``None``: the CUDA card): ``fn(dspecs[B, nf, nt],
+    edges[B, n_edges], edges_arclet[B, n_arclet_edges], etas[B, neta])
+    → (σ[B, neta], eta[B], eta_sig[B], popt[B, 3], ok[B])``; the
+    per-chunk-geometry counterpart of :func:`make_fused_thin_search_fn`
+    over :func:`make_thin_grid_eval_fn` (the port's own: the sharded
+    façade's thin fit, whose chunks then get the row search's η)."""
+    device = resolve_device(device)
+    tau_a, tau_keep = _tau_keep_mask(tau, tau_mask)
+    if len(tau_a) != (npad + 1) * nf:
+        raise ValueError(
+            f"tau length {len(tau_a)} != (npad+1)*nf = "
+            f"{(npad + 1) * nf}")
+    thin = make_thin_grid_eval_fn(tau, fd, n_edges, n_arclet_edges,
+                                  center_cut, iters=iters, device=device)
+
+    def fn(dspecs, edges_b, arclet_b, etas_b):
+        cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep, coher,
+                                              power=True)
+        sigs = thin(cs_ri, edges_b, arclet_b, etas_b)
+        eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
+            etas_b, sigs, fw=fw, with_ok=True)
+        eta, sig, popt, ok = _health_and_quarantine(
+            sigs, in_ok, cs_ok, fit_ok, eta, sig, popt)
+        return sigs, eta, sig, popt, ok
+
+    fn.thin = thin
     return fn

@@ -483,9 +483,15 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     ``"kernel"``, ``"plain"`` or ``"power"`` (``iters`` cold power steps
     per chunk); ``None`` means ``"kernel"``. ``mark``
     gets ``upload`` once the chunks are on ``device``, then the stages
-    of :func:`make_chunk_retrieval_fn`."""
+    of :func:`make_chunk_retrieval_fn`.
+
+    ``mesh`` (:func:`~..parallel.mesh.make_mesh`) spreads the chains
+    over its devices in whole chains (:func:`~..parallel.survey.
+    make_retrieval_sharded`), so every chunk is computed as it is
+    without the mesh; ``device`` is then the mesh's first device, where
+    the results are gathered, and ``mark`` gets ``upload`` alone."""
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
+        device = mesh.first
     dev = resolve_device(device)
     method = resolve_retrieval_method(method)
     if isinstance(chunks, torch.Tensor):
@@ -504,12 +510,20 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
         etas_per = np.concatenate([etas_per, np.full(pad_n, etas_per[-1])])
     if mark is not None:
         mark("upload")
-    fn = _retrieval_fn(nf, nt, dt, df, edges_per.shape[1], npad, method,
-                       iters, warm_iters, dev)
-    E, ok = fn(chunks,
-               torch.as_tensor(edges_per, dtype=torch.float64, device=dev),
-               torch.as_tensor(etas_per, dtype=torch.float64, device=dev),
-               float(unit_checks(tau_mask) or 0.0), group=group, mark=mark)
+    tau_mask = float(unit_checks(tau_mask) or 0.0)
+    edges_t = torch.as_tensor(edges_per, dtype=torch.float64, device=dev)
+    etas_t = torch.as_tensor(etas_per, dtype=torch.float64, device=dev)
+    if mesh is not None:
+        from ..parallel.survey import make_retrieval_sharded
+
+        fn = make_retrieval_sharded(mesh, nf, nt, dt, df, edges_per.shape[1],
+                                    npad=npad, method=method, iters=iters,
+                                    warm_iters=warm_iters)
+        E, ok = fn(chunks, edges_t, etas_t, tau_mask, group=group)
+    else:
+        fn = _retrieval_fn(nf, nt, dt, df, edges_per.shape[1], npad, method,
+                           iters, warm_iters, dev)
+        E, ok = fn(chunks, edges_t, etas_t, tau_mask, group=group, mark=mark)
     E, ok = E[:N], ok[:N]
     if not device_out:
         E, ok = E.cpu().numpy(), ok.cpu().numpy()
@@ -626,26 +640,39 @@ def vlbi_retrieval_batch(dspecs, edges, eta, dt, df, n_dish, npad=3,
     (P = n_dish(n_dish+1)/2 spectra per chunk, complex cross-spectra)
     with shared ``edges`` and ``eta`` → per-dish wavefields
     ``[B, n_dish, nf, nt]`` (complex64 numpy), one device pass for the
-    batch (:func:`make_vlbi_retrieval_fn`, built once per geometry)."""
+    batch (:func:`make_vlbi_retrieval_fn`, built once per geometry and
+    device). ``mesh`` splits the batch over its devices, gathered on
+    the first (``device`` is then the mesh's)."""
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
+        device = mesh.first
     dev = resolve_device(device)
     B, P, nf, nt = np.shape(dspecs)
     if P != (n_dish * (n_dish + 1)) // 2:
         raise ValueError(f"expected {(n_dish * (n_dish + 1)) // 2} "
                          f"spectra per chunk for n_dish={n_dish}, got {P}")
     edges = np.asarray(unit_checks(edges, "edges"), dtype=float)
-    key = ("vlbi", nf, nt, float(dt), float(df), len(edges), int(n_dish),
-           int(npad), str(dev))
-    fn = fifo_cached(_RETRIEVAL_CACHE, key, lambda: make_vlbi_retrieval_fn(
-        nf, nt, dt, df, len(edges), n_dish, npad=npad, device=dev),
-        _CACHE_SIZE)
+    eta = float(unit_checks(eta, "eta"))
+    tau_mask = float(unit_checks(tau_mask) or 0.0)
+
+    def fn_of(d_dev, n=None):
+        key = ("vlbi", nf, nt, float(dt), float(df), len(edges),
+               int(n_dish), int(npad), str(d_dev))
+        fn = fifo_cached(_RETRIEVAL_CACHE, key,
+                         lambda: make_vlbi_retrieval_fn(
+                             nf, nt, dt, df, len(edges), n_dish, npad=npad,
+                             device=d_dev), _CACHE_SIZE)
+        return lambda d: fn(d, edges, eta, tau_mask)
+
     d = (dspecs.to(device=dev, dtype=torch.complex64)
          if isinstance(dspecs, torch.Tensor)
          else torch.as_tensor(np.asarray(dspecs), dtype=torch.complex64,
                               device=dev))
-    E = fn(d, edges, float(unit_checks(eta, "eta")),
-           float(unit_checks(tau_mask) or 0.0))
+    if mesh is not None:
+        from ..parallel.mesh import run_lanes
+
+        E = run_lanes(mesh, fn_of, (d,))
+    else:
+        E = fn_of(dev)(d)
     return E.cpu().numpy()
 
 
@@ -742,6 +769,23 @@ def _stitch(flat, ncf, nct):
                           .mean(dim=(-2, -1)))
         old += new * torch.polar(torch.ones_like(rot), rot)[:, None, None]
     return E
+
+
+def make_mosaic_fn(ncf, nct, cwf, cwt):
+    """The device mosaic of one grid geometry: ``fn(chunks[E, ncf·nct,
+    cwf, cwt]) → wavefields[E, F, T]``, complex tensors on the chunks'
+    device — the greedy phase-aligned stitch of :func:`mosaic`, chunks
+    visited row-major, each aligned against the canvas so far (the JAX
+    package's scan, with complex tensors in place of its (real, imag)
+    stacks). :func:`mosaic_device` is its numpy-facing entry."""
+    def fn(chunks):
+        chunks = torch.as_tensor(chunks)
+        if tuple(chunks.shape[-3:]) != (ncf * nct, cwf, cwt):
+            raise ValueError(f"chunks of shape {tuple(chunks.shape)} do not "
+                             f"make a {ncf}x{nct} grid of {cwf}x{cwt}")
+        return _stitch(chunks.to(torch.complex64), ncf, nct)
+
+    return fn
 
 
 def mosaic_device(chunks, grid_shape=None, device=None):
@@ -969,7 +1013,7 @@ def err_string(value, error):
 # Gerchberg–Saxton
 # --------------------------------------------------------------------------
 
-def _gs_replace(E, amp, good):
+def gs_replace(E, amp, good):
     """amp·e^{i·arg E} at good pixels (arg 0 = 0, so amp there)."""
     return torch.where(good, torch.polar(amp, torch.angle(E)), E)
 
@@ -978,10 +1022,10 @@ def _gs_iterations(E, amp, good, neg, niter):
     """The GS loop body on tensors ``[..., NF, NT]``: amplitude
     replacement, then ``niter`` rounds of fft2 → zero the τ < 0 rows
     ``neg[NF]`` → ifft2 → amplitude replacement."""
-    E = _gs_replace(E, amp, good)
+    E = gs_replace(E, amp, good)
     for _ in range(int(niter)):
         spec = torch.fft.fft2(E).masked_fill(neg[:, None], 0)
-        E = _gs_replace(torch.fft.ifft2(spec), amp, good)
+        E = gs_replace(torch.fft.ifft2(spec), amp, good)
     return E
 
 
@@ -991,9 +1035,28 @@ def gerchberg_saxton(wavefield, dyn, freqs=None, niter=1, rescale=True,
     rescale |E|² to the dynspec mean, replace |E| with √dyn at finite
     positive pixels, then zero the acausal (τ < 0) components each
     iteration. The set-up is numpy float64 as in the JAX package; the
-    loop runs in complex64 on ``torch.fft``. Returns complex64 numpy."""
+    loop runs in complex64 on ``torch.fft``. Returns complex64 numpy.
+
+    ``mesh`` (``parallel.make_mesh(n, seq=n)``: a data axis of 1) splits
+    the loop's FFTs over the mesh's ``seq`` shards
+    (:func:`~..parallel.fft.make_gs_sharded`); the wavefield is built
+    whole on the mesh's first device (``device`` is then the mesh's) and
+    must fit there, and its shape must divide over the seq axis."""
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
+        from ..parallel.mesh import DATA_AXIS, SEQ_AXIS
+
+        if mesh.shape[DATA_AXIS] != 1:
+            raise ValueError(
+                "gerchberg_saxton(mesh=...) refines ONE wavefield — "
+                "use a data-axis-1 mesh (make_mesh(n, seq=n)); batch "
+                "fan-out belongs on the retrieval grid, not here")
+        k = mesh.shape[SEQ_AXIS]
+        shape = np.shape(wavefield)
+        if shape[0] % k or shape[1] % k:
+            raise ValueError(
+                f"wavefield shape {shape} must be divisible by the "
+                f"seq axis size {k} for the distributed FFT")
+        device = mesh.first
     dev = resolve_device(device)
     E = np.array(wavefield, dtype=complex)
     dyn = np.asarray(dyn, dtype=float)[: E.shape[0], : E.shape[1]]
@@ -1013,16 +1076,33 @@ def gerchberg_saxton(wavefield, dyn, freqs=None, niter=1, rescale=True,
         # negative-frequency rows of an unshifted axis start at (n+1)//2
         neg = np.zeros(E.shape[0], dtype=bool)
         neg[(E.shape[0] + 1) // 2:] = True
-    out = _gs_iterations(
-        torch.as_tensor(E, dtype=torch.complex64, device=dev),
-        as_tensor(amp, dev), torch.as_tensor(good, device=dev),
-        torch.as_tensor(neg, device=dev), niter)
+    args = (torch.as_tensor(E, dtype=torch.complex64, device=dev),
+            as_tensor(amp, dev), torch.as_tensor(good, device=dev),
+            torch.as_tensor(neg, device=dev))
+    if mesh is not None:
+        out = _gs_sharded_fn(mesh)(*(a[None] for a in args[:3]), args[3],
+                                   niter)[0]
+    else:
+        out = _gs_iterations(*args, niter)
     return out.cpu().numpy()
+
+
+_GS_SHARDED_CACHE = {}
+
+
+def _gs_sharded_fn(mesh):
+    """The mesh-sharded GS of :func:`gerchberg_saxton`, built once per
+    mesh (keyed by its devices and shape)."""
+    from ..parallel.fft import make_gs_sharded
+
+    return fifo_cached(_GS_SHARDED_CACHE, mesh.key,
+                       lambda: make_gs_sharded(mesh), 4)
 
 
 __all__ = ["calc_asymmetry", "campaign_retrieval_batch", "chunk_mask",
            "chunk_retrieval_batch", "err_string", "gerchberg_saxton",
            "grid_retrieval_batch", "hbm_group", "make_chunk_retrieval_fn",
+           "make_mosaic_fn",
            "make_vlbi_retrieval_fn", "mask_func", "mosaic", "mosaic_device",
            "mosaic_objective", "mosaic_shape", "refine_mosaic",
            "resolve_retrieval_method", "rot_init", "rot_mos",

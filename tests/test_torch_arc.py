@@ -663,7 +663,7 @@ class TestFitArcBatch:
         with pytest.raises(ValueError, match="host-only"):
             tfa.fit_arc_batch(sspecs, tdel, fdop, numsteps=2000,
                               log_parabola=True, on_device=True, device=CPU)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(AttributeError):     # not a parallel.Mesh
             tfa.fit_arc_batch(sspecs, tdel, fdop, mesh=object(), device=CPU)
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError):

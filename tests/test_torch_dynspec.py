@@ -472,14 +472,18 @@ class TestFaultsFixed:
         for d in (ds, dj):
             with pytest.raises(ValueError, match="scale_dyn"):
                 d.correct_dyn(velocity=True)
-        for call in (lambda: ds.calc_sspec(plot=True),
-                     lambda: ds.cut_dyn(plot=True),
-                     lambda: ds.calc_scattered_image(plot=True),
-                     lambda: ds.fit_thetatheta(plot=True),
-                     lambda: ds.fit_thetatheta(mesh=object()),
-                     lambda: ds.thetatheta_single(plot=True)):
-            with pytest.raises(NotImplementedError):
-                call()
+        # the plot options draw (tests/test_torch_plotting.py holds each
+        # figure to the JAX package's, tests/test_torch_parallel.py the
+        # mesh routes to the unsharded ones)
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+        ds.calc_sspec(plot=True)
+        ds.cut_dyn(plot=True, display=False)
+        assert len(plt.get_fignums()) == 4
+        plt.close("all")
 
 
 class TestOneChunkPerRow:
@@ -634,10 +638,15 @@ class TestRejectedInputs:
         lin = 10 ** (dj.trapsspec / 10)
         np.testing.assert_allclose(10 ** (ds.trapsspec / 10), lin,
                                    atol=1e-5 * lin.max())
-        with pytest.raises(NotImplementedError):
-            ds.fit_arc(plot=True)
-        with pytest.raises(NotImplementedError):
-            ds.norm_sspec(eta=1.0, plot=True)
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+        ds.fit_arc(plot=True)
+        ds.norm_sspec(eta=1.0, plot=True)
+        assert len(plt.get_fignums()) == 4     # the fit, then three panels
+        plt.close("all")
         with pytest.raises(ValueError):
             ds.prep_thetatheta(fitting_proc="bogus")
         with pytest.raises(ValueError):
@@ -646,9 +655,9 @@ class TestRejectedInputs:
             tdyn.Dynspec.from_reference_state({"dyn": dyn}, device="cpu")
 
     def test_unported_scint_options_raise(self, arc):
-        """The scintillation fits' options that are not ported raise (the
-        sspec method, plotting for item 13); an unknown method is refused
-        as in the JAX package. ``fitter(mcmc=True)`` runs the device
+        """The scintillation fits' option that is not ported raises (the
+        sspec method) and the plot options draw; an unknown method is
+        refused as in the JAX package. ``fitter(mcmc=True)`` runs the device
         sampler with no host fall-back, so a model that cannot take
         tensor parameters raises through it. The chirp-Z rows and the
         model ACF's spectrum now run, held to the JAX package."""
@@ -659,13 +668,19 @@ class TestRejectedInputs:
         dyn, times, freqs = arc
         ds = tdyn.Dynspec(dyn=tdyn.BasicDyn(dyn, times=times, freqs=freqs),
                           verbose=False, device="cpu")
-        for kw in (dict(method="sspec"), dict(plot=True)):
-            with pytest.raises(NotImplementedError):
-                ds.get_scint_params(**kw)
+        with pytest.raises(NotImplementedError):
+            ds.get_scint_params(method="sspec")
         with pytest.raises(ValueError):
             ds.get_scint_params(method="bogus")
-        with pytest.raises(NotImplementedError):
-            ds.get_acf_tilt(plot=True)
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+        ds.get_scint_params(plot=True, display=False)
+        ds.get_acf_tilt(plot=True, display=False)
+        assert len(plt.get_fignums()) == 3     # the fit, then the tilt's two
+        plt.close("all")
         p = Parameters()
         p.add("a", 1.0)
         with pytest.raises(AttributeError):
@@ -690,26 +705,31 @@ class TestRejectedInputs:
         ref = jacf.ACF(nt=9, nf=9).calc_sspec()
         np.testing.assert_allclose(acf.calc_sspec(), ref, rtol=1e-8,
                                    atol=1e-8 * np.abs(ref).max())
-        with pytest.raises(NotImplementedError):
-            acf_model.ACF(nt=9, nf=9, plot=True, device="cpu")
+        acf_model.ACF(nt=9, nf=9, plot=True, display=False, device="cpu")
+        assert len(plt.get_fignums()) == 1
+        plt.close("all")
 
     def test_unported_retrieval_options_raise(self, jax_fit, tmp_path,
                                               monkeypatch):
-        """``mesh`` and ``gs_mesh`` still raise; ``memmap``, ``pool`` and
-        ``method="power"`` now run (each is held to the JAX package in
-        its own test)."""
+        """``mesh`` and ``gs_mesh`` take a ``parallel.Mesh`` and refuse
+        anything else (tests/test_torch_parallel.py holds the mesh paths
+        to the unsharded ones); ``memmap``, ``pool`` and
+        ``method="power"`` run (each is held to the JAX package in its
+        own test)."""
         ds = tdyn.Dynspec.from_reference_state(
             dict(_state(jax_fit), ththeta=jax_fit.ththeta), device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(AttributeError):
             ds.thetatheta_chunks(mesh=object())
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(AttributeError):
             ds.calc_wavefield(mesh=object())
-        with pytest.raises(NotImplementedError):
-            ds.calc_wavefield(gs_mesh=object())
-        with pytest.raises(NotImplementedError):
+        ds.calc_wavefield()
+        with pytest.raises(AttributeError):
+            ds.calc_wavefield(gs=True, gs_mesh=object())
+        with pytest.raises(AttributeError):
             ds.retrieve_wavefield(mesh=object())
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(AttributeError):
             ds.gerchberg_saxton(mesh=object())
+        del ds.chunks
         monkeypatch.chdir(tmp_path)
         ds.thetatheta_chunks(memmap=True, pool=object())
         assert isinstance(ds.chunks, np.memmap)

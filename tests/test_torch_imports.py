@@ -124,3 +124,21 @@ def test_fleet_worker_process_leaves_jax_unloaded(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert '"epochs": 4' in r.stdout
+
+
+def test_import_loads_no_matplotlib():
+    """Plotting imports matplotlib inside its functions: importing the
+    package, its plotting modules and the mesh loads none of it (nor the
+    JAX package)."""
+    code = ("import sys, scintools_tpu_torch, scintools_tpu_torch.plotting,"
+            " scintools_tpu_torch.thth.plots, scintools_tpu_torch.sim.plots,"
+            " scintools_tpu_torch.compat, scintools_tpu_torch.parallel.mesh,"
+            " scintools_tpu_torch.parallel.fft,"
+            " scintools_tpu_torch.parallel.survey;"
+            "bad = [m for m in sys.modules if m in ('matplotlib',"
+            " 'scintools_tpu') or m.startswith(('matplotlib.',"
+            " 'scintools_tpu.'))];"
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -16,9 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
 
 # JAX names the port does not define yet, with the item that brings them
-NOT_PORTED = {
-    "thth": {"make_mosaic_fn", "plot_func"},  # mesh and plotting
-}
+NOT_PORTED = {}
 
 
 def _jax_exports(sub):
@@ -34,7 +32,7 @@ def _jax_exports(sub):
 
 CASES = [(sub, name) for sub in ("fit", "io", "ops", "thth", "utils",
                                  "robust", "mcmc", "detect", "serve",
-                                 "fleet")
+                                 "fleet", "parallel", "sim")
          for name in _jax_exports(sub)
          if name not in NOT_PORTED.get(sub, ())]
 
@@ -194,7 +192,7 @@ class TestReferenceNames:
         from scintools_tpu import compat as J
         from scintools_tpu_torch import compat as T
 
-        assert set(T.__all__) == set(J.__all__) - {"plot_func"}
+        assert set(T.__all__) == set(J.__all__)
         for name in T.__all__:
             assert callable(getattr(T, name))
         arr = np.random.default_rng(5).normal(size=(4, 4))

@@ -370,11 +370,23 @@ class TestGridRetrievalVsJax:
         np.testing.assert_array_equal(one, eigh)
 
     def test_mesh_is_not_ported(self, arc):
+        """The mesh route (ported now) walks whole chains on each shard,
+        so every chunk is the unsharded retrieval's up to the last bits
+        that a batched product of another size rounds (on the CPU the
+        plain solver's; as in ``test_grouped_call_equals_single_chains``:
+        aligned corr > 1 − 1e-6)."""
+        from scintools_tpu_torch.parallel import make_mesh
+
         chunks, edges, dt, df = arc
-        with pytest.raises(NotImplementedError):
-            tret.grid_retrieval_batch(chunks, np.tile(edges, (6, 1)),
-                                      np.full(6, ETA), dt, df,
-                                      mesh=object(), device="cpu")
+        args = (chunks, np.tile(edges, (6, 1)), np.full(6, ETA), dt, df)
+        want = tret.grid_retrieval_batch(*args, npad=1, method="plain",
+                                         group=2, device="cpu")
+        got = tret.grid_retrieval_batch(
+            *args, npad=1, method="plain", group=2,
+            mesh=make_mesh(4, devices=["cpu"] * 4))
+        assert got.shape == want.shape
+        for b in range(6):
+            assert _corr(got[b], want[b]) > 1 - 1e-6, b
 
 
 # ---------------------------------------------------------------------

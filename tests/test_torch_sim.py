@@ -167,17 +167,24 @@ class TestSimulation:
         assert np.random.rand() == x
 
     def test_rejected_options(self):
-        with pytest.raises(NotImplementedError):
-            tsim.Simulation(ns=16, nf=2, seed=1, plot=True, device=CPU)
+        """``backend`` is refused; ``plot`` and the plot methods draw
+        (tests/test_torch_plotting.py holds them to the JAX package)."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
         with pytest.raises(NotImplementedError):
             tsim.Simulation(ns=16, nf=2, seed=1, backend="numpy",
                             device=CPU)
+        plt.close("all")
+        tsim.Simulation(ns=16, nf=2, seed=1, plot=True, device=CPU)
+        assert len(plt.get_fignums()) == 1
         sim = tsim.Simulation(ns=16, nf=2, seed=1, device=CPU)
         for name in ("plot_screen", "plot_intensity", "plot_dynspec",
                      "plot_efield", "plot_delay", "plot_pulse",
                      "plot_all"):
-            with pytest.raises(NotImplementedError):
-                getattr(sim, name)()
+            assert getattr(sim, name)(display=False) is not None
+        plt.close("all")
 
     def test_default_device_is_the_card(self):
         if torch.cuda.is_available():
@@ -225,7 +232,7 @@ class TestBrightness:
                                calc_sspec=False, calc_acf=False,
                                device=CPU)
         assert not hasattr(t, "SS") and not hasattr(t, "acf")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(AttributeError):     # nothing to draw
             t.plot_sspec()
 
 

@@ -484,5 +484,11 @@ class TestSlice:
                 dj.calc_scattered_image(**kw)
             np.testing.assert_allclose(gp, gj, rtol=0, atol=tier,
                                        err_msg=str(kw))
-        with pytest.raises(NotImplementedError):
-            dp.calc_scattered_image(plot=True)
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+        dp.calc_scattered_image(plot=True)
+        assert len(plt.get_fignums()) == 1
+        plt.close("all")
