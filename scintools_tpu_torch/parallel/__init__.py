@@ -1,8 +1,11 @@
 """Survey execution of the port: atomic writes, the epoch journal, state
-checkpoints, the pipelined loader and journal writer, and the
-single-host device mesh with its distributed FFT and sharded survey
-paths (``mesh.py``, ``fft.py``, ``survey.py``: one process drives every
-card of the host, and a mesh may name one device more than once)."""
+checkpoints, the pipelined loader and journal writer, and the device
+mesh with its distributed FFT and sharded survey paths (``mesh.py``,
+``fft.py``, ``survey.py``). A mesh is one process's, which drives every
+card of its host, or, after
+:func:`~.checkpoint.initialize_distributed`, spans every rank of a
+``torch.distributed`` process group (one process per card, or several
+sharing a card); a mesh may name one device more than once."""
 
 from .checkpoint import (EpochJournal, SurveyCheckpointer,
                          atomic_write_bytes, atomic_write_json,

@@ -11,7 +11,9 @@ The port's own copy of ``scintools_tpu/parallel/checkpoint.py``:
 - :class:`SurveyCheckpointer` — periodic state checkpoints with
   keep-last-k retention, saved by ``torch.save`` under the same atomic
   protocol and CRC stamps the JAX package wraps around orbax;
-- :func:`run_survey_with_checkpoints` and :func:`results_state`.
+- :func:`run_survey_with_checkpoints` and :func:`results_state`;
+- :func:`initialize_distributed` — the process group that a mesh
+  across processes (``parallel/mesh.py``) runs on.
 """
 
 from __future__ import annotations
@@ -422,6 +424,68 @@ def run_survey_with_checkpoints(step_fn, init_state, n_steps, directory,
     finally:
         ckpt.close()
     return state
+
+
+#: seconds a collective waits for its peers before it raises
+DIST_TIMEOUT_S = 600.0
+
+
+def initialize_distributed(coordinator_address=None, num_processes=None,
+                           process_id=None, backend=None,
+                           timeout_s=DIST_TIMEOUT_S):
+    """Multi-process bring-up: ``torch.distributed.init_process_group``
+    with the JAX package's arguments and environment fallbacks
+    (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID). Call it once per
+    process before building the global mesh (:func:`.mesh.make_mesh`
+    then spans every rank's devices); a call in a process whose group
+    is initialised already does nothing.
+
+    ``coordinator_address`` (``host:port`` of rank 0, or an init URL)
+    with ``num_processes`` and ``process_id``; explicit arguments win
+    over the environment, and a ``process_id`` of 0 is one. With no
+    address, torchrun's ``MASTER_ADDR`` and ``WORLD_SIZE`` (``env://``)
+    are used where set; with neither the process stays single-process,
+    as JAX's auto-detection does off a pod. A requested bring-up that
+    fails raises: it never degrades to N independent single-process
+    runs.
+
+    ``backend`` defaults to ``"nccl"`` where CUDA cards are visible and
+    ``"gloo"`` for CPU ranks; ranks that share one card take
+    ``"gloo"`` (NCCL refuses two ranks on one device), which carries
+    CUDA tensors as well. Where a card is visible the process first
+    makes its local card current (``LOCAL_RANK``, else ``process_id``
+    modulo the card count). Every collective of the group waits at
+    most ``timeout_s`` for its peers, then raises, so a rank whose peer
+    died ends with an error instead of hanging."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    env = os.environ
+    addr = coordinator_address or env.get("COORDINATOR_ADDRESS")
+    if addr:
+        init = addr if "://" in addr else f"tcp://{addr}"
+        world = env.get("NUM_PROCESSES", 1)
+        rank = env.get("PROCESS_ID", 0)
+    elif env.get("MASTER_ADDR") and env.get("WORLD_SIZE"):
+        init, world, rank = "env://", env["WORLD_SIZE"], env.get("RANK", 0)
+    else:
+        return
+    # explicit arguments win over the environment; 0 is a valid
+    # process_id, so test identity against None, not truthiness
+    world = int(num_processes if num_processes is not None else world)
+    rank = int(process_id if process_id is not None else rank)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(int(env.get(
+            "LOCAL_RANK", rank % torch.cuda.device_count())))
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(
+        backend, init_method=init, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=float(timeout_s)))
 
 
 def results_state(n_epochs, n_params=3):

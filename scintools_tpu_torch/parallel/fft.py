@@ -8,9 +8,13 @@ A spectrum's transform is split by rows over the ``seq`` shards of its
 data row of the mesh. The classic decomposition: a local
 FFT along the unsplit time axis, a block transpose (each shard sends
 the s-th column block of its rows to shard s: the counterpart of
-``all_to_all``, made of device-to-device copies), a local FFT along the
-now whole frequency axis, and the transpose back. The batch axis lies
-over ``data``. Every function here takes and returns whole tensors: the
+``all_to_all``), a local FFT along the now whole frequency axis, and
+the transpose back. Between two shards of one process a block moves by
+a device copy; on a mesh whose ``seq`` row spans processes the blocks
+between ranks travel in one ``torch.distributed.all_to_all_single``
+of bytes per transpose. The batch axis lies over ``data``. Every
+function here takes and returns whole tensors (on every rank of a mesh
+across processes, each computing only its own shards' parts): the
 parts live on their devices only inside the call, and the result is
 gathered on the mesh's first device. So the input and the output must
 each fit on one device (the first); what the split spreads over the
@@ -20,18 +24,21 @@ array.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.sspec import fft_shapes
 from ..ops.windows import apply_window
 from ..ops.xfft import zoom_dft_1d
-from .mesh import SEQ_AXIS, Shards, batch_freq_sharding, gather, shard
+from .mesh import (SEQ_AXIS, Shards, _bytes, _nbytes, batch_freq_sharding,
+                   gather, process_group, shard)
 
 
 def _rows(mesh, x):
     """``x[B, R, C]`` → parts[d][s] = the d-th batch block's s-th row
     block, on ``mesh.devices[d, s]`` (:func:`.mesh.shard` by
-    :func:`.mesh.batch_freq_sharding`, one list per data row)."""
+    :func:`.mesh.batch_freq_sharding`, one list per data row; None where
+    another rank holds the shard)."""
     parts = shard(x, batch_freq_sharding(mesh))
     ns = mesh.shape[SEQ_AXIS]
     return [parts[i:i + ns] for i in range(0, len(parts), ns)]
@@ -40,20 +47,69 @@ def _rows(mesh, x):
 def _all_to_all(mesh, parts, split_axis, concat_axis):
     """The tiled all-to-all of one mesh row: shard s receives block s of
     every shard's ``split_axis`` and concatenates them, in shard order,
-    along ``concat_axis``."""
-    ns = mesh.shape[SEQ_AXIS]
-    out = []
+    along ``concat_axis``. This rank cuts its own parts into blocks; a
+    block for a shard of this rank is copied to that shard's device, the
+    others go into one byte buffer per destination rank, in (data row,
+    destination, source) order, and travel in one
+    ``all_to_all_single`` (skipped when no ``seq`` row spans ranks, as
+    on a single-process mesh: the choice depends on the mesh alone, so
+    every rank makes it alike). The parts of one data row share a shape
+    and dtype, so a receiver knows each incoming block's from its own
+    part of that row."""
+    ns, me = mesh.shape[SEQ_AXIS], mesh.rank
+    ranks, first = mesh.ranks, mesh.first
+    got, send, recv = {}, {}, {}
     for d, row in enumerate(parts):
-        blocks = [p.tensor_split(ns, dim=split_axis) for p in row]
-        out.append([torch.cat([blocks[src][s].to(mesh.devices[d, s],
-                                                 non_blocking=True)
-                               for src in range(ns)], dim=concat_axis)
-                    for s in range(ns)])
-    return out
+        mine = [p for p in row if p is not None]
+        if not mine:
+            continue
+        ref = mine[0]
+        n = ref.shape[split_axis]          # tensor_split's section sizes
+        sizes = [n // ns + (k < n % ns) for k in range(ns)]
+        blocks = [None if p is None else p.tensor_split(ns, dim=split_axis)
+                  for p in row]
+        for s in range(ns):
+            for src in range(ns):
+                r_src, r_dst = int(ranks[d, src]), int(ranks[d, s])
+                if r_src == me and r_dst == me:
+                    got[d, s, src] = blocks[src][s].to(mesh.devices[d, s],
+                                                      non_blocking=True)
+                elif r_src == me:
+                    send.setdefault(r_dst, []).append(blocks[src][s])
+                elif r_dst == me:
+                    shape = list(ref.shape)
+                    shape[split_axis] = sizes[s]
+                    recv.setdefault(r_src, []).append(
+                        ((d, s, src), ref.dtype, shape))
+    if mesh.crosses_ranks:
+        world = process_group().get_world_size()
+        in_sizes = [sum(map(_nbytes, send.get(r, ()))) for r in range(world)]
+        out_sizes = [sum(int(np.prod(shape)) * dtype.itemsize
+                         for _, dtype, shape in recv.get(r, ()))
+                     for r in range(world)]
+        inp = torch.empty(sum(in_sizes), dtype=torch.uint8, device=first)
+        off = 0
+        for r in range(world):
+            for b in send.get(r, ()):
+                inp[off:off + _nbytes(b)] = _bytes(b).to(first)
+                off += _nbytes(b)
+        out = torch.empty(sum(out_sizes), dtype=torch.uint8, device=first)
+        process_group().all_to_all_single(out, inp, out_sizes, in_sizes)
+        off = 0
+        for r in range(world):
+            for key, dtype, shape in recv.get(r, ()):
+                n = int(np.prod(shape)) * dtype.itemsize
+                got[key] = out[off:off + n].view(dtype).reshape(shape).to(
+                    mesh.devices[key[0], key[1]])
+                off += n
+    return [[torch.cat([got[d, s, src] for src in range(ns)],
+                       dim=concat_axis)
+             if row[s] is not None else None
+             for s in range(ns)] for d, row in enumerate(parts)]
 
 
 def _map(fn, parts):
-    return [[fn(p) for p in row] for row in parts]
+    return [[None if p is None else fn(p) for p in row] for row in parts]
 
 
 def _gather_rows(mesh, parts):
@@ -119,14 +175,15 @@ def make_gs_sharded(mesh):
                             for a in (E, amp, good, neg))
 
         def replace(parts):
-            return [[gs_replace(e, a, g) for e, a, g in zip(*rows)]
+            return [[None if e is None else gs_replace(e, a, g)
+                     for e, a, g in zip(*rows)]
                     for rows in zip(parts, ap, gp)]
 
         Ep = replace(Ep)
         for _ in range(int(niter)):
             S = _fft2_parts(mesh, Ep)
-            S = [[s.masked_fill(n, 0) for s, n in zip(*rows)]
-                 for rows in zip(S, negp)]
+            S = [[None if s is None else s.masked_fill(n, 0)
+                  for s, n in zip(*rows)] for rows in zip(S, negp)]
             Ep = replace(_fft2_parts(mesh, S, inverse=True))
         return _gather_rows(mesh, Ep)
 

@@ -1,4 +1,4 @@
-"""The single-host device mesh of the port.
+"""The device mesh of the port, within one process or across several.
 
 Counterpart of ``scintools_tpu/parallel/mesh.py``: ``DATA_AXIS`` and
 ``SEQ_AXIS`` (:20-21), ``device_count`` (:24), ``_largest_pow2_divisor``
@@ -7,14 +7,27 @@ Counterpart of ``scintools_tpu/parallel/mesh.py``: ``DATA_AXIS`` and
 ``replicated`` (:89).
 
 The JAX design is one controller: a 2-D mesh with axes ``('data',
-'seq')`` over the devices of one process. The port keeps it. One Python
-process drives every card of the host (no ``torch.distributed``): a
-:class:`Mesh` is an object array of ``torch.device``s of shape
+'seq')`` over the devices of one process, or, after
+``jax.distributed.initialize``, over every process's devices, each
+process running the same program on the whole arrays. The port keeps
+both. A :class:`Mesh` is an object array of ``torch.device``s of shape
 (data, seq), and a mesh may name one device more than once. Such
 virtual shards are how the tests run a mesh on the CPU
 (``make_mesh(8, devices=["cpu"] * 8)``) and how one card runs a
 four-shard mesh; on a single card they measure only the cost of
 splitting and gathering.
+
+Without a process group one process drives every shard. After
+:func:`~.checkpoint.initialize_distributed` (``torch.distributed``, one
+process per card, or several processes sharing a card over gloo),
+:func:`make_mesh` builds a global mesh over every rank's local devices
+in rank-major order and records each shard's rank (``Mesh.ranks``).
+Every rank then calls each mesh function with the same whole
+arguments; it computes only the shards its own devices hold and gets
+back the whole result on its first local device (:func:`exchange`:
+one ``all_gather_object`` of the outputs' layout, one ``all_gather``
+of their bytes). The process group's timeout bounds every such wait,
+so a rank whose peer failed ends with an error instead of hanging.
 
 A sharding descriptor says how an array's axes lie over the mesh;
 :func:`shard` cuts a tensor into the per-device parts it names (one
@@ -25,7 +38,7 @@ first device. :func:`run_lanes` is what the sharded survey paths
 axis of its inputs over the mesh, calls each shard's function in turn
 under its own device's context, and gathers the outputs in shard order.
 
-One thread issues the shards, one after another. Shards on different
+In each process one thread issues its shards, one after another. Shards on different
 cards overlap only as far as a shard's function returns without
 waiting on its device (its work then runs while the next shard's is
 issued). A function that reads a device value on the host runs its
@@ -35,7 +48,8 @@ active mask every iteration; the acf2d fit returns host arrays) and so
 :func:`~.survey.make_acf2d_fit_sharded`,
 :func:`~.survey.make_survey_step` and the façade's mesh fits. A thread
 per card would not lift this for the LM paths: torch's forward-mode AD
-levels, which the LM's Jacobian uses, are process state.
+levels, which the LM's Jacobian uses, are process state. One process
+per card does: its shards then run while the other ranks run theirs.
 """
 
 from __future__ import annotations
@@ -57,15 +71,26 @@ class Mesh:
     """A (data, seq) grid of ``torch.device``s. ``.devices`` is the object
     array, ``.axis_names`` the axis names and ``.shape`` an ordered
     mapping from axis name to size, as the JAX ``Mesh`` has them, so
-    ``np.prod(list(mesh.shape.values()))`` is the shard count."""
+    ``np.prod(list(mesh.shape.values()))`` is the shard count.
 
-    def __init__(self, devices, axis_names=(DATA_AXIS, SEQ_AXIS)):
+    ``ranks`` (the same grid of process ranks) makes it a mesh of the
+    initialised process group seen from rank ``rank``: ``.distributed``
+    is then true, and ``home`` is where this rank gathers when it holds
+    no shard. Without ``ranks`` every shard is this process's."""
+
+    def __init__(self, devices, axis_names=(DATA_AXIS, SEQ_AXIS),
+                 ranks=None, rank=0, home=None):
         arr = np.empty(np.shape(devices)[:2], dtype=object)
         for idx in np.ndindex(arr.shape):
             arr[idx] = torch.device(devices[idx[0]][idx[1]])
         self.devices = arr
         self.axis_names = tuple(axis_names)
         self.shape = OrderedDict(zip(self.axis_names, arr.shape))
+        self.distributed = ranks is not None
+        self.ranks = np.zeros(arr.shape, dtype=int) if ranks is None \
+            else np.asarray(ranks, dtype=int).reshape(arr.shape)
+        self.rank = int(rank)
+        self.home = arr[0, 0] if home is None else torch.device(home)
 
     @property
     def size(self):
@@ -77,24 +102,54 @@ class Mesh:
         return list(self.devices.ravel())
 
     @property
+    def local(self):
+        """Per shard, in shard order: whether this process holds it."""
+        return [int(r) == self.rank for r in self.ranks.ravel()]
+
+    @property
+    def crosses_ranks(self):
+        """Whether some ``seq`` row has shards on more than one rank (its
+        distributed FFT then exchanges blocks between processes)."""
+        return any(len(set(row)) > 1 for row in self.ranks.tolist())
+
+    @property
     def first(self):
-        """The device results are gathered on."""
-        return self.devices[0, 0]
+        """The device results are gathered on: the first shard's, or on
+        a mesh across processes this rank's first shard's (``home``
+        where it holds none)."""
+        for dev, mine in zip(self.flat_devices, self.local):
+            if mine:
+                return dev
+        return self.home
 
     @property
     def key(self):
-        """A hashable identity for caches: device names, axes, shape."""
+        """A hashable identity for caches: device names, axes, shape and,
+        across processes, each shard's rank."""
         return (tuple(str(d) for d in self.flat_devices), self.axis_names,
-                tuple(self.shape.values()))
+                tuple(self.shape.values()),
+                tuple(self.ranks.ravel().tolist()) if self.distributed
+                else None)
 
     def __repr__(self):
+        ranks = (f", ranks={self.ranks.ravel().tolist()}, rank={self.rank}"
+                 if self.distributed else "")
         return (f"Mesh({dict(self.shape)}, "
-                f"devices={[str(d) for d in self.flat_devices]})")
+                f"devices={[str(d) for d in self.flat_devices]}{ranks})")
 
 
 def device_count():
     """The CUDA cards this process sees."""
     return torch.cuda.device_count()
+
+
+def process_group():
+    """``torch.distributed`` when its default process group is
+    initialised (:func:`~.checkpoint.initialize_distributed`), else
+    None."""
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
 
 
 def _largest_pow2_divisor(n, cap):
@@ -111,19 +166,34 @@ def make_mesh(n_devices=None, seq=None, devices=None):
     of two, so padded FFT lengths stay divisible); the rest fan out over
     epochs and chunks. Default: seq = the largest power of two ≤ √n
     dividing n (8 devices → 4 data × 2 seq). ``devices`` (the port's
-    own) lists the devices to use, in order, and may repeat one;
-    without it the mesh takes the first ``n_devices`` of every CUDA card
-    (all of them by default) and raises :class:`~..backend.KernelError`
-    when there is none."""
+    own) lists this process's devices, in order, and may repeat one;
+    without it a process takes every CUDA card it sees, or in a process
+    group its current card (one process per card), and raises
+    :class:`~..backend.KernelError` when there is none.
+
+    In an initialised process group every rank must call this with the
+    same ``n_devices`` and ``seq``: the mesh is the ranks' device lists
+    end to end, in rank order (one ``all_gather_object``), cut to the
+    first ``n_devices``."""
+    pg = process_group()
     if devices is None:
         n_cards = device_count()
         if n_cards == 0:
             raise KernelError(
                 "make_mesh found no CUDA card; pass devices=['cpu'] * n "
                 "for a mesh of virtual CPU shards")
-        devs = [torch.device("cuda", i) for i in range(n_cards)]
+        devs = ([torch.device("cuda", torch.cuda.current_device())]
+                if pg is not None else
+                [torch.device("cuda", i) for i in range(n_cards)])
     else:
         devs = [torch.device(d) for d in devices]
+    home, ranks, rank = devs[0], None, 0
+    if pg is not None:
+        lists = [None] * pg.get_world_size()
+        pg.all_gather_object(lists, [str(d) for d in devs])
+        devs = [torch.device(d) for names in lists for d in names]
+        ranks = [r for r, names in enumerate(lists) for _ in names]
+        rank = pg.get_rank()
     if n_devices is None:
         n_devices = len(devs)
     if n_devices < 1 or n_devices > len(devs):
@@ -134,8 +204,11 @@ def make_mesh(n_devices=None, seq=None, devices=None):
         seq = _largest_pow2_divisor(n_devices, int(np.sqrt(n_devices)) or 1)
     if n_devices % seq:
         raise ValueError(f"seq={seq} does not divide {n_devices} devices")
-    grid = [devs[r * seq:(r + 1) * seq] for r in range(n_devices // seq)]
-    return Mesh(grid)
+    rows = range(n_devices // seq)
+    grid = [devs[r * seq:(r + 1) * seq] for r in rows]
+    if ranks is not None:
+        ranks = [ranks[r * seq:(r + 1) * seq] for r in rows]
+    return Mesh(grid, ranks=ranks, rank=rank, home=home)
 
 
 @dataclass(frozen=True)
@@ -193,34 +266,41 @@ def _split(n, k, what):
 def shard(x, sharding):
     """Cut the tensor ``x`` into the parts ``sharding`` names, each on its
     device (copied asynchronously where it moves). Returns
-    :class:`Shards`."""
+    :class:`Shards`; on a mesh across processes the parts of other
+    ranks' shards are None."""
     mesh = sharding.mesh
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
-    devs = mesh.flat_devices
     if sharding.kind == "replicated":
-        parts = [x.to(d, non_blocking=True) for d in devs]
+        views = [x] * mesh.size
     elif sharding.kind == "data":
         n = _split(x.shape[0], mesh.size, "axis 0")
-        parts = [x[i * n:(i + 1) * n].to(d, non_blocking=True)
-                 for i, d in enumerate(devs)]
+        views = [x[i * n:(i + 1) * n] for i in range(mesh.size)]
     elif sharding.kind == "batch_freq":
         nd, ns = mesh.shape[DATA_AXIS], mesh.shape[SEQ_AXIS]
         b = _split(x.shape[0], nd, "axis 0")
         f = _split(x.shape[1], ns, "axis 1")
-        parts = [x[r * b:(r + 1) * b, s * f:(s + 1) * f].to(
-            mesh.devices[r, s], non_blocking=True)
-            for r in range(nd) for s in range(ns)]
+        views = [x[r * b:(r + 1) * b, s * f:(s + 1) * f]
+                 for r in range(nd) for s in range(ns)]
     else:
         raise ValueError(f"unknown sharding kind {sharding.kind!r}")
-    return Shards(parts, sharding)
+    return Shards([v.to(d, non_blocking=True) if mine else None
+                   for v, d, mine in zip(views, mesh.flat_devices,
+                                         mesh.local)], sharding)
 
 
 def gather(parts):
     """The array that :func:`shard` cut, rebuilt on the mesh's first
     device (a replicated array gives its first copy). Plain lists of
-    parts are concatenated along axis 0 on their first part's device."""
+    parts are concatenated along axis 0 on their first part's device.
+    On a mesh across processes the other ranks' parts come by
+    :func:`exchange`, so every rank gets the whole array."""
     sharding = getattr(parts, "sharding", None)
+    if sharding is not None and sharding.mesh.distributed:
+        want = [0] if sharding.kind == "replicated" else range(len(parts))
+        got = exchange(sharding.mesh, {i: parts[i] for i in want
+                                       if parts[i] is not None})
+        parts = Shards([got.get(i) for i in range(len(parts))], sharding)
     dev = sharding.mesh.first if sharding is not None else parts[0].device
     if sharding is not None and sharding.kind == "replicated":
         return parts[0].to(dev)
@@ -260,6 +340,97 @@ def _tree_map(fn, outs):
     return fn(outs)
 
 
+_ALIGN = 16        # bytes: every dtype's element size divides it
+
+
+@dataclass(frozen=True)
+class _Slot:
+    """Where one tensor of an exchanged tree lies in its rank's bytes."""
+
+    dtype: torch.dtype
+    shape: tuple
+    offset: int
+    nbytes: int
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def _padded(t):
+    return -(-_nbytes(t) // _ALIGN) * _ALIGN
+
+
+def _bytes(t):
+    """A tensor's elements as a flat uint8 view (a copy where its one
+    axis is strided, as a single element of a column can be)."""
+    flat = t.detach().reshape(-1)
+    if flat.stride(0) != 1:
+        flat = flat.clone(memory_format=torch.contiguous_format)
+    return flat.view(torch.uint8)
+
+
+def _pack(tree, slots):
+    """``tree`` with each tensor leaf replaced by its :class:`_Slot`, the
+    tensors appended to ``slots`` as ``(offset, tensor)``; other leaves
+    (numpy arrays, numbers, None) stay in the layout as they are."""
+    if isinstance(tree, dict):
+        return {k: _pack(v, slots) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_pack(v, slots) for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    off = slots[-1][0] + _padded(slots[-1][1]) if slots else 0
+    slots.append((off, tree))
+    return _Slot(tree.dtype, tuple(tree.shape), off, _nbytes(tree))
+
+
+def _unpack(layout, buf):
+    """The tree :func:`_pack` laid out, its tensors read from ``buf``."""
+    if isinstance(layout, dict):
+        return {k: _unpack(v, buf) for k, v in layout.items()}
+    if isinstance(layout, (tuple, list)):
+        return type(layout)(_unpack(v, buf) for v in layout)
+    if not isinstance(layout, _Slot):
+        return layout
+    part = buf[layout.offset:layout.offset + layout.nbytes]
+    return part.view(layout.dtype).reshape(layout.shape).clone()
+
+
+def exchange(mesh, entries):
+    """Share per-shard results across the ranks of a mesh: ``entries``
+    maps this rank's shard indices to output trees (tensors, tuples,
+    lists, dicts, numpy arrays, None); every rank gets back the union of
+    all ranks' entries, the other ranks' tensors on this rank's
+    ``mesh.first`` (its own entries as they are). A collective: every
+    rank of the process group calls it at the same point, in the same
+    order. One ``all_gather_object`` carries each rank's layout, one
+    ``all_gather`` its tensors' bytes, padded to the largest rank's
+    (tensors of any dtype travel as bytes, complex ones too). It waits
+    at most the process group's timeout for a peer, then raises."""
+    pg = process_group()
+    dev = mesh.first
+    slots, layouts = [], {}
+    for i in sorted(entries):
+        layouts[i] = _pack(entries[i], slots)
+    size = slots[-1][0] + _padded(slots[-1][1]) if slots else 0
+    lists = [None] * pg.get_world_size()
+    pg.all_gather_object(lists, (layouts, size))
+    buf = torch.empty(max(n for _, n in lists), dtype=torch.uint8,
+                      device=dev)
+    for off, t in slots:
+        buf[off:off + _nbytes(t)] = _bytes(t).to(dev)
+    bufs = [buf] * len(lists)
+    if len(buf):
+        bufs = [torch.empty_like(buf) for _ in lists]
+        pg.all_gather(bufs, buf)
+    out = dict(entries)
+    for r, (lay, _) in enumerate(lists):
+        if r != mesh.rank:
+            out.update({i: _unpack(t, bufs[r]) for i, t in lay.items()})
+    return out
+
+
 def _lane_slice(a, s, dev):
     part = a[s]
     if isinstance(part, torch.Tensor):
@@ -282,22 +453,31 @@ def run_lanes(mesh, fn_of, lane_args, unit=1):
     note); the outputs (a tensor, or tuples, lists and
     dicts of them, each with the lane axis first) are concatenated in
     shard order on the mesh's first device. No shard runs on another
-    device or another version of its function: an error raises."""
+    device or another version of its function: an error raises.
+
+    On a mesh across processes each rank runs only its own shards (the
+    same split) and the outputs are exchanged (:func:`exchange`), so
+    every rank returns the whole result; a rank whose shard raises
+    raises, and its peers' exchange ends at the group's timeout."""
     B = len(lane_args[0])
     if B % unit:
         raise ValueError(f"{B} lanes do not make whole units of {unit}")
-    devs = mesh.flat_devices
-    outs = []
-    for dev, (u0, u1) in zip(devs, lane_bounds(B // unit, len(devs))):
-        if u1 == u0:
+    devs, local = mesh.flat_devices, mesh.local
+    outs = {}
+    for i, (dev, (u0, u1)) in enumerate(zip(
+            devs, lane_bounds(B // unit, len(devs)))):
+        if u1 == u0 or not local[i]:
             continue
         s = slice(u0 * unit, u1 * unit)
         with on_device(dev):
-            outs.append(fn_of(dev, s.stop - s.start)(
-                *(_lane_slice(a, s, dev) for a in lane_args)))
+            outs[i] = fn_of(dev, s.stop - s.start)(
+                *(_lane_slice(a, s, dev) for a in lane_args))
+    if mesh.distributed:
+        outs = exchange(mesh, outs)
     first = mesh.first
     return _tree_map(lambda leaves: torch.cat(
-        [v.to(first) for v in leaves], dim=0), outs)
+        [v.to(first) for v in leaves], dim=0),
+        [outs[i] for i in sorted(outs)])
 
 
 def per_device(cache, key, dev, build):
@@ -313,5 +493,6 @@ def per_device(cache, key, dev, build):
 
 __all__ = ["DATA_AXIS", "SEQ_AXIS", "Mesh", "Sharding", "Shards",
            "batch_freq_sharding", "chunk_shardings", "data_sharding",
-           "device_count", "gather", "lane_bounds", "make_mesh",
-           "on_device", "per_device", "replicated", "run_lanes", "shard"]
+           "device_count", "exchange", "gather", "lane_bounds",
+           "make_mesh", "on_device", "per_device", "process_group",
+           "replicated", "run_lanes", "shard"]

@@ -13,7 +13,8 @@ Each wraps the port's batched function for its path: the lane axis
 (epochs, chunks, η or screens) is split over every device of the mesh in
 contiguous runs, in shard order (:func:`.mesh.run_lanes`), each shard
 runs the function built for its device, and the results are gathered on
-the mesh's first device. Where the JAX package asks the caller to pad
+the mesh's first device (on a mesh across processes each rank runs its
+own shards and every rank gathers the whole result). Where the JAX package asks the caller to pad
 the batch to a device multiple, these functions take any batch: the
 runs are as even as the lanes allow, and no dummy lane is computed. The
 functions are built once per geometry and device and kept, so a mesh
