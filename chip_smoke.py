@@ -5,7 +5,8 @@ the scintillation-parameter fits, the velocity and trapezoid
 rescaling, the scattered image and the zoom and chirp-Z transforms,
 the simulator with its closed generate → search → fit loop, the
 survey engine with the three surveys on it, the posterior engine and
-the arc detector, and the serving daemon and the fleet.
+the arc detector, the serving daemon and the fleet, the mesh in one
+process and across processes, and every eigensolver method.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA card, ``nvcc`` (``$NVCC``, ``PATH`` or ``$CUDA_HOME/bin``) and
@@ -362,7 +363,27 @@ Phases, each of which exits non-zero on failure:
    process) on 18.3 and 18.fft; (c) with
    two or more cards, one NCCL rank per card on the same. Each rank
    prints its start-up, each path's wall and launches.
-   ``python3 chip_smoke.py --phase18`` runs phases 16–18 alone.
+   ``python3 chip_smoke.py --phase18`` runs phases 16–18 alone;
+19. every eigensolver method of the JAX package (``methods_phase``), at
+   the north star's width: 19.1 ``multi_chunk_search`` on frequency row
+   0 of phase 3's dynspec (8 chunks of 512², npad 1, 256 edges, 200 η)
+   with ``method`` ``"auto"``, ``"pallas"``, ``"warm"``, ``"square"``
+   and ``"power"`` on the fused route, and ``"square"`` and ``"power"``
+   on the staged route (``fused=False``), each call's wall by CUDA
+   events after a build call: ``"square"`` launches ``eig_cold``,
+   ``"pallas"`` is bitwise ``"auto"``, every method's curve (scaled by
+   the peak) within 2e-2 of ``"power"``'s and its η within rel 5e-3 of
+   ``"power"``'s (``tests/test_fused_search.py:287-301``), every median
+   η error below 1% and every chunk healthy; 19.2 the ``"square"``
+   route's stages (``fn.gather`` → ``fn.solve``) on the first 2 chunks
+   within rtol 2e-4 of ``batched_eig_cold_plain`` on the same stack
+   (phase 2's near-degenerate caveat); 19.3 ``grid_retrieval_batch`` on 4
+   of phase 5's chunks with ``method`` None, ``"pallas"`` and
+   ``"warm"``, each bitwise ``"kernel"``; 19.4 ``pruned_meanpad_half``
+   of one 512² chunk padded to 1024² within 1e-5 of the peak of
+   ``torch.fft.rfft2`` of the mean-padded frame.
+   ``python3 chip_smoke.py --phase19`` runs phase 19 alone (after the
+   build and phase 4's façade, which it needs).
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -399,12 +420,12 @@ plots (16, when matplotlib is there) and the mesh fit (17.1), for the
 eigenvector entry around the mesh retrieval (17.4) and for the arc
 profile around the mesh arc fit (17.3); in each rank of phase 18
 for each kernel around its path (18.1, 18.3, 18.4); for the cold-only
-entry
-(no path of the package calls it) around its own call in phase 2. Each
-must be > 0. It prints a ``{"kernels": [...]}`` line (``launches`` is
-the sum over the paths that run the kernel, with each path's count
-beside it), the card's ``nvidia-smi`` name and power limit, and as its
-last line ``{"ok": true, "device": {...}}``.
+entry around the ``"square"`` searches (19.1). Each must be > 0. It
+prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
+paths that run the kernel, with each path's count beside it; the
+cold-only entry's call of its own in phase 2 is shown apart, as
+``launches_phase2_call``, and not summed), the card's ``nvidia-smi`` name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -968,6 +989,10 @@ def main():
         lap("17 mesh")
         ranks = mesh_ranks_phase(tmp, mesh.pop("refs"))
         lap("18 mesh across processes")
+    methods = methods_phase(dev, prob, ds)
+    lap("19 every eigensolver method")
+    cold["launches_square_search"] = methods.pop("launches_square_search")
+    cold["launches"] = cold["launches_square_search"]
     launches_m = mesh.pop("launches")
     launches_18 = ranks.pop("launches")
     survey["psrflux"].pop("paths")
@@ -1053,12 +1078,168 @@ def main():
         "simulation": simu, "survey": survey,
         "posteriors_and_detection": post, "serving_and_fleet": serve,
         "plotting": plots, "mesh": mesh, "mesh_ranks": ranks,
-        "phase_s": PHASE_S}, default=str),
+        "methods": methods, "phase_s": PHASE_S}, default=str),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": card,
                                              "count": count}}), flush=True)
+
+
+METHODS_19 = ("auto", "pallas", "warm", "square", "power")
+
+
+def methods_phase(dev, prob, ds):
+    """Phase 19, every eigensolver method: ``multi_chunk_search`` on
+    frequency row 0 of phase 3's dynspec (8 chunks of 512², npad 1, 256
+    edges, 200 η) once per method of the JAX package on the fused route,
+    and on the staged route for ``"square"`` and ``"power"``; the
+    ``"square"`` route's λ held to the plain cold start on the first 2
+    chunks; the retrieval's JAX names on 4 of phase 5's chunks (the
+    fitted façade ``ds``); ``pruned_meanpad_half`` on one chunk. Returns
+    the phase's numbers with ``launches_square_search``, the
+    ``eig_cold`` launches of the ``"square"`` searches."""
+    from scintools_tpu_torch.ops import xfft as X
+    from scintools_tpu_torch.thth import batch as TB
+    from scintools_tpu_torch.thth import eig as E
+    from scintools_tpu_torch.thth import retrieval as R
+    from scintools_tpu_torch.thth import search as S
+    from scintools_tpu_torch.thth.core import fft_axis
+
+    cf, ct, npad = prob["cf"], prob["ct"], prob["npad"]
+    dyn = np.asarray(prob["dyns"][1])
+    n_ct = dyn.shape[1] // ct
+    chunks = [dyn[:cf, j * ct:(j + 1) * ct] for j in range(n_ct)]
+    times = [prob["dt"] * (j * ct + np.arange(ct)) for j in range(n_ct)]
+    freqs = prob["f0"] + prob["df"] * np.arange(cf)
+    etas, edges, eta_true = prob["etas"], prob["edges"], prob["eta_true"]
+    args = (chunks, freqs, times, etas, edges)
+    print(f"[19] every eigensolver method: row 0, {n_ct} chunks of "
+          f"{cf}x{ct}, npad {npad}, {len(edges)} edges, {len(etas)} η",
+          flush=True)
+
+    # 19.1 the search, once per method (a build call, then a timed one)
+    runs, walls = {}, {}
+    launches = 0
+    for route, methods in (("fused", METHODS_19),
+                           ("staged", ("square", "power"))):
+        for m in methods:
+            kw = dict(fw=0.2, npad=npad, method=m, fused=route == "fused",
+                      device=dev)
+            if m == "square":
+                E.batched_eig_cold.launches = 0
+            S.multi_chunk_search(*args, **kw)
+            res, walls[(route, m)] = timed(
+                lambda: S.multi_chunk_search(*args, **kw))
+            if m == "square":
+                torch.cuda.synchronize()
+                launches += E.batched_eig_cold.launches
+            runs[(route, m)] = res
+    print(f"    eig_cold launches by the square searches: {launches}",
+          flush=True)
+    check(launches > 0, "19: the square search never launched eig_cold")
+
+    # the row's θ-θ stack, and its exact λ₁, λ₂ (eigvalsh) as the
+    # yardstick of every method's curve
+    fd = fft_axis(times[0], pad=npad, scale=1e3)
+    tau = fft_axis(freqs, pad=npad, scale=1.0)
+    sq = TB.make_multi_eval_fn(tau, fd, edges, method="square", device=dev)
+    cs, _, _ = TB._chunk_cs_to_ri(torch.as_tensor(
+        np.stack(chunks), dtype=torch.float32, device=dev), npad, None, True)
+    a = sq.gather(cs, etas)
+    lam1, lam2 = top2(a)
+    exact = lam1.abs().cpu().numpy()
+
+    def off(curves, ref):
+        """Largest |curve − ref| over each chunk's peak of ``ref``."""
+        return float(max(np.abs(c - r).max() / np.abs(r).max()
+                         for c, r in zip(curves, ref)))
+
+    ref = runs[("fused", "power")]
+    ref_eta = np.array([r.eta for r in ref])
+    out = {}
+    for (route, m), res in runs.items():
+        eta = np.array([r.eta for r in res])
+        check(all(r.ok == 0 and np.array_equal(r.etas, etas) for r in res),
+              f"19: {route} {m} flagged chunks or dropped η")
+        curves = [r.eigs for r in res]
+        vs_power = off(curves, [r.eigs for r in ref])
+        vs_exact = off(curves, exact)
+        d_eta = float(np.abs(eta / ref_eta - 1).max())
+        med = float(np.median(np.abs(eta - eta_true) / eta_true))
+        out[f"{route}_{m}"] = dict(wall_ms=walls[(route, m)],
+                                   curve_vs_power=vs_power,
+                                   curve_vs_eigvalsh=vs_exact,
+                                   eta_rel_vs_power=d_eta,
+                                   median_eta_err=med)
+        print(f"    {route} {m}: wall {walls[(route, m)]:.3f} ms, curve off "
+              f"power's by {vs_power:.3e} and off eigvalsh's λ₁ by "
+              f"{vs_exact:.3e} of the peak, η max rel {d_eta:.3e} of "
+              f"power's, median |η-η_true|/η_true {med:.4%}", flush=True)
+        check(d_eta <= 5e-3, f"19: {route} {m} η off power's by {d_eta}")
+        check(med < 0.01, f"19: {route} {m} median η error {med:.4%} ≥ 1%")
+    auto, pallas = runs[("fused", "auto")], runs[("fused", "pallas")]
+    same = all(np.array_equal(a.eigs, p.eigs) and a.eta == p.eta
+               and a.eta_sig == p.eta_sig for a, p in zip(auto, pallas))
+    print(f"    pallas bitwise auto: {same}", flush=True)
+    check(same, "19: method='pallas' differs from 'auto'")
+
+    # 19.2 the square route's stages on the first 2 chunks, against the
+    # plain cold start on the same tensors
+    a2 = a[:2]
+    kern = sq.solve(a2)
+    plain = E.batched_eig_cold_plain(a2.reshape(-1, *a2.shape[2:]),
+                                     sq.n_th // 2).reshape(a2.shape[:2]).abs()
+    max_abs, max_rel, n_near = compare(
+        f"19.2 square route {tuple(a2.shape)}", kern, plain,
+        (lam1[:2], lam2[:2]), rtol=2e-4)
+    del a, a2, cs
+
+    # 19.3 the retrieval's JAX names on 4 of phase 5's chunks
+    chunks_r, edges_rows, etas_rows = ds._retrieval_grid_inputs()
+    dt, df = ds._steps()
+    c4 = chunks_r[0, :4]
+    rargs = (c4, np.tile(edges_rows[0], (4, 1)), np.full(4, etas_rows[0]),
+             dt, df)
+    want, ok = R.grid_retrieval_batch(*rargs, npad=ds.npad, method="kernel",
+                                      with_ok=True, device=dev)
+    aliases = {}
+    for m in (None, "pallas", "warm"):
+        got, ok_m = R.grid_retrieval_batch(*rargs, npad=ds.npad, method=m,
+                                           with_ok=True, device=dev)
+        aliases[str(m)] = bool(np.array_equal(got, want)
+                               and np.array_equal(ok_m, ok))
+    print(f"    retrieval of 4 chunks, bitwise method='kernel': {aliases}",
+          flush=True)
+    check(all(aliases.values()) and (ok == 0).all(),
+          "19.3: a JAX retrieval name differs from the kernel route")
+
+    # 19.4 pruned_meanpad_half against rfft2 of the mean-padded frame
+    x = torch.as_tensor(chunks[0], dtype=torch.float32, device=dev)
+    n1, n2 = x.shape[0] * (npad + 1), x.shape[1] * (npad + 1)
+    mu = x.mean()
+
+    def padded_rfft2():
+        return torch.fft.rfft2(torch.nn.functional.pad(
+            x - mu, (0, n2 - x.shape[1], 0, n1 - x.shape[0])) + mu)
+
+    X.pruned_meanpad_half(x, (n1, n2))          # warm-ups (cuFFT plans)
+    padded_rfft2()
+    pruned, pruned_ms = timed(lambda: X.pruned_meanpad_half(x, (n1, n2)),
+                              reps=10)
+    dense, dense_ms = timed(padded_rfft2, reps=10)
+    pr_err = ((pruned - dense).abs().max() / dense.abs().max()).item()
+    print(f"    pruned_meanpad_half {tuple(x.shape)} → {tuple(pruned.shape)}: "
+          f"{pr_err:.3e} of the peak from rfft2 of the padded frame; "
+          f"{pruned_ms:.3f} ms against {dense_ms:.3f} ms", flush=True)
+    check(pr_err <= 1e-5, f"19.4: pruned_meanpad_half off by {pr_err:.3e}")
+    return dict(searches=out, launches_square_search=launches,
+                square_vs_plain=dict(max_abs_err=max_abs,
+                                     max_rel_err=max_rel,
+                                     near_degenerate_points=n_near),
+                retrieval_aliases_bitwise=aliases,
+                pruned_meanpad_half=dict(err_of_peak=pr_err, ms=pruned_ms,
+                                         rfft2_ms=dense_ms))
 
 
 def cold_phase(a, mid, rng, dev):
@@ -1084,7 +1265,7 @@ def cold_phase(a, mid, rng, dev):
     flat = sub.reshape(G * L, 2, n, n)
     E.batched_eig_cold(flat[:2].contiguous(), mid)          # warm-ups
     E.batched_eig_cold_plain(flat[:2], mid)
-    E.batched_eig_cold.launches = 0                 # the entry's own path
+    E.batched_eig_cold.launches = 0
     kstats = {}
     kern = E.batched_eig_cold(flat, mid, stats=kstats)
     torch.cuda.synchronize()
@@ -1106,8 +1287,9 @@ def cold_phase(a, mid, rng, dev):
     return {"name": "eig_cold", "route": "cuda",
             "source": "scintools_tpu_torch/csrc/eig_warmstart.cu",
             "replaces": "scintools_tpu/thth/pallas_eig.py:334",
-            "launches": launches, "launches_path": "phase 2 (b), its own "
-            "call: no path of the package runs the cold-only solver",
+            "launches_phase2_call": launches,
+            "launches_path": "phase 19: multi_chunk_search(method='square')"
+            ", fused and staged",
             "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
             "near_degenerate_points": n_near, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -6417,12 +6599,52 @@ def phase15_main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def phase19_main():
+    """``python3 chip_smoke.py --phase19``: phase 19 alone, on phase 3's
+    dynspec and phase 4's fitted façade made as those phases make
+    them; prints ``{"methods": ...}`` and the device line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    from scintools_tpu_torch import BasicDyn, Dynspec, _build
+    from scintools_tpu_torch import workloads as W
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
+    print(f"[1] device {card}; nvidia-smi: {smi()}", flush=True)
+    _build.build()
+    lap("1 device and build")
+    nf = nt = 4096
+    prob = W.make_north_star_problem(nf, nt, n_variants=2)
+    eta_true = prob["eta_true"]
+    ds = Dynspec(dyn=BasicDyn(prob["dyns"][1], name="north_star",
+                              freqs=prob["f0"] + prob["df"] * np.arange(nf),
+                              times=prob["dt"] * np.arange(nt)),
+                 process=False, verbose=False)
+    ds.calc_sspec()
+    ds.prep_thetatheta(cwf=512, cwt=512, npad=1, eta_min=0.5 * eta_true,
+                       eta_max=2 * eta_true, neta=N_ETA, nedge=256,
+                       edges_lim=prob["th_lim"])
+    ds.fit_thetatheta()
+    lap("4 facade")
+    methods = methods_phase(dev, prob, ds)
+    lap("19 every eigensolver method")
+    print(json.dumps({"methods": methods, "phase_s": PHASE_S}, default=str),
+          flush=True)
+    print(smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
     if "--phase18-rank" in sys.argv[1:]:
         phase18_rank(json.loads(sys.argv[sys.argv.index("--phase18-rank")
                                          + 1]))
     elif "--phase15" in sys.argv[1:]:
         phase15_main()
+    elif "--phase19" in sys.argv[1:]:
+        phase19_main()
     elif "--phase17" in sys.argv[1:] or "--phase18" in sys.argv[1:]:
         phase17_main(ranks="--phase18" in sys.argv[1:])
     else:

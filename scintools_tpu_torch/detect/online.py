@@ -11,8 +11,8 @@ card), and the chain reports through ``detect.trigger`` /
 ``detect_*`` metrics.
 
 The hooks are plain callables ``hook(service, epoch_id, payload,
-outcome)`` and ``hook(service, entries, outcomes)``: the serving daemon
-that registers them (``serve/``) is not ported yet.
+outcome)`` and ``hook(service, entries, outcomes)``, which the serving
+daemon (``serve/``) registers.
 
 Refinement, confirmation and the hooks are advisory, as in the JAX
 package: an ordinary failure is logged, counted and leaves the epoch

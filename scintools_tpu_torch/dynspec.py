@@ -89,14 +89,6 @@ _STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
 _OBS_KEYS = ("tobs", "bw", "nsub", "nchan", "freq", "mjd")
 
 
-def _not_ported(**opts):
-    """Raise for the options this port does not take yet."""
-    given = sorted(k for k, v in opts.items()
-                   if not (v is None or v is False))
-    if given:
-        raise NotImplementedError(f"{', '.join(given)} not ported yet")
-
-
 class Dynspec:
     """Dynamic spectrum analysis object on a torch device."""
 
@@ -106,7 +98,9 @@ class Dynspec:
         """Load the psrflux file ``filename`` (:meth:`load_file`) or the
         adapter object ``dyn`` (:meth:`load_dyn_obj`). ``backend`` is the
         JAX package's and must stay None: the port runs on ``device``."""
-        _not_ported(backend=backend)
+        if backend is not None:
+            raise NotImplementedError(
+                "backend= is the JAX package's; the port runs on device=")
         self.device = resolve_device(device)
         if filename:
             self.load_file(filename, verbose=verbose, process=process,
@@ -1608,8 +1602,9 @@ class Dynspec:
         chunk wavefields go from the batched retrieval to the device
         stitch without leaving the card. Sets ``self.wavefield`` and the
         per-chunk health grid ``self.wavefield_ok`` (quarantined chunks
-        are zero). ``method=None`` is the hand-written kernel route
-        (``"plain"``, ``"eigh"`` and ``"power"`` as in
+        are zero). ``method=None`` is the hand-written kernel route, as
+        are the JAX names ``"auto"``, ``"pallas"`` and ``"warm"``
+        (``"kernel"``, ``"plain"``, ``"eigh"`` and ``"power"`` as in
         :func:`~.thth.retrieval.grid_retrieval_batch`); ``mark`` is the
         stage callback of
         :func:`~.thth.retrieval.campaign_retrieval_batch`. ``mesh``
@@ -2375,6 +2370,7 @@ def _wavefield_survey_fns(edges, eta, cwf, cwt, npad, tau_mask, method,
     from .parallel.checkpoint import atomic_write_bytes
     from .robust.ladder import TIER_NUMPY, TIER_STAGED
 
+    thth_ret.resolve_retrieval_method(method)   # an unknown name raises now
     edges = np.asarray(edges, dtype=float)
     wf_dir = os.path.join(workdir, "wavefields")
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``scintools_tpu/ops/xfft.py``: ``hermitian_full_from_half``
 (:111), ``hermitian_half_gather`` (:125), ``fft2_full`` (:141, ``rfft``
-and ``fft2`` variants), ``ifft2_cropped`` (:186), ``wiener_khinchin``
+and ``fft2`` variants), ``pruned_meanpad_half`` (:160),
+``ifft2_cropped`` (:186, ``split`` and ``dense``), ``wiener_khinchin``
 (:236), ``halfrow_power`` (:262) and the dense branch of ``Plan.power``
 (:548-559). The JAX package routes these through a declarative plan and
 a formulation registry; the port has no registry, so the variant is an
@@ -76,13 +77,35 @@ def fft2_full(x, variant="fft2", s=None):
     return torch.fft.fft2(x, s=s)
 
 
-def ifft2_cropped(X, crop):
-    """``ifft2(X)[..., :rows, :cols]`` over the trailing axes, with the
-    row crop folded between the per-axis transforms (the JAX package's
-    ``'split'`` variant): only ``rows`` of the axis-0 outputs reach the
-    axis-1 transform. Exact: the crop commutes with the per-row
-    transform."""
+def pruned_meanpad_half(x, pad_to):
+    """Half spectrum ``[N1, N2//2+1]`` of the real 2-D frame ``x``
+    mean-padded to ``pad_to = (N1, N2)``: mean-padding is
+    ``zeropad(x − µ) + µ``, and the transform of the constant µ-canvas is
+    one DC term, so the axis-1 rfft runs on the data rows only (the zero
+    rows are appended, not transformed) and µ·N1·N2 is added at
+    ``H[0, 0]``. Equal to ``rfft2`` of the mean-padded frame up to float
+    rounding. Single-frame, as the JAX package's."""
+    N1, N2 = pad_to
+    mu = x.mean()
+    r1 = torch.fft.rfft(x - mu, n=N2, dim=1)
+    r1 = torch.cat([r1, r1.new_zeros((N1 - x.shape[0], r1.shape[1]))])
+    H = torch.fft.fft(r1, dim=0)
+    H[0, 0] += mu * N1 * N2          # H is this call's own; x is untouched
+    return H
+
+
+def ifft2_cropped(X, crop, variant="split"):
+    """``ifft2(X)[..., :rows, :cols]`` over the trailing axes.
+    ``'split'`` folds the row crop between the per-axis transforms: only
+    ``rows`` of the axis-0 outputs reach the axis-1 transform (exact:
+    the crop commutes with the per-row transform). ``'dense'`` is the
+    ``ifft2``-then-crop oracle."""
+    if variant not in ("split", "dense"):
+        raise ValueError(f"unknown variant {variant!r} "
+                         "(want 'split' or 'dense')")
     r, c = crop
+    if variant == "dense":
+        return torch.fft.ifft2(X)[..., :r, :c]
     Y = torch.fft.ifft(X, dim=-2)[..., :r, :]
     return torch.fft.ifft(Y, dim=-1)[..., :c]
 

@@ -213,7 +213,8 @@ def make_retrieval_sharded(mesh, nf_chunk, nt_chunk, dt, df, n_edges,
     """Chunk retrieval over the mesh: ``fn(chunks[B, nf, nt], edges[B,
     n_edges], etas[B], tau_mask=0.0, group=None) → (E[B, nf, nt]
     complex64, ok[B])`` (:func:`~..thth.retrieval.make_chunk_retrieval_fn`;
-    ``method=None`` the kernel route). The chunks are walked in chains
+    ``method=None`` and the JAX names ``"auto"``, ``"pallas"``,
+    ``"warm"`` the kernel route). The chunks are walked in chains
     of ``group`` (default :func:`~..thth.retrieval.hbm_group` of B; B
     must be a multiple of it), and whole chains go to the shards, so
     every chunk is computed as it is without the mesh: a chain is never

@@ -305,8 +305,7 @@ class ACF:
                  backend=None, device=None):
         if backend is not None:
             raise NotImplementedError(
-                "backend is the JAX package's and must stay None: the "
-                "port runs on device")
+                "backend= is the JAX package's; the port runs on device=")
         self.alpha = alpha
         self.ar = ar
         self.psi = psi

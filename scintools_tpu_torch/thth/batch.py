@@ -2,7 +2,8 @@
 
 Counterpart of ``scintools_tpu/thth/batch.py``: ``_geometry`` (:47),
 ``make_multi_eval_fn`` (:55; the ``build_batch`` gather :92-127, the
-``'power'`` route :129-142, then the kernel route :189-217),
+``'power'`` route :129-142, the ``'warm'`` η-scan :146-187, then the
+``'pallas'`` and ``'square'`` routes :189-217),
 ``make_grid_eval_fn`` (:220), ``make_thin_grid_eval_fn`` (:292),
 ``make_thin_eval_fn`` (:368), ``_chunk_cs_to_ri`` (:478),
 ``_tau_keep_mask`` (:506), ``_health_and_quarantine`` (:513),
@@ -18,6 +19,18 @@ with the chunk as the minor axis fetches every chunk's value. The
 matrices are then laid out chunk-major as (B, neta, 2, N, N) float32
 for the warm-start eigensolver (thth/eig.py), which walks η in order
 within each chunk.
+
+The eigensolver ``method`` takes the JAX package's names (:data:`METHODS`):
+``"auto"`` and ``"pallas"`` walk each chunk's η grid with the warm-start
+eigensolver (the ``eig_warmstart`` kernel on the card, as JAX
+``'pallas'`` runs its Pallas kernel); ``"square"`` gives every
+(chunk, η) matrix the cold squaring start alone (the ``eig_cold`` kernel
+on the card; JAX ``batched_eig_squaring_xla``); ``"warm"`` is the JAX
+package's η-scan in plain PyTorch (a Gershgorin-shifted power iteration
+that carries each chunk's vector from η to η: ``iters`` steps on the
+first η, ``warm_iters`` on every η, then the Rayleigh quotient), which
+is XLA code there and not a kernel; ``"power"`` runs ``iters`` cold
+shifted power steps on every matrix.
 
 The thin-screen evaluators take the cold ``iters``-step power iteration
 (:func:`.core.dominant_eig_power`) in both packages, never the
@@ -41,10 +54,21 @@ import torch
 from ..backend import resolve_device
 from ..ops.sspec import chunk_conjugate_spectrum_batch
 from ..robust import guards
-from .core import dominant_eig_power, th_cents_from_edges, unit_checks
-from .eig import (batched_eig_warmstart, batched_eig_warmstart_plain,
+from .core import _EPS, dominant_eig_power, th_cents_from_edges, unit_checks
+from .eig import (batched_eig_cold, batched_eig_cold_plain,
+                  batched_eig_warmstart, batched_eig_warmstart_plain,
                   pad_to_multiple)
 from .peakfit import fit_eig_peak_batch_device
+
+# the eigensolver methods of the JAX package's θ-θ entry points
+METHODS = ("auto", "pallas", "warm", "square", "power")
+
+
+def check_method(method):
+    """Raise ``ValueError`` unless ``method`` is one of :data:`METHODS`."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r} (want one of "
+                         f"{METHODS})")
 
 
 def _geometry(tau, fd, edges):
@@ -61,19 +85,21 @@ def make_multi_eval_fn(tau, fd, edges, iters=200, method="auto",
     for conjugate spectra sharing one geometry, on ``device`` (``None``:
     the CUDA card, see :func:`backend.resolve_device`).
 
-    ``method="auto"`` walks each chunk's η grid with the warm-start
-    eigensolver: ``fn.gather(CS_ri, etas)`` is the masked θ-θ gather,
-    returning the padded (B, neta, 2, N, N) float32 batch;
+    ``method`` is one of :data:`METHODS` (see the module docstring).
+    ``"auto"``/``"pallas"`` (the warm-start eigensolver) and
+    ``"square"`` (the cold squaring start alone, per matrix) expose their
+    stages: ``fn.gather(CS_ri, etas)`` is the masked θ-θ gather,
+    returning the padded (B, neta, 2, N, N) float32 batch, and
     ``fn.solve(a_ri)`` the eigensolver on it. ``eig='kernel'``
-    dispatches by device (:func:`batched_eig_warmstart`); ``eig='plain'``
-    always runs the plain PyTorch version (the reference the kernel is
-    held to). ``method="power"`` runs ``iters`` cold shifted power steps
-    on every (chunk, η) matrix instead (JAX ``'power'``)."""
+    dispatches by device (:func:`batched_eig_warmstart`,
+    :func:`batched_eig_cold`: the kernel on a CUDA tensor, which launches
+    or raises); ``eig='plain'`` always runs the plain PyTorch version
+    (the reference the kernel is held to). ``"warm"`` and ``"power"``
+    run in plain PyTorch on any device, as the JAX package runs them in
+    XLA."""
     if eig not in ("kernel", "plain"):
         raise ValueError(f"unknown eig {eig!r} (want 'kernel' or 'plain')")
-    if method not in ("auto", "power"):
-        raise ValueError(f"unknown method {method!r} (want 'auto' or "
-                         "'power')")
+    check_method(method)
     dev = resolve_device(device)
     tau_a, fd_a, th_cents = _geometry(tau, fd, edges)
     n_th = len(th_cents)
@@ -144,12 +170,31 @@ def make_multi_eval_fn(tau, fd, edges, iters=200, method="auto",
         fn.build_batch, fn.n_th = build_batch, n_th
         return fn
 
-    solver = (batched_eig_warmstart if eig == "kernel"
-              else batched_eig_warmstart_plain)
+    if method == "warm":
+        def fn(CS_ri, etas):
+            # (neta, B, n, n): the scan walks η, every chunk at once
+            A = build_batch(CS_ri, etas).permute(0, 3, 1, 2).contiguous()
+            return _eta_scan(A, iters, warm_iters).T
 
-    def solve(a_ri):
-        return solver(a_ri, n_th // 2, squarings=squarings,
-                      iters=warm_iters).abs()
+        fn.build_batch, fn.n_th = build_batch, n_th
+        return fn
+
+    if method == "square":
+        cold = batched_eig_cold if eig == "kernel" else batched_eig_cold_plain
+
+        def solve(a_ri):
+            # every (chunk, η) matrix on its own: (B·neta, 2, N, N)
+            B = a_ri.shape[0]
+            flat = a_ri.reshape((-1,) + a_ri.shape[2:])
+            return cold(flat, n_th // 2, squarings=squarings).reshape(
+                B, -1).abs()
+    else:
+        solver = (batched_eig_warmstart if eig == "kernel"
+                  else batched_eig_warmstart_plain)
+
+        def solve(a_ri):
+            return solver(a_ri, n_th // 2, squarings=squarings,
+                          iters=warm_iters).abs()
 
     def fn(CS_ri, etas):
         return solve(gather(CS_ri, etas))
@@ -157,6 +202,37 @@ def make_multi_eval_fn(tau, fd, edges, iters=200, method="auto",
     fn.build_batch, fn.gather, fn.solve = build_batch, gather, solve
     fn.n_th, fn.n_pad = n_th, n_pad
     return fn
+
+
+def _eta_scan(A, iters, warm_iters):
+    """The JAX package's ``'warm'`` η-scan on ``A[neta, B, n, n]``
+    (hermitian): a Gershgorin-shifted power iteration per chunk, started
+    cold from ``A[0]``'s middle row with ``iters`` steps, then
+    ``warm_iters`` steps on every η (the first one again) carrying the
+    vector from η to η, and the Rayleigh quotient. Returns |λ|[neta, B]."""
+    n = A.shape[-1]
+    shift = A.abs().sum(dim=-1).amax(dim=-1)            # (neta, B)
+
+    def steps(a, v, s, k):
+        for _ in range(int(k)):
+            w = (a @ v[..., None])[..., 0] + s[:, None] * v
+            v = w / (torch.sqrt((w.abs() ** 2).sum(dim=1, keepdim=True))
+                     + _EPS)
+        return v
+
+    v = A[0, :, n // 2, :]
+    nrm = torch.sqrt((v.abs() ** 2).sum(dim=1, keepdim=True))
+    v = torch.where(nrm > 0, v / (nrm + _EPS),
+                    torch.ones_like(v) / np.sqrt(n))
+    v = steps(A[0], v, shift[0], iters)
+    lam = []
+    for a, s in zip(A, shift):
+        v = steps(a, v, s, warm_iters)
+        Av = (a @ v[..., None])[..., 0]
+        num = (torch.conj(v) * Av).sum(dim=1).real
+        den = (torch.conj(v) * v).sum(dim=1).real
+        lam.append((num / (den + _EPS)).abs())
+    return torch.stack(lam)
 
 
 def _recentred_cents(edges):
@@ -464,18 +540,23 @@ def _health_and_quarantine(curves, in_ok, cs_ok, fit_ok, eta, sig, popt):
 
 
 def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
-                         tau_mask=0.0, fw=0.1, squarings=10, warm_iters=24,
-                         eig="kernel", device=None):
+                         tau_mask=0.0, fw=0.1, iters=200, method="auto",
+                         squarings=10, warm_iters=None, eig="kernel",
+                         device=None):
     """The whole per-row curvature search as chained functions on
     ``device`` (``None``: the CUDA card): ``fn(dspecs[B, nf, nt]
     float32, etas[neta]) → (eigs[B, neta], eta[B], eta_sig[B],
     popt[B, 3], ok[B])``.
 
     mean-pad → rfft2 conjugate spectrum (+ health guards) → masked
-    θ-θ gather → warm-start eigensolver → closed-form parabola peak fit
-    → health bitmask and quarantine. The geometry is baked in on the
-    host; the raw chunk stack is the only host→device copy. ``eig`` as
-    in :func:`make_multi_eval_fn`."""
+    θ-θ gather → eigen curve (:func:`make_multi_eval_fn` with ``method``,
+    ``iters``, ``squarings``, ``warm_iters`` and ``eig``) → closed-form
+    parabola peak fit → health bitmask and quarantine. The geometry is
+    baked in on the host; the raw chunk stack is the only host→device
+    copy. ``warm_iters=None`` takes the JAX package's per-method
+    default: 64 for the ``"warm"`` η-scan (it has no restarts), 24
+    otherwise."""
+    check_method(method)
     device = resolve_device(device)
     tau_a, tau_keep = _tau_keep_mask(tau, tau_mask)
     if len(tau_a) != (npad + 1) * nf:
@@ -483,8 +564,11 @@ def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
             f"tau length {len(tau_a)} != (npad+1)*nf = "
             f"{(npad + 1) * nf} — tau/fd must be the fft_axis of the "
             "chunk axes at this npad")
-    multi = make_multi_eval_fn(tau, fd, edges, squarings=squarings,
-                               warm_iters=warm_iters, eig=eig, device=device)
+    if warm_iters is None:
+        warm_iters = 64 if method == "warm" else 24
+    multi = make_multi_eval_fn(tau, fd, edges, iters=iters, method=method,
+                               squarings=squarings, warm_iters=warm_iters,
+                               eig=eig, device=device)
 
     def fn(dspecs, etas):
         cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep,

@@ -19,7 +19,8 @@ reference's formulas, so every bin matches; the gathers, scatters and
 eigen-solves run in complex64 on the device. ``eval_calc_batch`` walks
 the η grid as one chain of the warm-start eigensolver
 (:func:`.eig.batched_eig_warmstart`, the hand-written kernel on a CUDA
-device), as the JAX package's ``'pallas'`` route does on its TPU.
+device), as the JAX package's ``'pallas'`` route does on its TPU, unless
+another ``method`` of :data:`.batch.METHODS` is asked for.
 """
 
 from __future__ import annotations
@@ -250,8 +251,9 @@ def eval_calc(CS, tau, fd, eta, edges, device=None):
 def make_eval_fn(tau, fd, edges, iters=200, method="power", squarings=10,
                  eig="kernel", device=None):
     """``fn(CS_ri[2, ntau, nfd], etas[neta]) → |λ|[neta]``: the B = 1
-    wrapper over :func:`.batch.make_multi_eval_fn` (``method`` and
-    ``eig`` as there)."""
+    wrapper over :func:`.batch.make_multi_eval_fn` (``method`` — one of
+    the JAX package's ``"power"``, ``"warm"``, ``"square"``,
+    ``"pallas"``, ``"auto"`` — and ``eig`` as there)."""
     from .batch import make_multi_eval_fn
 
     multi = make_multi_eval_fn(tau, fd, edges, squarings=squarings,
@@ -281,11 +283,13 @@ def _eval_fn(tau, fd, edges, iters, method, eig, dev):
 
 def eval_calc_batch(CS, tau, fd, etas, edges, iters=200, device=None,
                     method="auto", eig="kernel"):
-    """Eigenvalue-vs-η curve of one conjugate spectrum over the η grid,
-    as one chain on ``device``: ``method="auto"`` walks the grid with the
-    warm-start eigensolver (the hand-written kernel on a CUDA device with
-    ``eig="kernel"``, its plain version on the CPU or with
-    ``eig="plain"``); ``"power"`` runs ``iters`` cold power steps per η.
+    """Eigenvalue-vs-η curve of one conjugate spectrum over the η grid
+    on ``device``: ``method="auto"`` (or ``"pallas"``) walks the grid as
+    one chain of the warm-start eigensolver (the hand-written kernel on a
+    CUDA device with ``eig="kernel"``, its plain version on the CPU or
+    with ``eig="plain"``); ``"square"`` takes the cold squaring start per
+    η (the ``eig_cold`` kernel on a CUDA device); ``"warm"`` the JAX
+    package's η-scan; ``"power"`` ``iters`` cold power steps per η.
     Returns numpy |λ|[neta]."""
     dev = resolve_device(device)
     etas = np.asarray(unit_checks(etas, "etas"), dtype=float)

@@ -19,16 +19,23 @@ the cropped path's middle θ bin → inverse-map scatter → cropped ifft2.
 Index maps are built in float64 from the per-chunk geometry; the
 compute is float32 / complex64.
 
-The eigenpair ``method`` keeps the JAX package's structure under the
-port's names: ``"kernel"`` (JAX ``'pallas'``, the default) dispatches by
+The eigenpair ``method`` (:data:`METHODS`): ``"kernel"`` dispatches by
 device to the hand-written chunk-chained solver
-(:func:`~.eig.batched_eigvec_warmstart`), ``"plain"`` (JAX ``'warm'``)
-runs its plain PyTorch version on either device, ``"eigh"`` is the
-dense ``torch.linalg.eigh`` solve. On the chained routes the chunks are
-walked in chains of ``group`` (the first chunk of each chain starts
-cold), exactly the JAX package's ``lax.map`` groups; the whole grid is
-one kernel launch with one CTA per chain. The front and back ends walk
-the same groups, so their working set is one group's spectra.
+(:func:`~.eig.batched_eigvec_warmstart`: the kernel on a CUDA tensor),
+``"plain"`` runs its plain PyTorch version on either device (the
+reference the kernel is held to), ``"eigh"`` is the dense
+``torch.linalg.eigh`` solve and ``"power"`` ``iters`` cold power steps.
+The JAX package's names are taken too (:data:`JAX_ALIASES`): ``None``,
+``"auto"``, ``"pallas"`` and ``"warm"`` all mean ``"kernel"``. JAX
+``'warm'`` runs the Pallas kernel's own bodies in XLA, so on the card it
+takes the hand-written kernel; it revisits a chain's first chunk, which
+the port's chained solver, as JAX ``'pallas'``, does not.
+
+On the chained routes the chunks are walked in chains of ``group`` (the
+first chunk of each chain starts cold), exactly the JAX package's
+``lax.map`` groups; the whole grid is one kernel launch with one CTA
+per chain. The front and back ends walk the same groups, so their
+working set is one group's spectra.
 """
 
 from __future__ import annotations
@@ -50,15 +57,21 @@ from .eig import (batched_eigvec_warmstart, batched_eigvec_warmstart_plain,
                   pad_to_multiple)
 
 METHODS = ("kernel", "plain", "eigh", "power")
+# the JAX package's names for the kernel route
+JAX_ALIASES = (None, "auto", "pallas", "warm")
 
 
-def resolve_retrieval_method(method):
-    """``None`` → ``"kernel"``; else one of :data:`METHODS`."""
-    if method is None:
+def resolve_retrieval_method(method, n_edges=None):
+    """The port's name of a retrieval ``method``: :data:`JAX_ALIASES` →
+    ``"kernel"``; one of :data:`METHODS` as it is; anything else raises
+    ``ValueError``. ``n_edges`` is the JAX package's second argument
+    (its VMEM guard); the card's kernel takes every size, so it is
+    unused."""
+    if method in JAX_ALIASES:
         return "kernel"
     if method not in METHODS:
-        raise ValueError(f"unknown retrieval method {method!r} "
-                         f"(want one of {METHODS})")
+        raise ValueError(f"unknown retrieval method {method!r} (want one "
+                         f"of {METHODS} or {JAX_ALIASES})")
     return method
 
 
@@ -481,7 +494,8 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     tensors on ``device`` instead, ready for :func:`mosaic_device`.
     ``method``: ``"eigh"`` (the default here, as in the JAX package),
     ``"kernel"``, ``"plain"`` or ``"power"`` (``iters`` cold power steps
-    per chunk); ``None`` means ``"kernel"``. ``mark``
+    per chunk); the JAX names ``None``, ``"auto"``, ``"pallas"`` and
+    ``"warm"`` mean ``"kernel"`` (:func:`resolve_retrieval_method`). ``mark``
     gets ``upload`` once the chunks are on ``device``, then the stages
     of :func:`make_chunk_retrieval_fn`.
 

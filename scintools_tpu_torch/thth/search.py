@@ -13,9 +13,11 @@ functions keyed on the geometry bytes), ``_fused_results`` (:273) and
 eigenvalue curve as one chain of the warm-start eigensolver on the
 device, then the scipy peak fit; two or more chunks run the fused
 search of thth/batch.py, or with ``fused=False`` the staged route of
-the JAX package (:412-451): the float64 host FFT per chunk, the device
+the JAX package (:356-396): the float64 host FFT per chunk, the device
 gather and eigen curve of all chunks in one call, then the scipy peak
-fit per chunk.
+fit per chunk. Both routes take the JAX package's eigensolver
+``method`` (:data:`.batch.METHODS`), and the fused searches are cached
+per method as well as per geometry.
 
 The thin-screen search (:func:`single_search_thin`,
 :func:`multi_chunk_search_thin`; :412-551) has three routes: the fused device search
@@ -37,6 +39,7 @@ from scipy.optimize import curve_fit
 from ..backend import as_tensor, fifo_cached, resolve_device
 from ..obs import retrace as _retrace
 from ..robust import guards
+from .batch import check_method
 from .core import (cs_to_ri, eval_calc_batch, fft_axis,
                    singularvalue_calc, unit_checks)
 
@@ -224,23 +227,24 @@ _CACHE_SIZE = 16
 FUSED_CACHE_STATS = {"builder_calls": 0}
 
 
-def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, eig,
-                device):
-    """The fused search function for one geometry, built once and kept
-    in a FIFO-bounded dict keyed on the geometry's bytes."""
+def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, method,
+                eig, device):
+    """The fused search function for one geometry and eigensolver
+    method, built once and kept in a FIFO-bounded dict keyed on the
+    geometry's bytes and the method."""
     from .batch import make_fused_search_fn
 
     nf, nt = shape
     key = ("fused", tau.tobytes(), fd.tobytes(), edges.tobytes(),
            (int(nf), int(nt)), int(npad), bool(coher), float(tau_mask),
-           float(fw), eig, str(device))
+           float(fw), method, eig, str(device))
 
     def build():
         FUSED_CACHE_STATS["builder_calls"] += 1
         _retrace.record_build("thth.fused", key)
         return make_fused_search_fn(
             tau, fd, edges, nf, nt, npad=npad, coher=coher,
-            tau_mask=tau_mask, fw=fw, eig=eig, device=device)
+            tau_mask=tau_mask, fw=fw, method=method, eig=eig, device=device)
 
     return fifo_cached(_FUSED_CACHE, key, build, _CACHE_SIZE)
 
@@ -301,18 +305,23 @@ def _fused_results(fn, stack, etas, freq, times):
 
 
 def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
-                       coher=True, tau_mask=0.0, eig="kernel", device=None,
-                       fused=True):
+                       coher=True, tau_mask=0.0, method="auto", eig="kernel",
+                       device=None, fused=True):
     """Curvature search on a batch of same-geometry chunks (e.g. all
     time-chunks of one frequency row) in one fused pass on ``device``:
-    mean-pad → conjugate spectrum → masked θ-θ gather → warm-start
-    eigen curve → closed-form parabola peak fit. A single chunk takes
-    :func:`single_search` instead, as in the JAX package.
+    mean-pad → conjugate spectrum → masked θ-θ gather → eigen curve →
+    closed-form parabola peak fit. A single chunk takes
+    :func:`single_search` instead, whatever the method, as in the JAX
+    package.
 
     dspecs : list of (nf, nt) chunk arrays; times : list of per-chunk
-    time axes (same spacing). ``eig`` is ``"kernel"`` (the card's
-    kernel on a CUDA device) or ``"plain"`` (its plain PyTorch version
-    everywhere), as in :func:`.batch.make_multi_eval_fn`.
+    time axes (same spacing). ``method`` is the JAX package's
+    eigensolver name (:data:`.batch.METHODS`): ``"auto"`` and
+    ``"pallas"`` the warm-start eigensolver, ``"square"`` the cold
+    squaring start per (chunk, η), ``"warm"`` the η-scan, ``"power"``
+    200 cold power steps (:func:`.batch.make_multi_eval_fn`). ``eig``
+    is ``"kernel"`` (the card's kernel on a CUDA device) or ``"plain"``
+    (its plain PyTorch version everywhere), as there.
     ``fused=False`` takes the staged route (the fused search's parity
     oracle and the float64-FFT fallback tier of
     ``robust.ladder.thth_search_ladder``): per chunk the float64 host
@@ -320,6 +329,7 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     device call (the same eigensolver), then the scipy peak fit and
     the health bitmask per chunk. Returns a list of
     ChunkSearchResult."""
+    check_method(method)
     dev = resolve_device(device)
     etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
     if len(dspecs) == 1:
@@ -328,8 +338,8 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
                               tau_mask=tau_mask, device=dev, eig=eig)]
     if not fused:
         return _multi_chunk_search_staged(dspecs, freq, times, etas, edges,
-                                          fw, npad, coher, tau_mask, eig,
-                                          dev)
+                                          fw, npad, coher, tau_mask, method,
+                                          eig, dev)
     stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
                       for d in dspecs])
     _, nf, nt = stack.shape
@@ -339,12 +349,13 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     tau = fft_axis(freq_a, pad=npad, scale=1.0)
     edges_a = np.asarray(unit_checks(edges, "edges"), dtype=float)
     fn = _fused_eval(tau, fd, edges_a, (nf, nt), npad, coher,
-                     float(unit_checks(tau_mask) or 0.0), fw, eig, dev)
+                     float(unit_checks(tau_mask) or 0.0), fw, method, eig,
+                     dev)
     return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
 
 
 def _multi_chunk_search_staged(dspecs, freq, times, etas, edges, fw, npad,
-                               coher, tau_mask, eig, dev):
+                               coher, tau_mask, method, eig, dev):
     """The staged route of :func:`multi_chunk_search`."""
     from .core import _eval_fn
 
@@ -355,7 +366,7 @@ def _multi_chunk_search_staged(dspecs, freq, times, etas, edges, fw, npad,
                                                tau_mask=tau_mask)
         cs_ri.append(cs_to_ri(CS if coher else np.abs(CS)))
     edges_a = np.asarray(unit_checks(edges, "edges"), dtype=float)
-    fn = _eval_fn(tau, fd, edges_a, 200, "auto", eig, dev)
+    fn = _eval_fn(tau, fd, edges_a, 200, method, eig, dev)
     eigs_all = fn.multi(as_tensor(np.stack(cs_ri), dev),
                         etas).cpu().numpy().astype(float)
     return [_host_fit_result(d, eigs_all[b], etas, fw, freq, t)

@@ -1,7 +1,7 @@
 """Card-only checks of the PyTorch/CUDA port: the hand-written kernels
 (the eigensolver's three entries and the arc profile) against their
 plain PyTorch versions on the same CUDA tensors, and the search (one
-chunk and a batch), the
+chunk, a batch, and the ``"square"`` method on ``eig_cold``), the
 wavefield retrieval, the survey arc fit, the acf2d fit, the trapezoid
 rescale, the zoom and off-grid transforms and the scattered image's
 interpolation run on the card
@@ -28,6 +28,7 @@ from scintools_tpu_torch.fit.parameters import Parameters
 from scintools_tpu_torch.ops import arc_profile as tap
 from scintools_tpu_torch.ops import fitarc as tfa
 from scintools_tpu_torch.robust import guards as tguards
+from scintools_tpu_torch.thth import batch as tthb
 from scintools_tpu_torch.thth import eig as teig
 from scintools_tpu_torch.thth import retrieval as tret
 from scintools_tpu_torch.thth.core import fft_axis
@@ -99,7 +100,9 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         teig.batched_eig_warmstart(a, 128)
 
 
-def test_search_on_card_matches_cpu(cuda):
+def _search_inputs():
+    """Three 32² arc chunks, their times and frequencies, the η grid and
+    the θ edges (npad 1)."""
     rng = np.random.default_rng(7)
     nf = nt = 32
     dt, df = 2.0, 0.05
@@ -121,6 +124,11 @@ def test_search_on_card_matches_cpu(cuda):
         tlist.append(times)
     etas = np.linspace(0.5 * eta_true, 2 * eta_true, 24)
     edges = np.linspace(-fd.max() / 2.2, fd.max() / 2.2, 32)
+    return chunks, tlist, freqs, etas, edges
+
+
+def test_search_on_card_matches_cpu(cuda):
+    chunks, tlist, freqs, etas, edges = _search_inputs()
     on_card = multi_chunk_search(chunks, freqs, tlist, etas, edges, fw=0.3,
                                  npad=1, device=cuda)
     on_cpu = multi_chunk_search(chunks, freqs, tlist, etas, edges, fw=0.3,
@@ -130,6 +138,41 @@ def test_search_on_card_matches_cpu(cuda):
         # cuFFT vs pocketfft and kernel vs plain: η to rel 1e-3
         assert g.eta == pytest.approx(c.eta, rel=1e-3)
 
+
+
+def test_square_route_launches_eig_cold(cuda):
+    """``method="square"`` on CUDA tensors launches ``eig_cold`` (no
+    fallback; a call of more matrices than the card seats at once runs
+    as several launches), within rtol 2e-4 (the kernel's gate) of
+    ``batched_eig_cold_plain`` on the same gathered stack; the search
+    through it launches too and lands within rel 1e-3 of the CPU's η."""
+    chunks, tlist, freqs, etas, edges = _search_inputs()
+    fd = fft_axis(tlist[0], pad=1, scale=1e3)
+    tau = fft_axis(freqs, pad=1)
+    fn = tthb.make_multi_eval_fn(tau, fd, edges, method="square",
+                                 device=cuda)
+    cs, _, _ = tthb._chunk_cs_to_ri(
+        torch.as_tensor(np.stack(chunks), dtype=torch.float32,
+                        device=cuda), 1, None, True)
+    a = fn.gather(cs, etas)
+    before = teig.batched_eig_cold.launches
+    kern = fn.solve(a)
+    torch.cuda.synchronize()
+    assert teig.batched_eig_cold.launches > before
+    plain = teig.batched_eig_cold_plain(
+        a.reshape(-1, *a.shape[2:]), fn.n_th // 2).reshape(a.shape[:2]).abs()
+    np.testing.assert_allclose(kern.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=2e-4)
+    before = teig.batched_eig_cold.launches
+    on_card = multi_chunk_search(chunks, freqs, tlist, etas, edges, fw=0.3,
+                                 npad=1, method="square", device=cuda)
+    torch.cuda.synchronize()
+    assert teig.batched_eig_cold.launches > before
+    on_cpu = multi_chunk_search(chunks, freqs, tlist, etas, edges, fw=0.3,
+                                npad=1, method="square", device="cpu")
+    for g, c in zip(on_card, on_cpu):
+        assert g.ok == c.ok == 0
+        assert g.eta == pytest.approx(c.eta, rel=1e-3)
 
 
 @pytest.mark.parametrize("n, neta", [(256, 200), (100, 24)])

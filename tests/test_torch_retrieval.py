@@ -300,8 +300,11 @@ class TestChunkRetrievalVsJax:
         assert tret.resolve_retrieval_method(None) == "kernel"
         for m in ("kernel", "plain", "eigh", "power"):
             assert tret.resolve_retrieval_method(m) == m
+        # the JAX package's names of the chained route are the kernel's
+        for m in ("auto", "pallas", "warm"):
+            assert tret.resolve_retrieval_method(m, 22) == "kernel"
         with pytest.raises(ValueError):
-            tret.resolve_retrieval_method("pallas")
+            tret.resolve_retrieval_method("bogus")
 
     def test_kernel_route_is_plain_on_cpu(self, arc):
         chunks, edges, _, _ = arc

@@ -411,8 +411,19 @@ class TestCoreVsJax:
         one = fn(torch.as_tensor(tcore.cs_to_ri(CS), dtype=torch.float32),
                  etas)
         np.testing.assert_array_equal(_np(one), got.astype(np.float32))
+        # "square" is the JAX package's cold squaring start per η
+        # (rtol 1e-5, as tests/test_torch_eig.py holds the cold start);
+        # a name neither package knows raises
+        want_sq = np.asarray(jcore.make_eval_fn(
+            tau, fd, edges, method="square")(
+                jnp.asarray(jcore.cs_to_ri(CS)), jnp.asarray(etas)))
+        sq = tcore.make_eval_fn(tau, fd, edges, method="square",
+                                device="cpu")
+        np.testing.assert_allclose(
+            _np(sq(torch.as_tensor(tcore.cs_to_ri(CS), dtype=torch.float32),
+                   etas)), want_sq, rtol=1e-5)
         with pytest.raises(ValueError, match="unknown method"):
-            tcore.make_eval_fn(tau, fd, edges, method="square",
+            tcore.make_eval_fn(tau, fd, edges, method="bogus",
                                device="cpu")
 
     @pytest.mark.parametrize("hermetian", [True, False])
