@@ -208,9 +208,10 @@ Phases, each of which exits non-zero on failure:
    B = 1, and a rerun that resumes every epoch; it prints the runner's
    wall beside 12.3's loop, the journal's fsyncs and bytes from the
    metrics registry and the staged descents' share of the wall; 13.2
-   ``run_psrflux_survey`` over 64 psrflux files of 512 × 128 written by
+   ``run_psrflux_survey`` over 32 psrflux files of 512 × 128 written by
    ``write_psrflux`` and 2 truncated ones, at 40 LM iterations as the JAX
-   bench's pipelined survey (``bench.py:1930``): 64 ok, 2 quarantined as
+   bench's pipelined survey (``bench.py:1930``, 64 files there; 32 here,
+   for the script's time limit): 32 ok, 2 quarantined as
    ``MalformedInputError``, the first 4 fits within 1e-4 of
    ``scint_params_batch`` at B = 1 on the same array, pipelined and
    sequential journals of the first 4 files byte-identical,
@@ -268,9 +269,9 @@ Phases, each of which exits non-zero on failure:
    epoch found through 3 overlap-save blocks;
 15. serving and the fleet (``serve_fleet_phase``, on the inputs of
    phases 13 and 14, whose workdirs live until it ends): 15.1
-   ``serve_psrflux_survey`` over 13.2's 66 files hard-linked into a
+   ``serve_psrflux_survey`` over 13.2's 34 files hard-linked into a
    spool one every 20 ms (``bench.py:2135-2139``), 40 LM iterations:
-   64 ok and 2 ``MalformedInputError`` quarantines, each published once
+   32 ok and 2 ``MalformedInputError`` quarantines, each published once
    and bitwise 13.2's journal, ``/metrics`` answering ``version=0.0.4``
    and ``/healthz``, ``/readyz``, ``/report``, ``/state`` answering; a
    restart on the same workdir over the same files republishes and
@@ -384,6 +385,41 @@ Phases, each of which exits non-zero on failure:
    ``torch.fft.rfft2`` of the mean-padded frame.
    ``python3 chip_smoke.py --phase19`` runs phase 19 alone (after the
    build and phase 4's façade, which it needs).
+20. the formulation registry and the transform plan
+   (``scintools_tpu_torch/backend.py``, ``ops/xfft.py``): 20.1
+   ``formulation_snapshot()`` — the 15 ops resolve to their registered
+   ``"cuda"`` entries, nothing pinned, no table loaded; 20.2 and 20.3
+   for every op and every choice, ``measure_formulation(op, thunks,
+   repeats=1, persist=True)`` (one timed run after the warm-up, for the
+   script's time limit) into a temporary table directory, each
+   thunk pinning its choice with ``set_formulation``, calling the
+   public entry of the main path at that path's width (19.1's row 0
+   for ``thth.eig``; 4 of phase 5's chunks, the widest-gapped of its
+   first row, for ``thth.retrieval_eig`` and ``thth.retrieval_group``;
+   phase 10's 256 × 512 × 128 for ``xfft.acf``; the 4096² spectrum and
+   its 64 chunks for ``xfft.sspec`` and ``ops.cs``; 11.3's band and
+   rows for ``xfft.zoom`` and ``xfft.offgrid``; 256 profiles of 1023
+   for ``xfft.profile``; 11.4's ``ACF.calc_sspec`` for
+   ``xfft.acf_sspec``; 11.2's grid at sampling 128 for
+   ``ops.scatim_interp``; phase 6's survey fit on ``pallas=False`` for
+   ``ops.arc_profile_interp``; 14.4's scan for ``detect.correlate``;
+   12.2's structure-function draws and its 64 plain screens for
+   ``sim.screen`` and ``sim.propagate``) and fencing; every choice held
+   to the default's output at its phase's gate (``thth.eig`` by η
+   against ``"power"``'s as 19.1; the retrieval's kernel choices
+   bitwise, ``"eigh"`` and ``"power"`` by phase 5's aligned correlation
+   > 0.99 where the gap is ≥ 10%; the screens by 12.2's structure
+   function, compensated within 0.08 of oversized and plain beyond
+   0.15; the arc fit by phase 6's η 1e-4 and etaerr 1e-3 of the kernel
+   route's fit), the kernel choices' launches counted (``"pallas"`` →
+   ``eig_warmstart``, ``"square"`` → ``eig_cold``, the retrieval's
+   kernel route → ``eigvec_warmstart``; ``pallas=False`` launches no
+   ``arc_profile``); each op's seconds per choice and winner printed
+   beside the card's name and power limit; a fresh ``python3 -c``
+   process pointed at the tables resolves every winner; 20.4 ``plan``
+   and each ``*_program`` at those widths, bitwise the direct lowering
+   it stands for. ``python3 chip_smoke.py --phase20`` runs phase 20
+   alone (after the build and phase 4's façade).
 
 Each eigensolver entry prints the launch plan its call recorded (per
 launch: chains, cluster size C, the clusters the card seats at once,
@@ -420,7 +456,9 @@ plots (16, when matplotlib is there) and the mesh fit (17.1), for the
 eigenvector entry around the mesh retrieval (17.4) and for the arc
 profile around the mesh arc fit (17.3); in each rank of phase 18
 for each kernel around its path (18.1, 18.3, 18.4); for the cold-only
-entry around the ``"square"`` searches (19.1). Each must be > 0. It
+entry around the ``"square"`` searches (19.1); in phase 20 for each
+kernel around every call of each registry choice, and for the arc
+profile around the kernel route's survey fit. Each must be > 0. It
 prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
 paths that run the kernel, with each path's count beside it; the
 cold-only entry's call of its own in phase 2 is shown apart, as
@@ -965,6 +1003,7 @@ def main():
     ret = retrieval_phase(ds, dev)
     lap("5 retrieval")
     arc = survey_arc_phase(dev, ptxas)
+    arc_prob = arc.pop("problem")
     lap("6 survey arc fit")
     one = single_chunk_phase(ds, prob, bd, eta_true, ret.pop("rgap"), dev)
     thin = thin_grid_phase(prob, bd, eta_true, dev)
@@ -991,8 +1030,14 @@ def main():
         lap("18 mesh across processes")
     methods = methods_phase(dev, prob, ds)
     lap("19 every eigensolver method")
+    form = formulation_phase(dev, prob, ds, arc_prob)
+    del arc_prob
+    lap("20 formulation registry and plan")
+    launches_20 = form.pop("launches")
     cold["launches_square_search"] = methods.pop("launches_square_search")
-    cold["launches"] = cold["launches_square_search"]
+    cold["launches_formulation_phase"] = launches_20["eig_cold"]
+    cold["launches"] = (cold["launches_square_search"]
+                        + launches_20["eig_cold"])
     launches_m = mesh.pop("launches")
     launches_18 = ranks.pop("launches")
     survey["psrflux"].pop("paths")
@@ -1021,6 +1066,8 @@ def main():
     arc_kernel["launches"] += launches_m["arc_profile"]
     arc_kernel["launches_mesh_ranks"] = launches_18["arc_profile"]
     arc_kernel["launches"] += launches_18["arc_profile"]
+    arc_kernel["launches_formulation_phase"] = launches_20["arc_profile"]
+    arc_kernel["launches"] += launches_20["arc_profile"]
     vec_kernel = ret.pop("kernel")
     launches_wf = survey["wavefield"]["launches"]
     vec_kernel["launches_wavefield_survey"] = launches_wf
@@ -1032,6 +1079,8 @@ def main():
     vec_kernel["launches"] += launches_m["eigvec_warmstart"]
     vec_kernel["launches_mesh_ranks"] = launches_18["eigvec_warmstart"]
     vec_kernel["launches"] += launches_18["eigvec_warmstart"]
+    vec_kernel["launches_formulation_phase"] = launches_20["eigvec_warmstart"]
+    vec_kernel["launches"] += launches_20["eigvec_warmstart"]
     launches_lad = (survey["ladder"]["launches"]
                     + survey["ladder"]["launches_staged"])
     launches_dc = post["detection"]["launches"]
@@ -1044,7 +1093,7 @@ def main():
         "launches": launches_ns + launches_f + launches_h + launches_1
         + launches_r + launches_p + launches_lad + launches_dc
         + launches_sd + launches_m["eig_warmstart"] + launches_thp
-        + launches_18["eig_warmstart"],
+        + launches_18["eig_warmstart"] + launches_20["eig_warmstart"],
         "launches_north_star": launches_ns, "launches_facade": launches_f,
         "launches_hough_facade": launches_h,
         "launches_single_chunk": launches_1,
@@ -1056,6 +1105,7 @@ def main():
         "launches_mesh_facade": launches_m["eig_warmstart"],
         "launches_thth_plots": launches_thp,
         "launches_mesh_ranks": launches_18["eig_warmstart"],
+        "launches_formulation_phase": launches_20["eig_warmstart"],
         "max_abs_err": max_abs, "max_rel_err_vs_plain": max_rel,
         "near_degenerate_points": n_near,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1078,7 +1128,8 @@ def main():
         "simulation": simu, "survey": survey,
         "posteriors_and_detection": post, "serving_and_fleet": serve,
         "plotting": plots, "mesh": mesh, "mesh_ranks": ranks,
-        "methods": methods, "phase_s": PHASE_S}, default=str),
+        "methods": methods, "formulations": form, "phase_s": PHASE_S},
+        default=str),
         flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1240,6 +1291,503 @@ def methods_phase(dev, prob, ds):
                 retrieval_aliases_bitwise=aliases,
                 pruned_meanpad_half=dict(err_of_peak=pr_err, ms=pruned_ms,
                                          rfft2_ms=dense_ms))
+
+
+FORMULATION_MODULES = ("ops.xfft", "ops.sspec", "ops.scatim",
+                       "ops.normsspec", "detect.correlate", "thth.batch",
+                       "thth.retrieval", "sim.factory")
+
+
+def kernel_counts():
+    """The launch counts of the four kernels' wrappers."""
+    from scintools_tpu_torch.ops import arc_profile as AP
+    from scintools_tpu_torch.thth import eig as E
+
+    return {"eig_warmstart": E.batched_eig_warmstart.launches,
+            "eig_cold": E.batched_eig_cold.launches,
+            "eigvec_warmstart": E.batched_eigvec_warmstart.launches,
+            "arc_profile": AP.arc_profile.launches}
+
+
+def formulation_workloads(dev, prob, ds, arc_prob):
+    """Phase 20's workload per registry op: ``{op: (run, gate)}``, where
+    ``run()`` calls the public entry of the main path that resolves the
+    op (no variant passed) at that path's width, and ``gate(outs)``
+    holds every choice's output against the default's (or, for
+    ``thth.eig``, against ``"power"``'s, as phase 19 does) and returns
+    ``{choice: (number, passed)}``."""
+    from scintools_tpu_torch import detect as D
+    from scintools_tpu_torch.ops import acf as A
+    from scintools_tpu_torch.ops import fitarc as F
+    from scintools_tpu_torch.ops import scatim as SI
+    from scintools_tpu_torch.ops import sspec as SS
+    from scintools_tpu_torch.ops import xfft as X
+    from scintools_tpu_torch.sim import acf_model as AM
+    from scintools_tpu_torch.sim import factory as FA
+    from scintools_tpu_torch.sim.scenario import scenario_truths
+    from scintools_tpu_torch.thth import retrieval as R
+    from scintools_tpu_torch.thth import search as S
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    works = {}
+
+    def rel_peak(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def against(default, fn, limit):
+        def gate(outs):
+            return {c: (v, v <= limit) for c, v in
+                    ((c, fn(o, outs[default])) for c, o in outs.items())}
+        return gate
+
+    # thth.eig: phase 19's row 0 through multi_chunk_search("auto")
+    cf, ct, npad = prob["cf"], prob["ct"], prob["npad"]
+    dyn = np.asarray(prob["dyns"][1])
+    n_ct = dyn.shape[1] // ct
+    row = ([dyn[:cf, j * ct:(j + 1) * ct] for j in range(n_ct)],
+           prob["f0"] + prob["df"] * np.arange(cf),
+           [prob["dt"] * (j * ct + np.arange(ct)) for j in range(n_ct)],
+           prob["etas"], prob["edges"])
+
+    def search():
+        res = S.multi_chunk_search(*row, fw=0.2, npad=npad, method="auto",
+                                   device=dev)
+        check(all(r.ok == 0 for r in res), "20.2: a search chunk flagged")
+        return np.array([r.eta for r in res])
+
+    def eta_gate(outs):
+        out = {}
+        for c, eta in outs.items():
+            d = float(np.abs(eta / outs["power"] - 1).max())
+            med = float(np.median(np.abs(eta - prob["eta_true"])
+                                  / prob["eta_true"]))
+            out[c] = (d, d <= 5e-3 and med < 0.01)
+        return out
+
+    works["thth.eig"] = (search, eta_gate)
+
+    # thth.retrieval_eig and thth.retrieval_group: 4 of phase 5's chunks,
+    # the 4 of its first row with the widest θ-θ gaps (λ₁−λ₂)/λ₁, so
+    # phase 5's gate against the dense solve (≥ 10%) has chunks to hold
+    chunks_r, edges_rows, etas_rows = ds._retrieval_grid_inputs()
+    steps = ds._steps()
+    fn = R.make_chunk_retrieval_fn(ds.cwf, ds.cwt, *steps, len(ds.edges),
+                                   npad=ds.npad, device=dev)
+    n_row = chunks_r.shape[1]
+
+    def gaps(c):
+        thth = fn.front(torch.as_tensor(c, dtype=torch.float32, device=dev),
+                        torch.as_tensor(np.tile(edges_rows[0],
+                                                (len(c), 1)), device=dev),
+                        torch.as_tensor(np.full(len(c), etas_rows[0]),
+                                        device=dev), ds.thth_tau_mask)[0]
+        ev = torch.linalg.eigvalsh(thth)
+        return ((ev[:, -1] - ev[:, -2]) / ev[:, -1].abs()).cpu().numpy()
+
+    pick = np.sort(np.argsort(-gaps(chunks_r[0]))[:4])
+    c4 = chunks_r[0, pick]
+    rargs = (c4, np.tile(edges_rows[0], (len(c4), 1)),
+             np.full(len(c4), etas_rows[0]), *steps)
+    wide = torch.as_tensor(gaps(c4) >= 0.10, device=dev)
+    print(f"    retrieval chunks {pick.tolist()} of row 0 ({n_row}), "
+          f"{int(wide.sum())} with a θ-θ gap ≥ 10%", flush=True)
+
+    def retrieve():
+        return R.grid_retrieval_batch(*rargs, npad=ds.npad, method=None,
+                                      with_ok=True, device_out=True,
+                                      device=dev)
+
+    def retrieval_gate(outs):
+        (E0, ok0) = outs["pallas"]
+        out = {}
+        for c, (E1, ok1) in outs.items():
+            if c in ("pallas", "warm"):      # the kernel route: bitwise
+                out[c] = (float((E1 - E0).abs().max()),
+                          torch.equal(E1, E0) and torch.equal(ok1, ok0))
+            else:                            # phase 5's gate against eigh
+                corr = aligned_corr(E1, E0)
+                out[c] = (float(corr.min()), bool((corr[wide] > 0.99).all())
+                          and torch.equal(ok1, ok0))
+        return out
+
+    works["thth.retrieval_eig"] = (retrieve, retrieval_gate)
+    works["thth.retrieval_group"] = (retrieve, against(
+        "hbm", lambda a, b: float((a[0] - b[0]).abs().max()), 0.0))
+
+    # xfft.acf: phase 10's 256 epochs of 512 × 128
+    x10 = torch.rand((256, 512, 128), generator=gen, device=dev) + 1.0
+    works["xfft.acf"] = (lambda: A.autocovariance(x10, device=dev),
+                         against("real", rel_peak, 1e-5))
+
+    # xfft.sspec and ops.cs: the 4096² spectrum and its 64 chunks
+    d = torch.as_tensor(dyn, dtype=torch.float32, device=dev)
+    wins = prob["wins"]
+    works["xfft.sspec"] = (
+        lambda: SS.secondary_spectrum_power(d, window_arrays=wins),
+        against("half", rel_peak, 2e-4))
+    chunks64 = d.reshape(dyn.shape[0] // cf, cf, n_ct, ct).transpose(1, 2) \
+        .reshape(-1, cf, ct)
+    works["ops.cs"] = (
+        lambda: SS.chunk_conjugate_spectrum_batch(chunks64, npad=npad),
+        against("rfft", rel_peak, 1e-5))
+
+    # xfft.zoom and xfft.offgrid: phase 11.3's band and rows
+    nf, nt = dyn.shape
+    nrfft, ncfft = SS.fft_shapes(nf, nt)
+    r0 = float(round(prob["eta_true"] * 40.0 ** 2 * nrfft * prob["df"]
+                     - 128 / 2))
+    c0 = float(round(40.0 * ncfft * prob["dt"] / 1e3 - 256 / 2))
+    band = ((r0, r0 + 128, 128 * 16), (c0, c0 + 256, 256 * 16))
+    works["xfft.zoom"] = (
+        lambda: SS.secondary_spectrum_power(d, window_arrays=wins,
+                                            zoom=band),
+        against("czt", rel_peak, 2e-4))
+    rows = d[:256] - d[:256].mean(dim=-1, keepdim=True)
+    pts = torch.as_tensor(np.random.default_rng(29).uniform(
+        -nt / 2, nt / 2, nt), device=dev)
+    og_lim = X.offgrid_taylor_bound(8, 4) * rows.abs().sum(dim=-1)
+    works["xfft.offgrid"] = (
+        lambda: X.offgrid_dft_1d(rows, pts, nt),
+        against("taylor", lambda a, b: float(((a - b).abs().max(dim=-1)
+                                              .values / og_lim).max()), 1.0))
+
+    # xfft.profile: the 1-D spectrum models' transform, 256 profiles
+    prof = torch.rand((256, 1023), generator=gen, dtype=torch.float64,
+                      device=dev)
+    works["xfft.profile"] = (lambda: X.real_spectrum_1d(prof, 512),
+                             against("real", rel_peak, 1e-5))
+
+    # xfft.acf_sspec: 11.4's ACF.calc_sspec at a crop of 129
+    nc2 = 129
+    dt2, df2 = 2 * 7200.0 / (2 * nc2 - 1), 2 * 64.0 / (2 * nc2 - 1)
+    acf = AM.ACF(taumax=nc2 * dt2 / 1800.0, dnumax=nc2 * df2 / 6.0,
+                 nt=nc2, nf=nc2, ar=2.0, alpha=5 / 3, psi=60.0, device=dev)
+    works["xfft.acf_sspec"] = (
+        lambda: torch.as_tensor(10 ** (acf.calc_sspec() / 10)),
+        against("real", rel_peak, 1e-6))
+
+    # ops.scatim_interp: 11.2's grid, queries at sampling 128
+    nr, nc = 2048, 1024
+    tdel = np.linspace(0.0, 20.0, nr)
+    fdop = np.linspace(-30.0, 30.0, nc)
+    T, Fd = np.meshgrid(tdel, fdop, indexing="ij")
+    lin = torch.as_tensor(np.exp(-0.5 * (T - 6.0) ** 2 / 4.0
+                                 - Fd ** 2 / 200.0),
+                          dtype=torch.float32, device=dev)
+    eta_i = 0.9 * tdel[-1] / fdop[-1] ** 2
+    FX, FY = np.meshgrid(np.linspace(-fdop.max(), fdop.max(), 257),
+                         np.linspace(0.0, fdop.max(), 129))
+    tpos = torch.as_tensor(np.clip(((FX ** 2 + FY ** 2) * eta_i - tdel[0])
+                                   / (tdel[1] - tdel[0]), 0, nr - 1),
+                           dtype=torch.float32, device=dev)
+    fpos = torch.as_tensor(np.clip((FX - fdop[0]) / (fdop[1] - fdop[0]), 0,
+                                   nc - 1), dtype=torch.float32, device=dev)
+
+    def scatim_gate(outs):
+        g = outs["gather"]
+        return {c: (float((o - g).abs().max()),
+                    bool(torch.allclose(o, g, rtol=2e-4, atol=2e-5)))
+                for c, o in outs.items()}
+
+    works["ops.scatim_interp"] = (
+        lambda: SI.cubic_interp2d(lin, tpos, fpos, device=dev), scatim_gate)
+
+    # ops.arc_profile_interp: phase 6's survey fit on pallas=False, held
+    # to the kernel route's fit at phase 6's gates
+    s_dev, tdel6, fdop6 = (arc_prob["sspecs"], arc_prob["tdel"],
+                           arc_prob["fdop"])
+
+    def arc_fit(pallas):
+        fits = F.fit_arc_batch(s_dev, tdel6, fdop6,
+                               numsteps=arc_prob["numsteps"],
+                               full_output=False, pallas=pallas, device=dev)
+        return np.array([[f.eta, f.etaerr] for f in fits])
+
+    before = kernel_counts()["arc_profile"]
+    kernel_fit = arc_fit(None)
+    arc_kernel_launches = kernel_counts()["arc_profile"] - before
+
+    def arc_gate(outs):
+        out = {}
+        fin = np.isfinite(kernel_fit[:, 0])
+        for c, o in outs.items():
+            same = np.array_equal(np.isfinite(o[:, 0]), fin)
+            d = np.abs(o[fin] / kernel_fit[fin] - 1).max(axis=0)
+            out[c] = (float(d[0]), bool(same and fin.all() and d[0] <= 1e-4
+                                        and d[1] <= 1e-3))
+        return out
+
+    works["ops.arc_profile_interp"] = (lambda: arc_fit(False), arc_gate)
+
+    # detect.correlate: 14.4's scan, 64 anisotropic epochs of 128 × 64
+    dt4, freq4, dlam4, nf4, ns4 = 30.0, 1400.0, 0.05, 64, 128
+    df4 = freq4 * dlam4 / (nf4 - 1)
+    dyn4, code = FA.simulate_scenarios(
+        64, mb2=16.0, ar=8.0, psi=0.0, alpha=5 / 3, ns=ns4, nf=nf4,
+        dlam=dlam4, rf=1.0, ds=0.02, inner=0.001,
+        keys=FA.lane_keys_from_seeds(9000 + np.arange(64)), screen=
+        "compensated", propagate="column", with_ok=True, device_out=True,
+        device=dev)
+    check(not bool(code.any()), "20: factory lanes unhealthy")
+    epochs = dyn4.transpose(1, 2).contiguous()
+    eta4 = float(scenario_truths(16.0, 8.0, 0.0, 5 / 3, rf=1.0, ds=0.02,
+                                 dt=dt4, freq=freq4, dlam=dlam4)["eta"])
+    bank = D.build_bank(nf4, ns4, dt4, df4, eta4 / 5, eta4 * 5,
+                        n_templates=48, device=dev)
+
+    def correlate_gate(outs):
+        s0, ok0 = outs["half"]
+        return {c: (rel_peak(s, s0), rel_peak(s, s0) <= 1e-4
+                    and torch.equal(ok, ok0)
+                    and torch.equal(s.argmax(1), s0.argmax(1)))
+                for c, (s, ok) in outs.items()}
+
+    works["detect.correlate"] = (lambda: D.correlate_bank(epochs, bank),
+                                 correlate_gate)
+
+    # sim.screen: 12.2's structure-function draws (8 × 96 screens of
+    # 64²); sim.propagate: 12.2's 64 plain screens of 256², nf 64
+    def structure():
+        return np.mean([_structure_function(FA.simulate_screens(
+            96, ns=64, nf=2, seed=5 + i, device=dev)) for i in range(8)],
+            axis=0)
+
+    def sf_gate(outs):
+        o = outs["oversized"]
+        rel = {c: float(np.median(np.abs(s - o) / o))
+               for c, s in outs.items()}
+        return {c: (r, r < 0.08 if c != "plain" else r > 0.15)
+                for c, r in rel.items()}
+
+    works["sim.screen"] = (structure, sf_gate)
+
+    def propagate_gate(outs):
+        col = outs["column"]
+        lim = {"phasor": 1e-4, "column": 0.0, "dense": 1e-3}
+        return {c: (rel_peak(o, col), rel_peak(o, col) <= lim[c])
+                for c, o in outs.items()}
+
+    works["sim.propagate"] = (
+        lambda: FA.simulate_scenarios(64, ns=256, nf=64, seed=7,
+                                      screen="plain", device_out=True,
+                                      device=dev),
+        propagate_gate)
+    return works, arc_kernel_launches, dict(
+        x10=x10, d=d, chunks64=chunks64, band=band, rows=rows, pts=pts,
+        rargs=rargs, wins=wins)
+
+
+def formulation_phase(dev, prob, ds, arc_prob=None, repeats=1):
+    """Phase 20, the formulation registry and the transform plan on the
+    card. 20.1 ``formulation_snapshot()``: every op resolves to its
+    registered ``"cuda"`` entry and no table is loaded; 20.2 and 20.3
+    for every op, ``measure_formulation(op, thunks, repeats,
+    persist=True)`` into a temporary table directory, each thunk pinning
+    its choice with ``set_formulation``, running the main path's public
+    entry at that path's width (:func:`formulation_workloads`) and
+    fencing; every choice's output held against the default's at the
+    gate its phase uses, the kernel choices' launches counted; a fresh
+    process pointed at the tables resolves every winner; 20.4 ``plan``
+    and each ``*_program`` at those widths, bitwise the direct lowering
+    they stand for. Returns the phase's numbers with ``launches``, each
+    kernel's launches in the phase."""
+    import importlib
+    import shutil
+
+    from scintools_tpu_torch import backend as B
+    from scintools_tpu_torch import workloads as W
+    from scintools_tpu_torch.ops import acf as A
+    from scintools_tpu_torch.ops import sspec as SS
+    from scintools_tpu_torch.ops import xfft as X
+
+    for m in FORMULATION_MODULES:
+        importlib.import_module(f"scintools_tpu_torch.{m}")
+    card = smi()
+    print(f"[20] the formulation registry and the transform plan "
+          f"({card})", flush=True)
+    t0 = time.perf_counter()
+    if arc_prob is None:
+        arc_prob = W.make_survey_arc_problem(device=dev)
+
+    # 20.1 the snapshot on the card
+    snap = B.formulation_snapshot()
+    active = {op: e["active"] for op, e in snap.items()}
+    print(f"    20.1 formulation_snapshot() on {B.formulation_platform()}: "
+          f"{json.dumps(active)}", flush=True)
+    bad = [op for op, e in snap.items()
+           if e["active"] != e["platforms"].get("cuda")
+           or e["override"] or e["measured"]]
+    check(len(snap) == 15 and not bad, f"20.1: ops off their registered "
+          f"cuda entry, or pinned, or measured: {bad}")
+    check(not B._MEASURED_TABLES.get("cuda") and not os.path.exists(
+        B.formulation_table_path("cuda")), "20.1: a card table is loaded")
+
+    works, arc_launches, inputs = formulation_workloads(dev, prob, ds,
+                                                        arc_prob)
+    print(f"    inputs ready in {time.perf_counter() - t0:.1f} s; the "
+          f"kernel route's survey arc fit launched arc_profile "
+          f"{arc_launches} times", flush=True)
+    check(arc_launches > 0, "20: the default arc fit never launched "
+          "arc_profile")
+
+    # 20.2 and 20.3 every op, every choice, measured
+    tables = tempfile.mkdtemp(prefix="chip_smoke_tables_")
+    os.environ["SCINTOOLS_TORCH_FORMULATION_TABLES"] = tables
+    B.reset_measured_formulations()
+    kernel_of = {("thth.eig", "pallas"): "eig_warmstart",
+                 ("thth.eig", "square"): "eig_cold",
+                 ("thth.retrieval_eig", "pallas"): "eigvec_warmstart",
+                 ("thth.retrieval_eig", "warm"): "eigvec_warmstart",
+                 ("thth.retrieval_group", "hbm"): "eigvec_warmstart",
+                 ("thth.retrieval_group", "cache"): "eigvec_warmstart"}
+    launches = {k: 0 for k in kernel_counts()}
+    launches["arc_profile"] = arc_launches
+    ops = {}
+    try:
+        for op, (run, gate) in works.items():
+            t_op = time.perf_counter()
+            rec = B._FORMULATIONS[op]
+            default = rec["platforms"]["cuda"]
+            order = [default] + [c for c in rec["choices"] if c != default]
+            outs, counts = {}, {c: {} for c in order}
+
+            def thunk(c, op=op, run=run, outs=outs, counts=counts):
+                def call():
+                    B.set_formulation(op, c)
+                    k0 = kernel_counts()
+                    outs[c] = run()
+                    torch.cuda.synchronize()
+                    for k, v in kernel_counts().items():
+                        counts[c][k] = counts[c].get(k, 0) + v - k0[k]
+                return call
+
+            winner, secs = B.measure_formulation(
+                op, {c: thunk(c) for c in order}, repeats=repeats,
+                persist=True, platform=dev.type)
+            B.set_formulation(op, None)
+            verdict = gate(outs)
+            del outs
+            for c in order:
+                for k, v in counts[c].items():
+                    launches[k] += v
+                want = kernel_of.get((op, c))
+                if want:
+                    check(counts[c].get(want, 0) > 0, f"20.2: {op}={c} never "
+                          f"launched {want}")
+                elif op == "ops.arc_profile_interp":
+                    check(counts[c].get("arc_profile", 0) == 0,
+                          f"20.2: {op}={c} (pallas=False) launched the kernel")
+            ops[op] = dict(seconds=secs, winner=winner, repeats=repeats,
+                           gate={c: v for c, (v, _) in verdict.items()},
+                           launches={c: {k: v for k, v in n.items() if v}
+                                     for c, n in counts.items()},
+                           wall_s=time.perf_counter() - t_op)
+            print(f"    {op}: " + ", ".join(
+                f"{c} {secs[c] * 1e3:.3f} ms (gate value "
+                f"{verdict[c][0]:.3e}{'' if verdict[c][1] else ' FAILED'})"
+                for c in order) + f"; winner {winner}; launches "
+                f"{ops[op]['launches']} [{card}]", flush=True)
+            failed = [c for c, (_, ok) in verdict.items() if not ok]
+            check(not failed, f"20.2: {op} choices {failed} fail their gate")
+
+        # a fresh process pointed at the tables resolves every winner
+        code = ("import importlib, json\n"
+                "from scintools_tpu_torch import backend as B\n"
+                f"for m in {FORMULATION_MODULES!r}:\n"
+                "    importlib.import_module('scintools_tpu_torch.' + m)\n"
+                f"print(json.dumps({{op: B.formulation(op, {dev.type!r}) "
+                f"for op in {sorted(ops)!r}}}))\n")
+        env = dict(os.environ, SCINTOOLS_TORCH_FORMULATION_TABLES=tables)
+        t1 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(res.returncode == 0, f"20.3: the fresh process failed: "
+              f"{res.stderr[-2000:]}")
+        fresh = json.loads(res.stdout.strip().splitlines()[-1])
+        winners = {op: r["winner"] for op, r in ops.items()}
+        with open(os.path.join(tables, f"{dev.type}.json")) as fh:
+            table = json.load(fh)
+        print(f"    20.3 table {sorted(table['ops']) == sorted(ops)}; a "
+              f"fresh process ({time.perf_counter() - t1:.1f} s) resolves "
+              f"{json.dumps(fresh)}; the winners {json.dumps(winners)}",
+              flush=True)
+        check(fresh == winners, "20.3: the fresh process resolves other "
+              "choices than the measured winners")
+    finally:
+        os.environ.pop("SCINTOOLS_TORCH_FORMULATION_TABLES", None)
+        for op in list(B._FORMULATIONS):
+            B.set_formulation(op, None)
+        B.reset_measured_formulations()
+        shutil.rmtree(tables, ignore_errors=True)
+
+    # 20.4 plan and the programs, bitwise their direct lowering
+    d, wins, band = inputs["d"], inputs["wins"], inputs["band"]
+    dw = d - d.mean()
+    dw = SS.apply_window(dw, wins[0], wins[1])
+    dw = dw - dw.mean()
+    nrfft, ncfft = SS.fft_shapes(*d.shape)
+    x10, chunk = inputs["x10"], inputs["chunks64"][0]
+    H = torch.fft.fft2(chunk, s=(1024, 1024))
+    cases = {
+        "acf_program": (lambda: X.acf_program(512, 128, device=dev)(x10),
+                        lambda: A.autocovariance(x10, device=dev)),
+        "sspec_power_program": (
+            lambda: X.sspec_power_program(*d.shape, device=dev)(d[None]),
+            lambda: SS.secondary_spectrum_power(d[None])),
+        "zoom_power_program": (
+            lambda: X.zoom_power_program(
+                *d.shape, (nrfft, ncfft), band[0][2], band[1][2],
+                device=dev)(dw[None], band[0][:2], band[1][:2]),
+            lambda: X.zoom_power_2d(dw[None], (nrfft, ncfft), *band)),
+        "offgrid_program": (
+            lambda: X.offgrid_program(d.shape[1], d.shape[1],
+                                      device=dev)(inputs["rows"],
+                                                  inputs["pts"]),
+            lambda: X.offgrid_dft_1d(inputs["rows"], inputs["pts"],
+                                     d.shape[1])),
+        "plan_halved_power": (
+            lambda: X.plan(d.shape, (nrfft, ncfft), real_input=True,
+                           crop=(nrfft // 2, None), layout="shifted",
+                           op="xfft.sspec").power(dw),
+            lambda: X.halfrow_power(dw, (nrfft, ncfft))),
+        "plan_band_power": (
+            lambda: X.plan(d.shape, (nrfft, ncfft), real_input=True,
+                           band=band).power(dw),
+            lambda: X.zoom_power_2d(dw, (nrfft, ncfft), *band)),
+        "plan_acf": (
+            lambda: X.plan((512, 128), (1024, 256), real_input=True,
+                           layout="shifted", op="xfft.acf").acf(x10),
+            lambda: torch.fft.fftshift(X.wiener_khinchin(
+                x10, (1024, 256)), dim=(-2, -1))),
+        "plan_mean_pad_half": (
+            lambda: X.plan(chunk.shape, (1024, 1024), real_input=True,
+                           mean_pad=True).half(chunk),
+            lambda: X.pruned_meanpad_half(chunk, (1024, 1024))),
+        "plan_real_forward": (
+            lambda: X.plan(chunk.shape, (1024, 1024), real_input=True,
+                           layout="shifted",
+                           op="xfft.acf_sspec").forward(chunk),
+            lambda: torch.fft.fftshift(X.fft2_full(
+                chunk, variant="rfft", s=(1024, 1024)), dim=(-2, -1))),
+        "plan_cropped_inverse": (
+            lambda: X.plan((1024, 1024), crop=(512, 512),
+                           op="xfft.acf").inverse(H),
+            lambda: X.ifft2_cropped(H, (512, 512))),
+    }
+    plans = {}
+    for name, (via, direct) in cases.items():
+        a, b = via(), direct()
+        plans[name] = dict(shape=list(a.shape), bitwise=bool(torch.equal(a, b)))
+        del a, b
+    print(f"    20.4 bitwise the direct lowering: "
+          f"{json.dumps({k: v['bitwise'] for k, v in plans.items()})}",
+          flush=True)
+    check(all(v["bitwise"] for v in plans.values()),
+          "20.4: a plan or program differs from its direct lowering")
+    print(f"    phase 20 measured on {card}", flush=True)
+    return dict(ops=ops, plans=plans, launches=launches, card=card,
+                snapshot=active)
 
 
 def cold_phase(a, mid, rng, dev):
@@ -1655,7 +2203,8 @@ def survey_arc_phase(dev, ptxas):
         "profile_stage_ms": stage_ms,
         "profile_stage": [[name, d / 1e3] for name, _, d in stage],
         "eta_rel_vs_host_tail": d_eta, "etaerr_rel_vs_host_tail": d_err,
-        "eta_vs_truth_median": med, "n_finite": int(fin.sum())}
+        "eta_vs_truth_median": med, "n_finite": int(fin.sum()),
+        "problem": prob}
 
 
 def single_chunk_phase(ds, prob, bd, eta_true, rgap, dev):
@@ -3985,14 +4534,14 @@ def card_line():
     return smi().replace(", ", " at ")
 
 
-def psrflux_survey_phase(dev, tmp, n=64, nf=512, nt=128, n_bad=2,
+def psrflux_survey_phase(dev, tmp, n=32, nf=512, nt=128, n_bad=2,
                          n_iter=40, n_window=4, n_ref=4):
-    """13.2: 64 psrflux files of phase 10's 512 × 128 epochs and 2
+    """13.2: 32 psrflux files of phase 10's 512 × 128 epochs and 2
     truncated copies through ``run_psrflux_survey``, at the 40 LM
     iterations of the JAX bench's pipelined survey (``bench.py:1930``):
     each epoch is one B = 1 fit whose launches pace it on the card. The
     first ``n_ref`` fits are held to ``scint_params_batch`` at B = 1 on
-    the same array (15.1 holds all 64 bitwise to this journal); the
+    the same array (15.1 holds all 32 bitwise to this journal); the
     pipelined and sequential journals, and the device busy share, are
     taken on the first ``n_window`` files. Returns the files and the
     journal for phase 15."""
@@ -5095,7 +5644,7 @@ def serve_fleet_phase(dev, tmp, survey, post):
 
 
 def serve_single_phase(dev, tmp, flux):
-    """15.1: 13.2's 66 files hard-linked into a spool one every 20 ms
+    """15.1: 13.2's 34 files hard-linked into a spool one every 20 ms
     and served at B = 1; every value bitwise 13.2's journal; a restart
     republishes nothing; the scrape overhead on 6 more files."""
     import threading
@@ -5208,7 +5757,7 @@ def serve_single_phase(dev, tmp, flux):
 
 
 def serve_batched_phase(dev, tmp, flux, single, max_batch=8):
-    """15.2: the same 66 files linked at once into the batched mode
+    """15.2: the same 34 files linked at once into the batched mode
     (``max_batch`` 8) after every bucket it can form has been built, so
     the run rebuilds nothing; each lane within 1e-4 of 15.1's B = 1 fit;
     then one NaN-poisoned epoch in a group of 8 is quarantined alone,
@@ -6637,6 +7186,45 @@ def phase19_main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def phase20_main():
+    """``python3 chip_smoke.py --phase20``: phase 20 alone, on phase 3's
+    dynspec, phase 4's fitted façade and phase 6's survey spectra made as
+    those phases make them; prints ``{"formulations": ...}`` and the
+    device line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    from scintools_tpu_torch import BasicDyn, Dynspec, _build
+    from scintools_tpu_torch import workloads as W
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
+    print(f"[1] device {card}; nvidia-smi: {smi()}", flush=True)
+    _build.build()
+    lap("1 device and build")
+    nf = nt = 4096
+    prob = W.make_north_star_problem(nf, nt, n_variants=2)
+    eta_true = prob["eta_true"]
+    ds = Dynspec(dyn=BasicDyn(prob["dyns"][1], name="north_star",
+                              freqs=prob["f0"] + prob["df"] * np.arange(nf),
+                              times=prob["dt"] * np.arange(nt)),
+                 process=False, verbose=False)
+    ds.calc_sspec()
+    ds.prep_thetatheta(cwf=512, cwt=512, npad=1, eta_min=0.5 * eta_true,
+                       eta_max=2 * eta_true, neta=N_ETA, nedge=256,
+                       edges_lim=prob["th_lim"])
+    ds.fit_thetatheta()
+    lap("4 facade")
+    form = formulation_phase(dev, prob, ds)
+    lap("20 formulation registry and plan")
+    print(json.dumps({"formulations": form, "phase_s": PHASE_S},
+                     default=str), flush=True)
+    print(smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
     if "--phase18-rank" in sys.argv[1:]:
         phase18_rank(json.loads(sys.argv[sys.argv.index("--phase18-rank")
@@ -6645,6 +7233,8 @@ if __name__ == "__main__":
         phase15_main()
     elif "--phase19" in sys.argv[1:]:
         phase19_main()
+    elif "--phase20" in sys.argv[1:]:
+        phase20_main()
     elif "--phase17" in sys.argv[1:] or "--phase18" in sys.argv[1:]:
         phase17_main(ranks="--phase18" in sys.argv[1:])
     else:

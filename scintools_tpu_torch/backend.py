@@ -1,4 +1,5 @@
-"""Device and precision policy of the PyTorch/CUDA port.
+"""Device and precision policy of the PyTorch/CUDA port, and its
+formulation registry.
 
 Counterpart of the device/precision parts of
 ``scintools_tpu/backend.py:1-60`` (the JAX package picks a backend
@@ -6,6 +7,12 @@ name; here every public entry point takes ``device=``). ``None``
 means the CUDA card: on a host without one that is an error, never a
 silent fall-back to the CPU. The CPU is used only when a caller asks
 for it (``device="cpu"``), as the tests do.
+
+The formulation registry (``scintools_tpu/backend.py:225-520``) is at
+the end of this module: ``register_formulation``, ``formulation``,
+``set_formulation``, ``measure_formulation`` and the per-platform
+tables, keyed by the torch device type of the tensors a site computes
+on.
 
 Precision: the hot path works in float32 / complex64 like the JAX
 production path on its accelerator, so TF32 is switched off here for
@@ -15,7 +22,10 @@ would silently loosen every parity tolerance).
 
 from __future__ import annotations
 
+import json
+import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -133,3 +143,254 @@ def as_tensor(x, device, dtype=REAL):
     if isinstance(x, np.ndarray):
         x = np.ascontiguousarray(x)
     return torch.as_tensor(x, dtype=dtype, device=device).contiguous()
+
+
+# ---------------------------------------------------------------------
+# the formulation registry
+# ---------------------------------------------------------------------
+# Counterpart of ``scintools_tpu/backend.py:225-520``. An op with more
+# than one exact formulation (a structured transform against its dense
+# oracle, a gather against a matmul, an eigensolver) registers its
+# choices and per-platform entries at import; every call site resolves
+# the active choice with :func:`formulation`, passing the torch device
+# type of the tensors it computes on ("cuda" or "cpu"). Resolution
+# order, as in the JAX package: override (:func:`set_formulation`,
+# :func:`measure_formulation`) > ``SCINTOOLS_FORMULATION_<OP>`` (the
+# op with "." → "_", upper case) > the measured per-platform table >
+# the registered per-platform entry > the registered default.
+#
+# The measured tables are the port's own:
+# ``scintools_tpu_torch/formulation_tables/<platform>.json``, moved by
+# ``SCINTOOLS_TORCH_FORMULATION_TABLES``. The JAX package's tables
+# (timed on JAX, not on this code) are never read.
+
+_FORMULATIONS = {}            # op -> {default, choices, platforms, doc}
+_FORMULATION_OVERRIDES = {}   # op -> choice (set_formulation/measured)
+_MEASURED_TABLES = {}         # platform -> op -> {choice, seconds}
+_MEASURED_LOADED = set()      # platforms whose table file was read
+
+
+def register_formulation(op, default, choices, platforms=None, doc=""):
+    """Register (idempotently) the formulations of ``op``: ``choices``
+    the valid names, ``default`` the platform-independent fallback,
+    ``platforms`` an optional ``{device type: choice}`` map."""
+    choices = tuple(choices)
+    platforms = dict(platforms or {})
+    if default not in choices:
+        raise ValueError(f"{op}: default {default!r} not in {choices}")
+    for plat, choice in platforms.items():
+        if choice not in choices:
+            raise ValueError(f"{op}: platform {plat!r} choice {choice!r} "
+                             f"not in {choices}")
+    _FORMULATIONS[op] = {"default": default, "choices": choices,
+                         "platforms": platforms, "doc": doc}
+
+
+def formulation_platform():
+    """The platform of a bare query (no ``platform`` given): "cuda"
+    where a card is there, else "cpu". It never decides where work
+    runs: call sites pass their tensors' device type."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def _platform_key(platform):
+    if platform is None:
+        return formulation_platform()
+    if isinstance(platform, torch.device):
+        return platform.type
+    return str(platform).split(":")[0]       # "cuda:1" → "cuda"
+
+
+def _env_formulation(op):
+    return os.environ.get(
+        "SCINTOOLS_FORMULATION_" + op.replace(".", "_").upper())
+
+
+def formulation_table_dir():
+    """Directory of the port's measured formulation tables:
+    ``SCINTOOLS_TORCH_FORMULATION_TABLES`` when set, else
+    ``formulation_tables/`` inside the package."""
+    env = os.environ.get("SCINTOOLS_TORCH_FORMULATION_TABLES")
+    if env:
+        return env
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "formulation_tables")
+
+
+def formulation_table_path(platform):
+    """``<table_dir>/<platform>.json`` for a device type."""
+    return os.path.join(formulation_table_dir(), f"{platform}.json")
+
+
+def _measured_table(platform):
+    """The measured table of ``platform``, its file read once per
+    process on first use; in-process measurements shadow the file's
+    entries. A missing or unreadable file is an empty table."""
+    if platform not in _MEASURED_LOADED:
+        _MEASURED_LOADED.add(platform)
+        try:
+            with open(formulation_table_path(platform)) as fh:
+                ops = json.load(fh).get("ops") or {}
+        except (OSError, ValueError, AttributeError):
+            ops = {}
+        tbl = _MEASURED_TABLES.setdefault(platform, {})
+        for op, entry in ops.items():
+            if not isinstance(entry, dict):
+                entry = {"choice": entry}
+            choice = entry.get("choice")
+            if choice is not None:
+                tbl.setdefault(str(op), {"choice": str(choice),
+                                         "seconds": entry.get("seconds")})
+    return _MEASURED_TABLES.get(platform, {})
+
+
+def _record(op):
+    rec = _FORMULATIONS.get(op)
+    if rec is None:
+        raise KeyError(f"unregistered formulation op {op!r} "
+                       f"(known: {sorted(_FORMULATIONS)})")
+    return rec
+
+
+def formulation(op, platform=None):
+    """The active formulation of the registered ``op`` on ``platform``
+    (a device type or ``torch.device``; ``None``:
+    :func:`formulation_platform`). An unknown op raises ``KeyError``,
+    an override or environment value that is not a choice
+    ``ValueError``; a table entry naming an unregistered choice is
+    skipped."""
+    rec = _record(op)
+    for source, choice in (("override", _FORMULATION_OVERRIDES.get(op)),
+                           ("env", _env_formulation(op))):
+        if choice is not None:
+            if choice not in rec["choices"]:
+                raise ValueError(f"{op}: {source} formulation {choice!r} "
+                                 f"not one of {rec['choices']}")
+            return choice
+    platform = _platform_key(platform)
+    measured = _measured_table(platform).get(op)
+    if measured and measured.get("choice") in rec["choices"]:
+        return measured["choice"]
+    return rec["platforms"].get(platform, rec["default"])
+
+
+def set_formulation(op, choice=None):
+    """Pin (``choice=None``: clear) a process-wide override of ``op``."""
+    rec = _record(op)
+    if choice is None:
+        _FORMULATION_OVERRIDES.pop(op, None)
+        return
+    if choice not in rec["choices"]:
+        raise ValueError(f"{op}: {choice!r} not one of {rec['choices']}")
+    _FORMULATION_OVERRIDES[op] = choice
+
+
+def record_measured_formulation(op, choice, seconds=None, platform=None,
+                                persist=False):
+    """Install ``choice`` as the measured winner of ``op`` on
+    ``platform``, with the per-choice ``seconds``; ``persist=True``
+    also merges it into the platform's table file."""
+    rec = _record(op)
+    if choice not in rec["choices"]:
+        raise ValueError(f"{op}: {choice!r} not one of {rec['choices']}")
+    platform = _platform_key(platform)
+    _measured_table(platform)      # read the file before shadowing it
+    _MEASURED_TABLES.setdefault(platform, {})[op] = {
+        "choice": choice,
+        "seconds": {k: round(float(v), 6)
+                    for k, v in (seconds or {}).items()} or None}
+    if persist:
+        save_formulation_table(platform)
+
+
+def save_formulation_table(platform=None, path=None):
+    """Atomically write ``platform``'s measured table (file entries
+    merged with this process's measurements, which win) as JSON
+    ``{"platform", "ops": {op: {"choice", "seconds"}}}``. Returns the
+    path written."""
+    from .parallel.checkpoint import atomic_write_bytes
+
+    platform = _platform_key(platform)
+    table = _measured_table(platform)
+    if path is None:
+        path = formulation_table_path(platform)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    doc = {"platform": platform,
+           "ops": {op: dict(entry) for op, entry in sorted(table.items())}}
+    atomic_write_bytes(path, (json.dumps(doc, indent=1, sort_keys=True)
+                              + "\n").encode())
+    return path
+
+
+def reset_measured_formulations():
+    """Drop every measured table and the read-file memo (the next
+    resolution reads the table files again)."""
+    _MEASURED_TABLES.clear()
+    _MEASURED_LOADED.clear()
+
+
+def measure_formulation(op, candidates, repeats=2, persist=False,
+                        platform=None):
+    """Time each candidate and pin the fastest.
+
+    ``candidates`` is ``{choice: thunk}``; each thunk runs one
+    representative workload of its choice and must end in its own fence
+    (``torch.cuda.synchronize()`` on the card), or the time is that of
+    the launches alone. Each thunk runs once to warm up (builds, plans,
+    allocations) and then ``repeats`` times; a choice's time is its best
+    run. Returns ``(winner, {choice: seconds})`` and leaves the winner
+    pinned (:func:`set_formulation`; clear with ``set_formulation(op,
+    None)``). ``persist=True`` also records it in ``platform``'s table
+    (``None``: :func:`formulation_platform`) and writes the table file,
+    which later processes resolve with no pin. Every timing goes to the
+    program ledger under site ``formulation.<op>``, and the event
+    ``backend.formulation_measured`` to the structured log."""
+    rec = _record(op)
+    unknown = set(candidates) - set(rec["choices"])
+    if unknown:
+        raise ValueError(f"{op}: unknown candidate(s) {sorted(unknown)}")
+    timings = {}
+    for choice, thunk in candidates.items():
+        thunk()                              # warm-up: builds, plans
+        best = float("inf")
+        for _ in range(max(1, int(repeats))):
+            t0 = time.perf_counter()
+            thunk()
+            best = min(best, time.perf_counter() - t0)
+        timings[choice] = best
+    winner = min(timings, key=timings.get)
+    set_formulation(op, winner)
+    if persist:
+        record_measured_formulation(op, winner, seconds=timings,
+                                    platform=platform, persist=True)
+    from .obs import ledger
+    from .utils import slog
+
+    for choice, best in timings.items():
+        ledger.record(f"formulation.{op}", best, "steady",
+                      formulation=choice)
+    slog.log_event("backend.formulation_measured", op=op, winner=winner,
+                   persist=bool(persist),
+                   timings={k: round(v, 6) for k, v in timings.items()})
+    return winner, timings
+
+
+def formulation_snapshot(platform=None):
+    """JSON-able view of every registered op on ``platform`` (``None``:
+    :func:`formulation_platform`): its choices, default, per-platform
+    entries, override, measured choice and the choice that resolves now
+    (for run reports)."""
+    platform = _platform_key(platform)
+    measured = _measured_table(platform)
+    out = {}
+    for op, rec in sorted(_FORMULATIONS.items()):
+        out[op] = {
+            "choices": list(rec["choices"]),
+            "default": rec["default"],
+            "platforms": dict(rec["platforms"]),
+            "override": _FORMULATION_OVERRIDES.get(op)
+            or _env_formulation(op),
+            "measured": (measured.get(op) or {}).get("choice"),
+            "active": formulation(op, platform),
+        }
+    return out

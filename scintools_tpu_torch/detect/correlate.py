@@ -12,7 +12,8 @@ once and matched against the whole bank in one batched call:
 2. the halved secondary-spectrum power per lane (cuFFT through
    ``ops.sspec.secondary_spectrum_power``: ``variant="half"``, the
    real-input transform with the row crop folded, or ``"dense"``, the
-   complex fft2 oracle);
+   complex fft2 oracle; ``None`` resolves the ``detect.correlate``
+   formulation, registered here as in the JAX package's :55);
 3. dB relative to the lane's peak and a robust standardisation over the
    bank's valid region: the median and the MAD as
    ``torch.nanquantile(·, 0.5)``, which averages the two middle values
@@ -33,10 +34,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import cuda_graphed, fifo_cached, resolve_device
+from ..backend import (cuda_graphed, fifo_cached, formulation,
+                       register_formulation, resolve_device)
 from ..obs import retrace as _retrace
 
 VARIANTS = ("half", "dense")
+
+register_formulation(
+    "detect.correlate", default="half", choices=VARIANTS,
+    platforms={"cpu": "half", "cuda": "half"},
+    doc="template-bank correlation front transform: the halved-spectrum "
+        "real-input lowering vs the full complex-fft2 oracle")
 
 
 def time_blocks(nt_epoch, nt_block, hop=None):
@@ -72,12 +80,14 @@ def correlate_program(nf, nt, n_batch, n_templates, *, variant=None,
     """The cached whole-bank correlation ``fn(dyns[B, nf, nt], T[K, P],
     valid[P]) → (scores[B, K], ok[B] int32)`` on ``device`` (``None``:
     the card), one build per (geometry, batch, K, variant, window),
-    site ``detect.correlate``."""
-    variant = "half" if variant is None else variant
+    site ``detect.correlate``; ``variant=None`` resolves the
+    ``detect.correlate`` formulation on ``device``."""
+    dev = resolve_device(device)
+    if variant is None:
+        variant = formulation("detect.correlate", dev.type)
     if variant not in VARIANTS:
         raise ValueError(f"unknown detect.correlate variant {variant!r} "
                          "(want 'half' or 'dense')")
-    dev = resolve_device(device)
     key = (int(nf), int(nt), int(n_batch), int(n_templates), variant,
            window, float(window_frac), str(dev))
 

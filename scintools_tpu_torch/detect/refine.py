@@ -48,13 +48,14 @@ def refine_program(nf, nt, dt, df, *, n_eta=DEFAULT_N_ETA, n_r=None,
     signed) bin units of the padded frame (``ops.sspec.zoom_band``
     converts µs/mHz), tensors like the η grid. Inside: the band-limited
     spectrum power on the ``n_r × n_c`` zoom frame (``variant`` ``"czt"``
-    or ``"dense"``), the correlator's standardisation, and the bank's
+    or ``"dense"``; ``None``: the ``xfft.zoom`` formulation), the correlator's standardisation, and the bank's
     parabola templates on the zoomed (τ, f_D) axes with the native width
     law ``sigma0·Δτ + rel_width·arc``."""
-    from ..backend import resolve_device
+    from ..backend import formulation, resolve_device
 
-    variant = "czt" if variant is None else variant
     dev = resolve_device(device)
+    if variant is None:
+        variant = formulation("xfft.zoom", dev.type)
     nrfft, ncfft = fft_shapes(nf, nt)
     fdop, tdel, _ = sspec_axes(nf, nt, dt, df, halve=True)
     n_r = nrfft // 4 if n_r is None else n_r

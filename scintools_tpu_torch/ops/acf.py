@@ -3,9 +3,10 @@
 Counterpart of ``scintools_tpu/ops/acf.py``: ``autocovariance`` (:25)
 and ``acf_from_sspec`` (:56). The mean over the finite pixels is taken
 in float64 and the invalid pixels then contribute zero; the transforms
-run in float32 / complex64. ``variant="real"`` is the real-input
-Wiener–Khinchin round trip (``xfft.wiener_khinchin``), ``"dense"`` the
-complex oracle.
+run in float32 / complex64. Both go through a declared ``xfft.plan``
+as the JAX functions do; ``variant=None`` resolves the registry op
+(``xfft.acf``, ``xfft.acf_sspec``) on the device: ``"real"`` is the
+real-input transform, ``"dense"`` the complex oracle.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import REAL, resolve_device
+from ..backend import REAL, formulation, resolve_device
 from . import xfft
 
 
@@ -23,7 +24,7 @@ def _on(x, dev):
     return torch.as_tensor(x, device=dev)
 
 
-def autocovariance(dyn, normalise=True, mean_sub=True, variant="real",
+def autocovariance(dyn, normalise=True, mean_sub=True, variant=None,
                    device=None):
     """ACF of ``dyn[..., nf, nt]`` (numpy or tensor) → a float32 tensor
     ``(..., 2nf, 2nt)`` on ``device`` (``None``: the CUDA card), zero
@@ -38,28 +39,32 @@ def autocovariance(dyn, normalise=True, mean_sub=True, variant="real",
         nvalid = finite.sum(dim=(-2, -1), keepdim=True)
         mean = x0.sum(dim=(-2, -1), keepdim=True) / nvalid
         x = torch.where(finite, x - mean, 0.0)
-    arr = xfft.wiener_khinchin(x.to(REAL), (2 * nf, 2 * nt),
-                               variant=variant)
-    arr = torch.fft.fftshift(arr, dim=(-2, -1))
+    p = xfft.plan((nf, nt), (2 * nf, 2 * nt), real_input=True,
+                  layout="shifted", op="xfft.acf")
+    arr = p.acf(x.to(REAL), variant=variant)
     if normalise:
         arr = arr / arr.amax(dim=(-2, -1), keepdim=True)
     return arr
 
 
-def acf_from_sspec(sspec_db, normalise=True, variant="real", device=None):
+def acf_from_sspec(sspec_db, normalise=True, variant=None, device=None):
     """ACF from the full-frame (not halved) secondary spectrum in dB:
     the forward transform of its linear power (``'real'``: the
     half-spectrum ``rfft2`` plus the Hermitian completion; ``'dense'``:
-    the complex ``fft2``), shifted, real part. A float32 tensor on
-    ``device`` (``None``: the CUDA card)."""
+    the complex ``fft2``; ``None``: the ``xfft.acf_sspec`` formulation),
+    shifted, real part. A float32 tensor on ``device`` (``None``: the
+    CUDA card)."""
+    dev = resolve_device(device)
+    if variant is None:
+        variant = formulation("xfft.acf_sspec", dev.type)
     if variant not in ("real", "dense"):
         raise ValueError(f"unknown variant {variant!r} "
                          "(want 'real' or 'dense')")
-    dev = resolve_device(device)
     s = torch.fft.fftshift(_on(sspec_db, dev).to(REAL), dim=(-2, -1))
     lin = 10 ** (s / 10)
-    F = xfft.fft2_full(lin, variant="rfft" if variant == "real" else "fft2")
-    arr = torch.fft.fftshift(F, dim=(-2, -1)).real
+    p = xfft.plan(lin.shape[-2:], real_input=True, layout="shifted")
+    arr = p.forward(lin, variant="rfft" if variant == "real"
+                    else "fft2").real
     if normalise:
         arr = arr / arr.max()
     return arr

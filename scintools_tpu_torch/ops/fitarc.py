@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from scipy.signal import savgol_filter
 
-from ..backend import as_tensor, fifo_cached, resolve_device
+from ..backend import as_tensor, fifo_cached, formulation, resolve_device
 from ..obs import retrace as _retrace
 from ..fit.models import fit_log_parabola, fit_parabola
 from .normsspec import make_arc_profile_batch_fn, normalise_sspec
@@ -259,7 +259,7 @@ def fit_arc(sspec, yaxis, fdop, asymm=False, delmax=None, numsteps=1e4,
 
 def _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps, nsmooth,
                 low_power_diff, high_power_diff, constraint, noise_error,
-                on_device, dev, mesh=None):
+                on_device, dev, mesh=None, pallas=None):
     """The built function of :func:`fit_arc_batch` for one geometry and
     set of fit parameters on ``dev``: the whole device fit
     (``on_device``) or the folded profiles for the host tail; with
@@ -272,7 +272,8 @@ def _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps, nsmooth,
                if on_device else None)
     key = (yaxis.tobytes(), fdop.tobytes(), float(delmax), int(startbin),
            int(cutmid), int(numsteps), fit_key, bool(on_device), str(dev),
-           None if mesh is None else mesh.key)
+           None if mesh is None else mesh.key, pallas,
+           formulation("ops.arc_profile_interp", dev.type))
 
     def build():
         ARC_FIT_CACHE_STATS["builds"] += 1
@@ -283,24 +284,27 @@ def _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps, nsmooth,
             if not on_device:
                 return par_survey.make_arc_profile_sharded(
                     mesh, yaxis, fdop, delmax=delmax, startbin=startbin,
-                    cutmid=cutmid, numsteps=numsteps, fold=True)[0]
+                    cutmid=cutmid, numsteps=numsteps, fold=True,
+                    pallas=pallas)[0]
             return par_survey.make_arc_fit_sharded(
                 mesh, yaxis, fdop, delmax=delmax, startbin=startbin,
                 cutmid=cutmid, numsteps=numsteps, nsmooth=nsmooth,
                 low_power_diff=low_power_diff,
                 high_power_diff=high_power_diff, constraint=constraint,
-                noise_error=noise_error)[0]
+                noise_error=noise_error, pallas=pallas)[0]
         if not on_device:
             return make_arc_profile_batch_fn(
                 yaxis, fdop, delmax=delmax, startbin=startbin,
-                cutmid=cutmid, numsteps=numsteps, fold=True, device=dev)
+                cutmid=cutmid, numsteps=numsteps, fold=True, pallas=pallas,
+                device=dev)
         from .fitarc_device import make_arc_fit_batch_fn
 
         return make_arc_fit_batch_fn(
             yaxis, fdop, delmax=delmax, startbin=startbin, cutmid=cutmid,
             numsteps=numsteps, nsmooth=nsmooth,
             low_power_diff=low_power_diff, high_power_diff=high_power_diff,
-            constraint=constraint, noise_error=noise_error, device=dev)
+            constraint=constraint, noise_error=noise_error, pallas=pallas,
+            device=dev)
 
     return fifo_cached(_ARC_FIT_CACHE, key, build, _ARC_FIT_CACHE_SIZE)
 
@@ -311,7 +315,7 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
                   constraint=(0, np.inf), nsmooth=5, efac=1,
                   noise_error=True, log_parabola=False, mesh=None,
                   sspecs_device=None, on_device=None, full_output=True,
-                  device=None):
+                  pallas=None, device=None):
     """Arc-curvature fit over a batch of same-geometry epochs.
 
     ``sspecs[B, ntdel, nfdop]`` in dB, a numpy array or a tensor on any
@@ -336,7 +340,10 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
     None. ``mesh`` (:func:`~..parallel.mesh.make_mesh`) splits the
     epochs over its devices, one kernel launch per shard, and gathers on
     its first device (``device`` is then the mesh's); every epoch's fit
-    is what it is without the mesh."""
+    is what it is without the mesh. ``pallas`` picks the profile's route
+    (:func:`~.normsspec.make_arc_profile_batch_fn`: ``None`` the kernel,
+    ``False`` the ``ops.arc_profile_interp`` formulation without it; the
+    JAX package reads it from ``SCINTOOLS_ARC_PALLAS``)."""
     if mesh is not None:
         device = mesh.first
     dev = resolve_device(device)
@@ -376,7 +383,7 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
     e_dev = as_tensor(etamin_b, dev, torch.float64)
     fn = _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps,
                      nsmooth, low_power_diff, high_power_diff, constraint,
-                     noise_error, on_device, dev, mesh=mesh)
+                     noise_error, on_device, dev, mesh=mesh, pallas=pallas)
 
     if on_device:
         from .fitarc_device import eta_crop_lengths, eta_grid

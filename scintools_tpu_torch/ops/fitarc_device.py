@@ -93,13 +93,15 @@ def make_savgol_interp(nsmooth, H):
 def make_arc_fit_batch_fn(tdel, fdop, delmax=None, startbin=3, cutmid=3,
                           numsteps=10000, nsmooth=5, low_power_diff=-1.0,
                           high_power_diff=-0.5, constraint=(0.0, np.inf),
-                          noise_error=True, device=None):
+                          noise_error=True, pallas=None, device=None):
     """The whole fit on ``device``: ``fn(sspecs[B, ntdel, nfdop] float32,
     etamins[B] float64, Ls[B] int) → (out[B, 10], folded[B,
     numsteps//2])``, both float32, with the packed columns ``(eta,
     etaerr, etaerr2, noise, lo, n, a2, a1, a0, scale)``: the last six
     rebuild the ``fit_parabola`` diagnostics on the host. NaN η marks
-    an epoch the host path would quarantine."""
+    an epoch the host path would quarantine. ``pallas`` picks the
+    profile's route as :func:`~.normsspec.make_arc_profile_batch_fn`
+    does."""
     if nsmooth % 2 != 1 or nsmooth < 3:
         raise ValueError("nsmooth must be an odd window >= 3 "
                          "(scipy savgol_filter requirement)")
@@ -113,7 +115,7 @@ def make_arc_fit_batch_fn(tdel, fdop, delmax=None, startbin=3, cutmid=3,
 
     profile_fn = make_arc_profile_batch_fn(
         tdel, fdop, delmax=delmax, startbin=startbin, cutmid=cutmid,
-        numsteps=numsteps, fold=True, device=dev)
+        numsteps=numsteps, fold=True, pallas=pallas, device=dev)
     ef2 = as_tensor(eta_grid(numsteps)[0].copy(), dev, torch.float64)
     c0, c1 = float(constraint[0]), float(constraint[1])
     w = int(nsmooth)

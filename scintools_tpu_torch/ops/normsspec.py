@@ -18,8 +18,10 @@ in two places (both pinned in ``tests/test_torch_arc.py``):
   ``fit_arc_batch``) follows the tent of the TPU kernel: only bins of
   positive weight count, and the right edge is tap ``nc − 1`` alone.
   A CUDA tensor runs the hand-written kernel ``ops/arc_profile.py``;
-  a CPU tensor its plain version. There is no switch: the device
-  decides.
+  a CPU tensor its plain version. ``pallas=False`` (the JAX package's
+  XLA route) runs no kernel and takes the ``ops.arc_profile_interp``
+  formulation (the JAX package's :24, registered here): ``"tent"`` the
+  kernel's plain version, ``"gather"`` the serial path's index gather.
 
 The serial path interpolates in float64 (its host tail is float64
 numpy, as in the JAX package); the batch path in float32.
@@ -32,12 +34,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..backend import REAL, as_tensor, resolve_device
+from ..backend import (REAL, as_tensor, formulation, register_formulation,
+                       resolve_device)
 from ..fit.fitter import fitter
 from ..fit.models import powerspectrum_model
 from ..fit.parameters import Parameters
-from .arc_profile import arc_profile
+from .arc_profile import arc_profile, arc_profile_rows_plain
 from .interp import interp_nan_2d
+
+
+register_formulation(
+    "ops.arc_profile_interp", default="tent", choices=("tent", "gather"),
+    platforms={"cpu": "tent", "cuda": "tent"},
+    doc="arc-normalised profile interpolation without the kernel: the "
+        "kernel's tent arithmetic vs the serial path's index gather")
 
 
 @dataclass
@@ -80,6 +90,22 @@ def _interp_any_grid(xq, xp, fp):
     return torch.where(xq > xp[-1], fp[:, -1:], f)
 
 
+def _uniform_interp(xq, fdop, s):
+    """``np.interp`` of the rows ``s[M, n]`` over the uniform ascending
+    axis ``fdop`` at ``xq[M, Q]`` as index arithmetic and two gathers:
+    w = 0/1 at the ends selects y[0]/y[-1], and a NaN neighbour poisons
+    the query even at zero weight (NaN·0), as np.interp's spans and the
+    JAX gather formulation do. Float64 tensors on one device."""
+    # (a tensor divisor: a division by a Python scalar may multiply by
+    # its reciprocal, which moves floor(pos) at integers)
+    step = torch.full((), fdop[1] - fdop[0], dtype=torch.float64,
+                      device=xq.device)
+    pos = (xq - fdop[0]) / step
+    i0 = pos.floor().long().clamp(0, len(fdop) - 2)
+    w = (pos - i0).clamp(0.0, 1.0)
+    return torch.gather(s, 1, i0) * (1 - w) + torch.gather(s, 1, i0 + 1) * w
+
+
 def scaled_row_interp(sspec, fdop, tdel, eta, fdopnew, device=None):
     """Sample each delay row of ``sspec[ntdel, nfdop]`` at the original
     Doppler ``fdopnew·√(tdel_i/η)``, in float64 on ``device``.
@@ -94,19 +120,7 @@ def scaled_row_interp(sspec, fdop, tdel, eta, fdopnew, device=None):
     fq = as_tensor(fdopnew, dev, dtype=torch.float64)
     xq = fq[None, :] * scale[:, None]
     if _is_uniform(fdop):
-        # np.interp on a uniform grid as index arithmetic and two gathers:
-        # w = 0/1 at the ends selects y[0]/y[-1], and a NaN neighbour
-        # poisons the query even at zero weight (NaN·0), as np.interp's
-        # spans and the JAX gather formulation do
-        # (a tensor divisor: a division by a Python scalar may multiply
-        # by its reciprocal, which moves floor(pos) at integers)
-        step = torch.full((), fdop[1] - fdop[0], dtype=torch.float64,
-                          device=dev)
-        pos = (xq - fdop[0]) / step
-        i0 = pos.floor().long().clamp(0, len(fdop) - 2)
-        w = (pos - i0).clamp(0.0, 1.0)
-        norm = (torch.gather(s, 1, i0) * (1 - w)
-                + torch.gather(s, 1, i0 + 1) * w)
+        norm = _uniform_interp(xq, fdop, s)
     else:
         norm = _interp_any_grid(xq, as_tensor(fdop, dev, torch.float64), s)
     sup = xq.abs() > float(np.max(np.abs(fdop)))
@@ -115,7 +129,7 @@ def scaled_row_interp(sspec, fdop, tdel, eta, fdopnew, device=None):
 
 def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
                               numsteps=10000, maxnormfac=1, fold=False,
-                              device=None):
+                              pallas=None, device=None):
     """Batched arc-normalised Doppler profile on ``device``:
     ``fn(sspecs[B, ntdel, nfdop], etas[B]) → profiles[B, numsteps]``
     float32, the delay-scrunched profile of ``normalise_sspec(...,
@@ -125,10 +139,15 @@ def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
     zero and the output is ``[B, numsteps//2]`` over the fdopnew ≥ 0
     bins.
 
-    A uniform Doppler grid goes through one call of
-    :func:`~.arc_profile.arc_profile` (the kernel on a CUDA device, which
-    reads the rows, the NaN mask and the cut in place; its plain version
-    on the CPU); any other grid through the ``jnp.interp``-semantics row
+    ``pallas`` (``None``: on where the grid allows it): a uniform Doppler
+    grid goes through one call of :func:`~.arc_profile.arc_profile` (the
+    kernel on a CUDA device, which reads the rows, the NaN mask and the
+    cut in place; its plain version on the CPU); ``pallas=True`` on any
+    other grid raises ``ValueError``. Otherwise the
+    ``ops.arc_profile_interp`` formulation on ``device`` decides, as on
+    the JAX package's XLA route: ``"tent"`` takes the kernel's plain
+    version on a uniform grid, ``"gather"`` the serial path's index
+    gather; any other grid takes the ``jnp.interp``-semantics row
     interpolation. ``fn.kernel_args(sspecs, etas)`` gives the kernel's
     arguments."""
     dev = resolve_device(device)
@@ -146,6 +165,13 @@ def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
     numsteps = int(numsteps) + int(numsteps) % 2
     fdopnew = np.linspace(-maxnormfac, maxnormfac, numsteps)
     uniform = _is_uniform(fdop)
+    if pallas and not uniform:
+        raise ValueError("pallas=True needs a uniform Doppler grid (the "
+                         "tent kernel assumes index arithmetic); this axis "
+                         "is non-uniform")
+    route = "kernel" if uniform and pallas in (None, True) else (
+        formulation("ops.arc_profile_interp", dev.type) if uniform
+        else "any")
     f0 = float(fdop[0])
     dfd = float(np.mean(np.diff(fdop))) if nc > 1 else 1.0
     fmax = float(np.max(np.abs(fdop)))
@@ -169,8 +195,10 @@ def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
                 startbin, cut, f0, dfd, fmax)
 
     def base(sspecs, etas):
-        if uniform:
+        if route == "kernel":
             return arc_profile(*kernel_args(sspecs, etas))
+        if route == "tent":
+            return arc_profile_rows_plain(*kernel_args(sspecs, etas))
         s = as_tensor(sspecs, dev)[:, startbin:ind, :]
         if cut[1] > cut[0]:
             s = s.clone()
@@ -178,7 +206,9 @@ def make_arc_profile_batch_fn(tdel, fdop, delmax=None, startbin=1, cutmid=0,
         scales = scales_of(etas)
         B, R, _ = s.shape
         xq = (scales[:, :, None] * fq64).reshape(B * R, -1)
-        norm = _interp_any_grid(xq, fdop64, s.reshape(B * R, nc).double())
+        rows = s.reshape(B * R, nc).double()
+        norm = (_uniform_interp(xq, fdop, rows) if route == "gather"
+                else _interp_any_grid(xq, fdop64, rows))
         ok = ~((xq.abs() > fmax) | torch.isnan(norm))
         num = torch.where(ok, norm, 0.0).reshape(B, R, -1).sum(dim=1)
         den = ok.reshape(B, R, -1).sum(dim=1)

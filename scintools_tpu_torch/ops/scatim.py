@@ -13,10 +13,12 @@ in index coordinates, clamped to the grid:
 - ``"matmul"``: per image row, dense Keys weight matrices over each
   axis, ``Σ_r Wt[q, r]·(Wf @ linᵀ)[q, r]``, O(nr·nc) work per query.
 
-The JAX package picks ``"matmul"`` on the TPU and ``"gather"`` on the
-CPU. On the H100 the default is ``"gather"``: ``chip_smoke.py`` phase
-11.2 times both (PERF.md §6). Everything runs in the dtype of ``lin``
-(float64 for numpy input) on ``device``.
+The choice is the ``ops.scatim_interp`` formulation (the JAX package's
+:41, registered here). The JAX package picks ``"matmul"`` on the TPU and
+``"gather"`` on the CPU; the port's entry is ``"gather"`` on both
+devices: ``chip_smoke.py`` phase 11.2 times both (PERF.md §6).
+Everything runs in the dtype of ``lin`` (float64 for numpy input) on
+``device``.
 """
 
 from __future__ import annotations
@@ -24,9 +26,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import resolve_device
+from ..backend import formulation, register_formulation, resolve_device
 
-DEFAULT_METHOD = "gather"
+register_formulation(
+    "ops.scatim_interp", default="matmul", choices=("matmul", "gather"),
+    platforms={"cpu": "gather", "cuda": "gather"},
+    doc="scattered-image cubic interpolation: dense Keys-weight products "
+        "vs the 16-tap flat gather")
 
 #: elements of one (rows, nx, n_src) weight slab of the matmul form
 _SLAB_ELEMS = 1 << 25
@@ -70,14 +76,14 @@ def cubic_interp2d(lin, tpos, fpos, method=None, device=None):
     coordinates ``tpos``/``fpos`` (``[ny, nx]`` each, the delay and
     Doppler axes), clamped to the grid → ``[ny, nx]`` tensor on
     ``device`` (``None``: the CUDA card) in ``lin``'s dtype.
-    ``method``: ``"gather"`` or ``"matmul"`` (``None``/``"auto"``:
-    :data:`DEFAULT_METHOD`)."""
+    ``method``: ``"gather"`` or ``"matmul"`` (``None``/``"auto"``: the
+    ``ops.scatim_interp`` formulation on ``device``)."""
+    dev = resolve_device(device)
     if method in (None, "auto"):
-        method = DEFAULT_METHOD
+        method = formulation("ops.scatim_interp", dev.type)
     if method not in ("gather", "matmul"):
         raise ValueError(f"method must be 'auto', 'matmul' or 'gather', "
                          f"got {method!r}")
-    dev = resolve_device(device)
     lin = _as(lin, dev)
     tq = _as(tpos, dev, lin.dtype)
     fq = _as(fpos, dev, lin.dtype)

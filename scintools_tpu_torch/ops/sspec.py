@@ -8,7 +8,10 @@ included),
 and ``secondary_spectrum`` (:235). Mean-subtract → edge-taper window →
 zero-pad to next-pow2 ×2 → fft2 → power → fftshift → keep positive
 delays → optional prewhiten / post-darken → 10·log10. Works in
-float32 / complex64 on the caller's device.
+float32 / complex64 on the caller's device. The transforms go through a
+declared ``xfft.plan`` as the JAX functions do, and ``ops.cs`` (:28, the
+chunk conjugate spectrum's ``rfft`` against ``fft2``) is registered
+here.
 """
 
 from __future__ import annotations
@@ -16,9 +19,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import REAL, as_tensor, resolve_device
+from ..backend import REAL, as_tensor, formulation, register_formulation
+from ..backend import resolve_device
 from . import xfft
 from .windows import apply_window, get_window
+
+
+register_formulation(
+    "ops.cs", default="rfft", choices=("rfft", "fft2"),
+    platforms={"cpu": "rfft", "cuda": "rfft"},
+    doc="chunk conjugate spectrum: rfft2 + Hermitian completion vs the "
+        "complex fft2")
 
 
 def fft_shapes(nf, nt):
@@ -66,10 +77,10 @@ def secondary_spectrum_power(dyn, window_arrays=None, prewhite=False,
     """Linear-power secondary spectrum of the tensor ``dyn[..., nf, nt]``
     → ``(..., nrfft//2 if halve else nrfft, ncfft)``.
 
-    ``variant='half'`` (the default) folds the ``halve`` row crop into
-    the transform (:func:`xfft.halfrow_power`); ``'dense'`` is the full
-    complex-fft2 oracle. The full frame (``halve=False``) always takes
-    dense.
+    ``variant='half'`` folds the ``halve`` row crop into the transform
+    (:func:`xfft.halfrow_power`); ``'dense'`` is the full complex-fft2
+    oracle; ``None`` resolves ``xfft.sspec`` on ``dyn``'s device. The
+    full frame (``halve=False``) always takes dense.
 
     ``zoom``: a ``(band_rows, band_cols)`` pair of ``(f0, f1, n_out)``
     triples in (fractional, signed) bin units of the padded frame
@@ -77,15 +88,15 @@ def secondary_spectrum_power(dyn, window_arrays=None, prewhite=False,
     tensors). Only those band pixels are computed, at any density,
     through :func:`xfft.zoom_power_2d`; the result runs f0 → f1 on each
     axis (no fftshift; ``halve`` does not apply, ``prewhite`` is
-    refused), and ``variant`` is ``'czt'`` (the default) or
-    ``'dense'``."""
+    refused), and ``variant`` is ``'czt'`` or ``'dense'`` (``None``:
+    ``xfft.zoom``)."""
     if zoom is not None:
-        variant = "czt" if variant is None else variant
         if prewhite:
             raise RuntimeError("prewhite post-darkening is defined on the "
                                "native frame, not with zoom=")
     else:
-        variant = "half" if variant is None else variant
+        if variant is None:
+            variant = formulation("xfft.sspec", dyn.device.type)
         if variant not in ("half", "dense"):
             raise ValueError(f"unknown variant {variant!r} "
                              "(want 'half' or 'dense')")
@@ -98,18 +109,19 @@ def secondary_spectrum_power(dyn, window_arrays=None, prewhite=False,
     dyn = dyn - dyn.mean(dim=(-2, -1), keepdim=True)
 
     if zoom is not None:
-        return xfft.zoom_power_2d(dyn, (nrfft, ncfft), zoom[0], zoom[1],
-                                  variant=variant)
+        p = xfft.plan((nf, nt), (nrfft, ncfft), real_input=True, band=zoom,
+                      op="xfft.zoom")
+        return p.power(dyn, variant=variant)
 
     if prewhite:
         if not halve:
             raise RuntimeError("Cannot apply prewhite to full frame")
         dyn = _prewhite_diff(dyn)
 
-    if halve and variant == "half":
-        sec = xfft.halfrow_power(dyn, (nrfft, ncfft))
-    else:
-        sec = xfft.dense_power(dyn, (nrfft, ncfft), halve)
+    p = xfft.plan((nf, nt), (nrfft, ncfft), real_input=True,
+                  crop=(nrfft // 2, None) if halve else None,
+                  layout="shifted", op="xfft.sspec")
+    sec = p.power(dyn, variant=variant)
 
     if prewhite:  # post-darken
         fd = np.arange(-ncfft // 2, ncfft // 2)
@@ -134,13 +146,14 @@ def pad_chunk_batch(dspecs, npad):
 
 
 def chunk_conjugate_spectrum_batch(dspecs, npad=3, tau_keep=None,
-                                   method="rfft", shift=True):
+                                   method=None, shift=True):
     """Per-chunk mean pad → fft2 → fftshift of a same-geometry chunk
     stack: ``dspecs[B, nf, nt]`` real → ``CS[B, (1+npad)nf,
     (1+npad)nt]`` complex. ``tau_keep`` is an optional host bool mask
     over the (shifted) delay axis; rows outside it are zeroed.
     ``method='rfft'`` takes the half spectrum plus the Hermitian
-    completion, ``'fft2'`` the dense complex transform.
+    completion, ``'fft2'`` the dense complex transform; ``None``
+    resolves ``ops.cs`` on the stack's device.
     ``shift=False`` skips the final ``fftshift`` and returns the raw
     fft layout (a consumer that gathers folds the shift into its
     index map); ``tau_keep`` indexes the shifted axis and is refused
@@ -149,6 +162,11 @@ def chunk_conjugate_spectrum_batch(dspecs, npad=3, tau_keep=None,
         raise ValueError("tau_keep indexes the SHIFTED delay axis — "
                          "fold the mask into the consumer's gather "
                          "when shift=False")
+    if method is None:
+        method = formulation("ops.cs", dspecs.device.type)
+    if method not in ("rfft", "fft2"):
+        raise ValueError(f"unknown conjugate-spectrum method {method!r} "
+                         "(want 'rfft' or 'fft2')")
     padded = pad_chunk_batch(dspecs, npad)
     CS = xfft.fft2_full(padded, variant=method)
     if not shift:

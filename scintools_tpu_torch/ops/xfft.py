@@ -5,9 +5,17 @@ Counterpart of ``scintools_tpu/ops/xfft.py``: ``hermitian_full_from_half``
 and ``fft2`` variants), ``pruned_meanpad_half`` (:160),
 ``ifft2_cropped`` (:186, ``split`` and ``dense``), ``wiener_khinchin``
 (:236), ``halfrow_power`` (:262) and the dense branch of ``Plan.power``
-(:548-559). The JAX package routes these through a declarative plan and
-a formulation registry; the port has no registry, so the variant is an
-explicit argument.
+(:548-559).
+
+The structured-or-dense choice of each transform is a formulation of the
+registry (``backend.formulation``), registered here under the JAX
+package's names (:62-92): ``xfft.acf``, ``xfft.sspec``,
+``xfft.acf_sspec``, ``xfft.zoom``, ``xfft.offgrid`` and ``xfft.profile``.
+A ``variant=None`` resolves it on the input's device type at call time.
+The declarative front door :func:`plan` / :class:`Plan` (:458-640) and
+the cached batched programs ``acf_program``, ``sspec_power_program``,
+``zoom_power_program`` and ``offgrid_program`` (:645-760) lower to the
+functions here.
 
 The separable column projection of :211-233 (``column_phase``,
 ``separable_filter_column``, with its two halves ``column_projector`` and
@@ -31,6 +39,46 @@ import math
 
 import numpy as np
 import torch
+
+from ..backend import (fifo_cached, formulation, formulation_platform,
+                       register_formulation, resolve_device)
+
+register_formulation(
+    "xfft.acf", default="real", choices=("real", "dense"),
+    platforms={"cpu": "real", "cuda": "real"},
+    doc="autocovariance Wiener–Khinchin: real-input rfft → |·|² → "
+        "irfft2 vs the complex fft2/ifft2 oracle")
+register_formulation(
+    "xfft.sspec", default="half", choices=("half", "dense"),
+    platforms={"cpu": "half", "cuda": "half"},
+    doc="secondary-spectrum power: rfft over the halved delay axis, "
+        "crop folded before the second transform, vs the full fft2 "
+        "oracle")
+register_formulation(
+    "xfft.acf_sspec", default="real", choices=("real", "dense"),
+    platforms={"cpu": "real", "cuda": "real"},
+    doc="sspec→ACF forward transform: rfft2 + Hermitian completion vs "
+        "the complex fft2 oracle")
+register_formulation(
+    "xfft.zoom", default="czt", choices=("czt", "dense"),
+    platforms={"cpu": "czt", "cuda": "czt"},
+    doc="band-limited (zoom) DFT: Bluestein chirp-Z vs the dense "
+        "plane-wave DFT product")
+register_formulation(
+    "xfft.offgrid", default="taylor", choices=("taylor", "dense"),
+    platforms={"cpu": "taylor", "cuda": "taylor"},
+    doc="off-grid DFT: oversampled FFT + Taylor expansion vs the dense "
+        "point-DFT product")
+register_formulation(
+    "xfft.profile", default="real", choices=("real", "dense"),
+    platforms={"cpu": "real", "cuda": "real"},
+    doc="1-D profile spectrum real(fft(x))[:keep]: rfft half spectrum vs "
+        "the full complex fft")
+
+
+def _platform(x):
+    """The device type of ``x`` ("cpu" for a numpy array or a number)."""
+    return x.device.type if isinstance(x, torch.Tensor) else "cpu"
 
 
 def hermitian_full_from_half(H, n2):
@@ -110,13 +158,16 @@ def ifft2_cropped(X, crop, variant="split"):
     return torch.fft.ifft(Y, dim=-1)[..., :c]
 
 
-def wiener_khinchin(x, pad_to, variant="real"):
+def wiener_khinchin(x, pad_to, variant=None):
     """Circular autocovariance ``F⁻¹|F x|²`` of ``x`` over the trailing
     axes zero-padded to ``pad_to``, in raw layout. ``'real'`` (a real
     ``x``): the axis-1 rfft of the data rows, the axis-0 fft, |·|², then
     the real inverse ``irfft2``, so the discarded Hermitian half is
     never computed; ``'dense'`` is the complex ``fft2 → |·|² → ifft2``
-    oracle (complex inputs always take it)."""
+    oracle (complex inputs always take it). ``None``: the ``xfft.acf``
+    formulation on ``x``'s device."""
+    if variant is None:
+        variant = formulation("xfft.acf", _platform(x))
     if variant not in ("real", "dense"):
         raise ValueError(f"unknown variant {variant!r} "
                          "(want 'real' or 'dense')")
@@ -247,7 +298,7 @@ def czt_1d(u, a, phi0, L):
     return conv[..., M - 1:M - 1 + N] * wn
 
 
-def zoom_dft_1d(x, n_grid, f0, df, n_out, variant="czt", fft_len=None):
+def zoom_dft_1d(x, n_grid, f0, df, n_out, variant=None, fft_len=None):
     """Band-limited DFT over the last axis: ``X[j] = Σ_m x[..., m]·
     exp(−2πi·m·(f0 + j·df)/n_grid)`` for j = 0 … n_out − 1, with ``f0``
     and ``df`` in (fractional, signed) bin units of an ``n_grid``-point
@@ -255,7 +306,10 @@ def zoom_dft_1d(x, n_grid, f0, df, n_out, variant="czt", fft_len=None):
     n=n_grid)`` bins; ``df = 1/z`` samples the z×-padded grid without
     building it. ``"czt"`` folds the band start into a pre-phase and
     runs :func:`czt_1d`; ``"dense"`` is the plane-wave DFT product
-    (O(M·n_out))."""
+    (O(M·n_out)); ``None`` the ``xfft.zoom`` formulation on ``x``'s
+    device."""
+    if variant is None:
+        variant = formulation("xfft.zoom", _platform(x))
     if variant not in ("czt", "dense"):
         raise ValueError(f"unknown variant {variant!r} "
                          "(want 'czt' or 'dense')")
@@ -276,14 +330,17 @@ def zoom_dft_1d(x, n_grid, f0, df, n_out, variant="czt", fft_len=None):
     return x.to(cdt) @ E
 
 
-def zoom_power_2d(x, pad_to, band_r, band_c, variant="czt"):
+def zoom_power_2d(x, pad_to, band_r, band_c, variant=None):
     """Band-limited power ``|F(r0 + j1·dr, c0 + j2·dc)|²`` of ``x`` over
     its trailing axes, F the DFT on the ``pad_to = (N1, N2)`` grid and
     each band a ``(f0, f1, n_out)`` triple in (fractional, signed) bin
     units, sampled at ``f0 + j·(f1 − f0)/n_out`` (end point excluded, as
     FFT bins). The edges may be tensors. Only the n_out_r × n_out_c band
     pixels are computed: the row-axis zoom runs first, so the column
-    transform sees n_out_r rows instead of N1."""
+    transform sees n_out_r rows instead of N1. ``variant`` as
+    :func:`zoom_dft_1d`'s, resolved once for both axes."""
+    if variant is None:
+        variant = formulation("xfft.zoom", _platform(x))
     N1, N2 = pad_to
     r0, r1, nr = band_r
     c0, c1, nc = band_c
@@ -333,10 +390,13 @@ def offgrid_taylor(x, pts, n_grid, order=8, oversample=4):
     return acc
 
 
-def offgrid_dft_1d(x, pts, n_grid, order=8, oversample=4, variant="taylor"):
+def offgrid_dft_1d(x, pts, n_grid, order=8, oversample=4, variant=None):
     """Scattered-point DFT over the last axis: ``"taylor"`` is
     :func:`offgrid_taylor`; ``"dense"`` the exact point-DFT product
-    (O(M·P))."""
+    (O(M·P)); ``None`` the ``xfft.offgrid`` formulation on ``x``'s
+    device."""
+    if variant is None:
+        variant = formulation("xfft.offgrid", _platform(x))
     if variant == "taylor":
         return offgrid_taylor(x, pts, n_grid, order=order,
                               oversample=oversample)
@@ -350,10 +410,13 @@ def offgrid_dft_1d(x, pts, n_grid, order=8, oversample=4, variant="taylor"):
     return x.to(E.dtype) @ E
 
 
-def real_spectrum_1d(x, keep, variant="real"):
+def real_spectrum_1d(x, keep, variant=None):
     """``real(fft(x))[..., :keep]`` of a numpy array or tensor. A real
     input with ``keep ≤ n//2 + 1`` takes the rfft half spectrum under
-    ``"real"``; ``"dense"`` is the full complex FFT."""
+    ``"real"``; ``"dense"`` is the full complex FFT; ``None`` the
+    ``xfft.profile`` formulation on ``x``'s device (the CPU for numpy)."""
+    if variant is None:
+        variant = formulation("xfft.profile", _platform(x))
     if variant not in ("real", "dense"):
         raise ValueError(f"unknown variant {variant!r} "
                          "(want 'real' or 'dense')")
@@ -366,3 +429,249 @@ def real_spectrum_1d(x, keep, variant="real"):
             and keep <= n // 2 + 1):
         return np.real(np.fft.rfft(x))[..., :keep]
     return np.real(np.fft.fft(x))[..., :keep]
+
+
+# ---------------------------------------------------------------------
+# plan(): the declarative front door
+# ---------------------------------------------------------------------
+
+class Plan:
+    """Declared structure of a 2-D transform over the trailing axes,
+    lowered at call time to the functions of this module.
+
+    Built by :func:`plan`. The structured-or-dense choice resolves
+    through the registry op ``op`` on the input's device type unless a
+    call pins ``variant=``; a plan with no ``op`` is dense. Plans are
+    stateless descriptors."""
+
+    __slots__ = ("shape", "pad_to", "real_input", "mean_pad", "crop",
+                 "layout", "op", "band")
+
+    def __init__(self, shape, pad_to, real_input, mean_pad, crop, layout,
+                 op, band=None):
+        self.shape = tuple(int(n) for n in shape)
+        self.pad_to = tuple(int(n) for n in (pad_to or shape))
+        self.real_input = bool(real_input)
+        self.mean_pad = bool(mean_pad)
+        self.crop = crop
+        self.layout = layout
+        self.op = op
+        self.band = band
+
+    def variant(self, pinned=None, platform=None):
+        """The active choice: ``pinned`` when given, else ``op``
+        resolved on ``platform`` (``None``:
+        ``backend.formulation_platform()``), else ``"dense"``."""
+        if pinned is not None:
+            return pinned
+        return formulation(self.op, platform) if self.op else "dense"
+
+    def structured(self, pinned=None, platform=None):
+        return self.variant(pinned, platform) not in ("dense", "fft2")
+
+    def describe(self):
+        """JSON-able view: the declared properties and the variant that
+        resolves now."""
+        def _band(b):
+            try:
+                return [float(b[0]), float(b[1]), int(b[2])]
+            except (TypeError, RuntimeError):   # tensor edges of a batch
+                return ["tensor", "tensor", int(b[2])]
+
+        return {
+            "shape": list(self.shape), "pad_to": list(self.pad_to),
+            "real_input": self.real_input, "mean_pad": self.mean_pad,
+            "crop": list(self.crop) if self.crop else None,
+            "layout": self.layout, "op": self.op,
+            "band": [_band(b) for b in self.band] if self.band else None,
+            "variant": self.variant(platform=formulation_platform()),
+        }
+
+    def forward(self, x, variant=None):
+        """Full complex forward spectrum: declared real input takes the
+        half spectrum and the Hermitian completion; the 'shifted' layout
+        applies the final fftshift."""
+        want_rfft = self.real_input and self.structured(variant,
+                                                        _platform(x))
+        pad = None if self.pad_to == tuple(x.shape[-2:]) else self.pad_to
+        F = fft2_full(x, variant="rfft" if want_rfft else "fft2", s=pad)
+        if self.layout == "shifted":
+            F = torch.fft.fftshift(F, dim=(-2, -1))
+        return F
+
+    def half(self, x):
+        """Half spectrum for gather consumers (raw layout); a declared
+        mean pad folds into a DC scalar (:func:`pruned_meanpad_half`)."""
+        if self.mean_pad:
+            return pruned_meanpad_half(x, self.pad_to)
+        return torch.fft.rfft2(x, s=self.pad_to)
+
+    def power(self, x, variant=None):
+        """Spectral power with the declared row crop. A ``band`` lowers
+        to :func:`zoom_power_2d` (only the band's pixels); a half-row
+        crop of real input to :func:`halfrow_power`; dense is the full
+        frame, shifted and cropped (:func:`dense_power`)."""
+        plat = _platform(x)
+        if self.band is not None:
+            return zoom_power_2d(x, self.pad_to, self.band[0], self.band[1],
+                                 variant=self.variant(variant, plat))
+        halved = self.crop is not None and self.crop[0] == self.pad_to[0] // 2
+        if (halved and self.real_input and self.structured(variant, plat)
+                and not x.is_complex()):
+            return halfrow_power(x, self.pad_to)
+        return dense_power(x, self.pad_to, halved)
+
+    def acf(self, x, variant=None):
+        """Wiener–Khinchin autocovariance; 'shifted' centres the zero
+        lag."""
+        arr = wiener_khinchin(x, self.pad_to,
+                              variant=self.variant(variant, _platform(x)))
+        if self.layout == "shifted":
+            arr = torch.fft.fftshift(arr, dim=(-2, -1))
+        return arr
+
+    def inverse(self, X, variant=None):
+        """Inverse transform with the declared output crop folded
+        between the per-axis transforms."""
+        crop = self.crop or self.pad_to
+        v = "split" if self.structured(variant, _platform(X)) else "dense"
+        return ifft2_cropped(X, crop, variant=v)
+
+
+def plan(shape, pad_to=None, *, real_input=False, mean_pad=False,
+         crop=None, layout="raw", op=None, band=None):
+    """Declare the structure of a 2-D transform; returns a :class:`Plan`.
+
+    ``shape`` — the trailing two data axes. ``pad_to`` — transform
+    lengths (zero pad; default none). ``real_input`` — forwards take
+    half-spectrum lowerings, round-trip power the real inverse.
+    ``mean_pad`` — the padding holds the data mean. ``crop`` — ``(rows,
+    cols)`` output crop (a ``None`` entry keeps the axis). ``layout`` —
+    ``'raw'`` or ``'shifted'``. ``band`` — ``((f0, f1, n_out) rows,
+    (f0, f1, n_out) cols)`` in (fractional, signed) raw bin units of the
+    ``pad_to`` grid: power computes only that band (raw layout only).
+    ``op`` — the registry op of the structured-or-dense choice; band
+    plans default to ``'xfft.zoom'``."""
+    if layout not in ("raw", "shifted"):
+        raise ValueError(f"unknown layout {layout!r} "
+                         "(want 'raw' or 'shifted')")
+    if band is not None:
+        if layout != "raw":
+            raise ValueError("band plans are raw-layout (the band IS the "
+                             "output frame)")
+        if len(band) != 2 or any(len(b) != 3 for b in band):
+            raise ValueError("band wants ((f0, f1, n_out) rows, "
+                             "(f0, f1, n_out) cols)")
+        if op is None:
+            op = "xfft.zoom"
+    return Plan(shape, pad_to, real_input, mean_pad, crop, layout, op, band)
+
+
+# ---------------------------------------------------------------------
+# cached batched programs
+# ---------------------------------------------------------------------
+
+# keyed on shape, resolved variant and device, so a formulation flip
+# builds a new program instead of reusing the old one
+_PROGRAM_CACHE = {}
+
+
+def _program(key, build, site):
+    def make():
+        from ..obs import retrace as _retrace
+
+        _retrace.record_build(site, key)
+        return build()
+
+    return fifo_cached(_PROGRAM_CACHE, key, make, 16)
+
+
+def acf_program(nf, nt, *, variant=None, normalise=True, device=None):
+    """Cached batched autocovariance ``fn(dyn[B, nf, nt]) → acf[B, 2nf,
+    2nt]`` on ``device`` (``None``: the card) under the ``xfft.acf``
+    choice, site ``xfft.acf``."""
+    dev = resolve_device(device)
+    if variant is None:
+        variant = formulation("xfft.acf", dev.type)
+    key = ("acf", int(nf), int(nt), variant, bool(normalise), str(dev))
+
+    def build():
+        from .acf import autocovariance
+
+        def fn(dyn):
+            return autocovariance(dyn, normalise=normalise, variant=variant,
+                                  device=dev)
+
+        return fn
+
+    return _program(key, build, "xfft.acf")
+
+
+def sspec_power_program(nf, nt, *, variant=None, device=None):
+    """Cached batched halved secondary-spectrum power ``fn(dyn[B, nf,
+    nt]) → sec[B, nrfft//2, ncfft]`` on ``device`` under the
+    ``xfft.sspec`` choice, site ``xfft.sspec``."""
+    dev = resolve_device(device)
+    if variant is None:
+        variant = formulation("xfft.sspec", dev.type)
+    key = ("sspec", int(nf), int(nt), variant, str(dev))
+
+    def build():
+        from .sspec import secondary_spectrum_power
+
+        def fn(dyn):
+            return secondary_spectrum_power(
+                torch.as_tensor(dyn, device=dev), variant=variant)
+
+        return fn
+
+    return _program(key, build, "xfft.sspec")
+
+
+def zoom_power_program(nf, nt, pad_to, n_r, n_c, *, variant=None,
+                       device=None):
+    """Cached batched band-limited power ``fn(dyn[B, nf, nt], band_r[2],
+    band_c[2]) → sec[B, n_r, n_c]`` on ``device``, the band edges
+    ``(f0, f1)`` in (fractional, signed) bin units of the ``pad_to``
+    grid (numbers or tensors: one program serves every band), under the
+    ``xfft.zoom`` choice, site ``xfft.zoom``."""
+    dev = resolve_device(device)
+    if variant is None:
+        variant = formulation("xfft.zoom", dev.type)
+    pad_to = tuple(int(n) for n in pad_to)
+    nr, nc = int(n_r), int(n_c)
+    key = ("zoom", int(nf), int(nt), pad_to, nr, nc, variant, str(dev))
+
+    def build():
+        def fn(dyn, band_r, band_c):
+            return zoom_power_2d(torch.as_tensor(dyn, device=dev), pad_to,
+                                 (band_r[0], band_r[1], nr),
+                                 (band_c[0], band_c[1], nc), variant=variant)
+
+        return fn
+
+    return _program(key, build, "xfft.zoom")
+
+
+def offgrid_program(n, n_pts, *, n_grid=None, order=8, oversample=4,
+                    variant=None, device=None):
+    """Cached batched scattered-point DFT ``fn(x[B, n], pts[n_pts]) →
+    X[B, n_pts]`` on ``device`` (points in fractional bin units of the
+    ``n_grid``-point transform, default ``n``) under the
+    ``xfft.offgrid`` choice, site ``xfft.offgrid``."""
+    dev = resolve_device(device)
+    if variant is None:
+        variant = formulation("xfft.offgrid", dev.type)
+    ng = int(n_grid if n_grid is not None else n)
+    key = ("offgrid", int(n), int(n_pts), ng, int(order), int(oversample),
+           variant, str(dev))
+
+    def build():
+        def fn(x, pts):
+            return offgrid_dft_1d(torch.as_tensor(x, device=dev), pts, ng,
+                                  order=order, oversample=oversample,
+                                  variant=variant)
+
+        return fn
+
+    return _program(key, build, "xfft.offgrid")

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..backend import formulation
 from ..ops.sspec import fft_shapes
 from ..ops.windows import apply_window
 from ..ops.xfft import zoom_dft_1d
@@ -198,13 +199,14 @@ def make_sspec_power_sharded(mesh, nf, nt, window_arrays=None, halve=True,
     transform → |·|² → positive delays, Doppler fftshift) with the
     transform split over 'seq' and the batch over 'data'.
 
-    ``variant="half"`` (the default) transposes the real padded input
+    ``variant="half"`` transposes the real padded input
     first, takes the delay axis as an ``rfft`` and crops the halved rows
     before the Doppler transform; ``"dense"`` is the complex fft2 on
-    the sharded FFT. ``halve=False`` always takes dense. ``zoom``, a
+    the sharded FFT (``None``: the ``xfft.sspec`` formulation on the
+    mesh's first device). ``halve=False`` always takes dense. ``zoom``, a
     ``((r0, r1, n_r), (c0, c1, n_c))`` band in bin units of the padded
     frame, computes only the band pixels (``variant`` then ``"czt"`` or
-    ``"dense"``), the row crop folded before the second transpose;
+    ``"dense"``, ``None`` the ``xfft.zoom`` formulation), the row crop folded before the second transpose;
     ``n_r`` must divide over the seq axis. Returns
     ``[B, nrfft//2 or nrfft, ncfft]`` or ``[B, n_r, n_c]`` on the mesh's
     first device."""
@@ -225,7 +227,8 @@ def make_sspec_power_sharded(mesh, nf, nt, window_arrays=None, halve=True,
         return torch.nn.functional.pad(dyns, (0, ncfft - nt, 0, nrfft - nf))
 
     if zoom is not None:
-        variant = "czt" if variant is None else variant
+        if variant is None:
+            variant = formulation("xfft.zoom", mesh.first)
         (r0, r1, n_r), (c0, c1, n_c) = zoom
         n_r, n_c = int(n_r), int(n_c)
         if n_r % k:
@@ -246,7 +249,8 @@ def make_sspec_power_sharded(mesh, nf, nt, window_arrays=None, halve=True,
 
         return zfn
 
-    variant = "half" if variant is None else variant
+    if variant is None:
+        variant = formulation("xfft.sspec", mesh.first)
     if variant not in ("half", "dense"):
         raise ValueError(f"unknown variant {variant!r} (want 'half' or "
                          "'dense')")

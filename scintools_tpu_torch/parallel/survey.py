@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..backend import formulation
 from ..obs import retrace as _retrace
 from .fft import make_fft2_sharded, make_sspec_power_sharded
 from .mesh import DATA_AXIS, SEQ_AXIS, per_device, run_lanes
@@ -84,7 +85,8 @@ def make_fused_grid_search_sharded(mesh, tau, fd, n_edges, nf, nt, npad=3,
         "parallel.fused_grid_search_sharded", mesh,
         _geom(tau, fd) + (int(n_edges), int(nf), int(nt), int(npad),
                           bool(coher), float(tau_mask), float(fw),
-                          int(iters), method, eig),
+                          int(iters), method, eig,
+                          formulation("ops.cs", mesh.first)),
         lambda dev: make_fused_grid_eval_fn(
             tau, fd, n_edges, nf, nt, npad=npad, coher=coher,
             tau_mask=tau_mask, fw=fw, iters=iters, method=method, eig=eig,
@@ -129,7 +131,7 @@ def make_fused_thin_grid_search_sharded(mesh, tau, fd, n_edges,
         _geom(tau, fd) + (int(n_edges), int(n_arclet_edges),
                           float(center_cut), int(nf), int(nt), int(npad),
                           bool(coher), float(tau_mask), float(fw),
-                          int(iters)),
+                          int(iters), formulation("ops.cs", mesh.first)),
         lambda dev: make_fused_thin_grid_eval_fn(
             tau, fd, n_edges, n_arclet_edges, center_cut, nf, nt,
             npad=npad, coher=coher, tau_mask=tau_mask, fw=fw, iters=iters,
@@ -137,7 +139,8 @@ def make_fused_thin_grid_search_sharded(mesh, tau, fd, n_edges,
 
 
 def make_arc_profile_sharded(mesh, tdel, fdop, delmax=None, startbin=3,
-                             cutmid=3, numsteps=10000, fold=False):
+                             cutmid=3, numsteps=10000, fold=False,
+                             pallas=None):
     """The survey arc profile over the mesh: ``fn(sspecs[B, ntdel,
     nfdop], etas[B]) → profiles`` (:func:`~..ops.normsspec.
     make_arc_profile_batch_fn`: one arc-profile kernel launch per shard
@@ -149,17 +152,20 @@ def make_arc_profile_sharded(mesh, tdel, fdop, delmax=None, startbin=3,
         "parallel.arc_profile_sharded", mesh,
         _geom(tdel, fdop) + (None if delmax is None else float(delmax),
                              int(startbin), int(cutmid), int(numsteps),
-                             bool(fold)),
+                             bool(fold), pallas,
+                             formulation("ops.arc_profile_interp",
+                                         mesh.first)),
         lambda dev: make_arc_profile_batch_fn(
             tdel, fdop, delmax=delmax, startbin=startbin, cutmid=cutmid,
-            numsteps=numsteps, fold=fold, device=dev))
+            numsteps=numsteps, fold=fold, pallas=pallas, device=dev))
     return fn, mesh.size
 
 
 def make_arc_fit_sharded(mesh, tdel, fdop, delmax=None, startbin=3,
                          cutmid=3, numsteps=10000, nsmooth=5,
                          low_power_diff=-1.0, high_power_diff=-0.5,
-                         constraint=(0.0, float("inf")), noise_error=True):
+                         constraint=(0.0, float("inf")), noise_error=True,
+                         pallas=None):
     """The whole survey arc fit over the mesh: ``fn(sspecs[B, ntdel,
     nfdop], etamins[B], Ls[B]) → (out[B, 10], folded[B, numsteps//2])``
     (:func:`~..ops.fitarc_device.make_arc_fit_batch_fn`), epochs split
@@ -173,12 +179,15 @@ def make_arc_fit_sharded(mesh, tdel, fdop, delmax=None, startbin=3,
                              int(nsmooth), float(low_power_diff),
                              float(high_power_diff),
                              tuple(map(float, constraint)),
-                             bool(noise_error)),
+                             bool(noise_error), pallas,
+                             formulation("ops.arc_profile_interp",
+                                         mesh.first)),
         lambda dev: make_arc_fit_batch_fn(
             tdel, fdop, delmax=delmax, startbin=startbin, cutmid=cutmid,
             numsteps=numsteps, nsmooth=nsmooth,
             low_power_diff=low_power_diff, high_power_diff=high_power_diff,
-            constraint=constraint, noise_error=noise_error, device=dev))
+            constraint=constraint, noise_error=noise_error, pallas=pallas,
+            device=dev))
     return fn, mesh.size
 
 
@@ -215,21 +224,21 @@ def make_retrieval_sharded(mesh, nf_chunk, nt_chunk, dt, df, n_edges,
     complex64, ok[B])`` (:func:`~..thth.retrieval.make_chunk_retrieval_fn`;
     ``method=None`` and the JAX names ``"auto"``, ``"pallas"``,
     ``"warm"`` the kernel route). The chunks are walked in chains
-    of ``group`` (default :func:`~..thth.retrieval.hbm_group` of B; B
+    of ``group`` (default :func:`~..thth.retrieval.default_group` of B; B
     must be a multiple of it), and whole chains go to the shards, so
     every chunk is computed as it is without the mesh: a chain is never
     cut across devices."""
-    from ..thth.retrieval import (_retrieval_fn, hbm_group,
+    from ..thth.retrieval import (_retrieval_fn, default_group,
                                   resolve_retrieval_method)
 
-    method = resolve_retrieval_method(method)
+    method = resolve_retrieval_method(method, n_edges, mesh.first)
     key = (int(nf_chunk), int(nt_chunk), float(dt), float(df), int(n_edges),
            int(npad), method, int(iters), int(warm_iters))
     _retrace.record_build("parallel.retrieval_sharded", key + (mesh.key,))
 
     def fn(chunks, edges, etas, tau_mask=0.0, group=None):
         B = len(chunks)
-        group = hbm_group(B) if group is None else int(group)
+        group = default_group(B, mesh.first) if group is None else int(group)
         if B % group:
             raise ValueError(f"group={group} must divide the batch {B}")
 

@@ -42,7 +42,8 @@ import torch
 
 from ..backend import resolve_device
 from ..ops.windows import get_window
-from ..ops.xfft import czt_1d, czt_fft_length, hermitian_full_from_half
+from ..ops import xfft
+from ..ops.xfft import czt_1d, czt_fft_length
 
 ACF2D_RANK_TOL = 1e-5       # low-rank kernel truncation (·σ0)
 
@@ -421,9 +422,10 @@ class ACF:
     def calc_sspec(self, window="hanning", window_frac=1):
         """The model ACF's secondary spectrum [dB] on ``self.device`` in
         float64: the windowed ACF, fftshifted as the reference does,
-        through the real-input forward transform (rfft2 and the Hermitian completion,
-        the full complex fft2 of a real input), shifted back; the
-        magnitude in dB. Sets and returns ``self.sspec``."""
+        through a declared real-input shifted forward plan (the
+        ``xfft.acf_sspec`` formulation: rfft2 and the Hermitian
+        completion, or the complex fft2); the magnitude in dB. Sets and
+        returns ``self.sspec``."""
         nf, nt = np.shape(self.acf)
         chan_window, subint_window = get_window(nt, nf, window=window,
                                                 frac=window_frac)
@@ -431,8 +433,9 @@ class ACF:
         arr = (subint_window * arr.T).T
         x = torch.fft.fftshift(torch.as_tensor(arr, dtype=torch.float64,
                                                device=self.device))
-        F = torch.fft.fftshift(hermitian_full_from_half(
-            torch.fft.rfft2(x), nt))
+        p = xfft.plan((nf, nt), real_input=True, layout="shifted",
+                      op="xfft.acf_sspec")
+        F = p.forward(x)
         mag = torch.sqrt((F * torch.conj(F)).real)
         self.sspec = (10 * torch.log10(mag)).cpu().numpy()
         return self.sspec

@@ -11,6 +11,10 @@ Counterpart of ``scintools_tpu/sim/factory.py:113-542``:
   tensors (Γ through ``torch.lgamma``), so one built function serves a
   whole regime sweep; the geometry (wavenumber grids, filters, mode
   matrices) is built once per geometry on the device.
+- **Formulations.** ``screen=None`` and ``propagate=None`` resolve the
+  ``sim.screen`` and ``sim.propagate`` registry ops (the JAX package's
+  :93, :103, registered here) on the device; the registered entries
+  are ``"compensated"`` and ``"column"`` on both devices.
 - **Screens** (``screen=``): ``"compensated"`` (the default) adds the
   sub-fundamental spectral modes as a rank-M correction
   ``Re(Ex·C·Eyᵀ)`` with the central cells halved, as a 2× oversized grid
@@ -53,7 +57,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import fifo_cached, resolve_device
+from ..backend import (fifo_cached, formulation, register_formulation,
+                       resolve_device)
 from ..obs import retrace as _retrace
 from ..ops import xfft
 from ..robust.guards import BAD_INPUT
@@ -71,6 +76,19 @@ BAD_OUTPUT = 2
 
 SCREENS = ("compensated", "oversized", "plain")
 PROPAGATIONS = ("phasor", "column", "dense")
+
+register_formulation(
+    "sim.screen", default="compensated", choices=SCREENS,
+    platforms={"cpu": "compensated", "cuda": "compensated"},
+    doc="phase-screen low frequencies: the rank-M sub-fundamental "
+        "compensation vs a 2x oversized screen, cropped, vs the plain "
+        "reference screen")
+register_formulation(
+    "sim.propagate", default="phasor", choices=PROPAGATIONS,
+    platforms={"cpu": "column", "cuda": "column"},
+    doc="per-frequency Fresnel propagation: column projection with the "
+        "exp(i*phi*s) recurrence vs with an exact exp per scale vs the "
+        "full-plane fft2/ifft2")
 
 #: built functions per geometry, formulations and device (a FIFO of 32)
 SCENARIO_CACHE_STATS = {"builds": 0}
@@ -129,10 +147,10 @@ def frequency_scale_grid(nf, dlam, lamsteps=False):
     return 1.0 / (1.0 + dlam * (-0.5 + ifreq / nf))
 
 
-def _formulations(precision, screen, propagate):
+def _formulations(precision, screen, propagate, platform):
     highest = precision == "highest"
-    screen_f = screen or "compensated"
-    prop_f = propagate or "column"
+    screen_f = screen or formulation("sim.screen", platform)
+    prop_f = propagate or formulation("sim.propagate", platform)
     if screen_f not in SCREENS:
         raise ValueError(f"unknown screen {screen_f!r} (want one of "
                          f"{SCREENS})")
@@ -158,7 +176,8 @@ def build_scenario_fn(ns=128, nf=128, dlam=0.25, rf=1.0, ds=0.01,
     if B % G:
         raise ValueError(f"nscreens={B} not divisible by "
                          f"group_size={G} (pad the lane stack)")
-    highest, screen_f, prop_f = _formulations(precision, screen, propagate)
+    highest, screen_f, prop_f = _formulations(precision, screen, propagate,
+                                              dev.type)
     fdt = torch.float64 if highest else torch.float32
     cdt = torch.complex128 if highest else torch.complex64
 
@@ -387,7 +406,8 @@ def make_scenario_factory(ns=128, nf=128, dlam=0.25, rf=1.0, ds=0.01,
     formulations and device and kept in a FIFO of 32
     (``SCENARIO_CACHE_STATS["builds"]`` counts the builds)."""
     dev = resolve_device(device)
-    _, screen_f, prop_f = _formulations(precision, screen, propagate)
+    _, screen_f, prop_f = _formulations(precision, screen, propagate,
+                                        dev.type)
     key = (int(ns), int(nf), float(dlam), float(rf), float(ds),
            float(inner), int(nscreens),
            int(min(group_size or SIM_GROUP_SIZE, nscreens)),

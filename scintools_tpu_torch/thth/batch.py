@@ -51,7 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import resolve_device
+from ..backend import formulation, register_formulation, resolve_device
 from ..ops.sspec import chunk_conjugate_spectrum_batch
 from ..robust import guards
 from .core import _EPS, dominant_eig_power, th_cents_from_edges, unit_checks
@@ -63,12 +63,36 @@ from .peakfit import fit_eig_peak_batch_device
 # the eigensolver methods of the JAX package's θ-θ entry points
 METHODS = ("auto", "pallas", "warm", "square", "power")
 
+# the search's eigensolver as a registry op (the JAX package's :39): the
+# card's kernel takes every matrix size, so "pallas" (the warm-start
+# eigensolver) is the entry on both devices
+register_formulation(
+    "thth.eig", default="warm", choices=("warm", "power", "square", "pallas"),
+    platforms={"cpu": "pallas", "cuda": "pallas"},
+    doc="θ-θ search eigensolver: the warm-start eigensolver (eig_warmstart "
+        "kernel) vs the η-scan warm start vs cold power iteration vs the "
+        "cold squaring start (eig_cold kernel)")
+
 
 def check_method(method):
     """Raise ``ValueError`` unless ``method`` is one of :data:`METHODS`."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r} (want one of "
                          f"{METHODS})")
+
+
+def resolve_fused_method(method, n_edges=None, platform=None):
+    """The concrete eigensolver of ``method``: ``"auto"`` resolves the
+    ``thth.eig`` formulation on ``platform`` (a device type; ``None``:
+    ``backend.formulation_platform()``), any other name of
+    :data:`METHODS` is itself and anything else raises ``ValueError``.
+    ``n_edges`` is the JAX package's second argument (its VMEM guard,
+    which falls back to ``"warm"``); the card's kernel takes every size,
+    so it is unused and no choice becomes another."""
+    check_method(method)
+    if method == "auto":
+        method = formulation("thth.eig", platform)
+    return method
 
 
 def _geometry(tau, fd, edges):
@@ -101,6 +125,7 @@ def make_multi_eval_fn(tau, fd, edges, iters=200, method="auto",
         raise ValueError(f"unknown eig {eig!r} (want 'kernel' or 'plain')")
     check_method(method)
     dev = resolve_device(device)
+    method = resolve_fused_method(method, len(edges), dev.type)
     tau_a, fd_a, th_cents = _geometry(tau, fd, edges)
     n_th = len(th_cents)
     n_pad = pad_to_multiple(n_th)
@@ -499,17 +524,19 @@ def make_thin_eval_fn(tau, fd, edges, edges_arclet, center_cut, iters=200,
     return fn
 
 
-def _chunk_cs_to_ri(dspecs, npad, tau_keep, coher, power=False):
+def _chunk_cs_to_ri(dspecs, npad, tau_keep, coher, power=False,
+                    cs_method="rfft"):
     """Raw chunk stack → packed (real, imag) float32 conjugate spectra
     plus the per-chunk input / CS health flags. Non-finite input pixels
     are flagged and zeroed before the FFT so a corrupt chunk stays
     bounded to its own lane. ``power`` selects the incoherent base:
-    |CS| for the single-curve search, |CS|² for the thin-screen search.
-    Returns ``(cs_ri[B, 2, ntau, nfd], in_ok[B], cs_ok[B])``."""
+    |CS| for the single-curve search, |CS|² for the thin-screen search;
+    ``cs_method`` the ``ops.cs`` choice. Returns ``(cs_ri[B, 2, ntau,
+    nfd], in_ok[B], cs_ok[B])``."""
     in_ok = guards.chunk_finite_ok(dspecs)
     dspecs = guards.sanitize_chunks(dspecs)
     CS = chunk_conjugate_spectrum_batch(dspecs, npad=npad,
-                                        tau_keep=tau_keep, method="rfft")
+                                        tau_keep=tau_keep, method=cs_method)
     if not coher:
         CS = CS.abs() ** 2 if power else CS.abs()
     imag = CS.imag if CS.is_complex() else torch.zeros_like(CS)
@@ -555,9 +582,13 @@ def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
     baked in on the host; the raw chunk stack is the only host→device
     copy. ``warm_iters=None`` takes the JAX package's per-method
     default: 64 for the ``"warm"`` η-scan (it has no restarts), 24
-    otherwise."""
+    otherwise. ``"auto"`` and the conjugate spectrum resolve the
+    ``thth.eig`` and ``ops.cs`` formulations on ``device`` when the
+    function is built."""
     check_method(method)
     device = resolve_device(device)
+    method = resolve_fused_method(method, len(edges), device.type)
+    cs_method = formulation("ops.cs", device.type)
     tau_a, tau_keep = _tau_keep_mask(tau, tau_mask)
     if len(tau_a) != (npad + 1) * nf:
         raise ValueError(
@@ -572,7 +603,7 @@ def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
 
     def fn(dspecs, etas):
         cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep,
-                                              coher)
+                                              coher, cs_method=cs_method)
         eigs = multi(cs_ri, etas)
         eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
             etas, eigs, fw=fw, with_ok=True)
@@ -601,10 +632,11 @@ def make_fused_thin_search_fn(tau, fd, edges, edges_arclet, center_cut, nf,
             f"{(npad + 1) * nf}")
     thin = make_thin_eval_fn(tau, fd, edges, edges_arclet, center_cut,
                              iters=iters, device=device)
+    cs_method = formulation("ops.cs", device.type)
 
     def fn(dspecs, etas):
         cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep, coher,
-                                              power=True)
+                                              power=True, cs_method=cs_method)
         sigs = thin(cs_ri, etas)
         eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
             etas, sigs, fw=fw, with_ok=True)
@@ -633,10 +665,11 @@ def make_fused_grid_eval_fn(tau, fd, n_edges, nf, nt, npad=3, coher=True,
             f"{(npad + 1) * nf}")
     grid = make_grid_eval_fn(tau, fd, n_edges, iters=iters, method=method,
                              eig=eig, device=device)
+    cs_method = formulation("ops.cs", device.type)
 
     def fn(dspecs, edges_b, etas_b):
         cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep,
-                                              coher)
+                                              coher, cs_method=cs_method)
         eigs = grid(cs_ri, edges_b, etas_b)
         eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
             etas_b, eigs, fw=fw, with_ok=True)
@@ -667,10 +700,11 @@ def make_fused_thin_grid_eval_fn(tau, fd, n_edges, n_arclet_edges,
             f"{(npad + 1) * nf}")
     thin = make_thin_grid_eval_fn(tau, fd, n_edges, n_arclet_edges,
                                   center_cut, iters=iters, device=device)
+    cs_method = formulation("ops.cs", device.type)
 
     def fn(dspecs, edges_b, arclet_b, etas_b):
         cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep, coher,
-                                              power=True)
+                                              power=True, cs_method=cs_method)
         sigs = thin(cs_ri, edges_b, arclet_b, etas_b)
         eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
             etas_b, sigs, fw=fw, with_ok=True)

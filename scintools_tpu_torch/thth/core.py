@@ -274,6 +274,9 @@ _EVAL_CACHE_SIZE = 32
 def _eval_fn(tau, fd, edges, iters, method, eig, dev):
     """:func:`make_eval_fn` of one geometry, built once and kept in a
     FIFO-bounded dict keyed on the geometry's bytes."""
+    from .batch import resolve_fused_method
+
+    method = resolve_fused_method(method, len(edges), dev.type)
     key = (tau.tobytes(), fd.tobytes(), edges.tobytes(), int(iters), method,
            eig, str(dev))
     return fifo_cached(_EVAL_CACHE, key, lambda: make_eval_fn(

@@ -25,11 +25,18 @@ device to the hand-written chunk-chained solver
 ``"plain"`` runs its plain PyTorch version on either device (the
 reference the kernel is held to), ``"eigh"`` is the dense
 ``torch.linalg.eigh`` solve and ``"power"`` ``iters`` cold power steps.
-The JAX package's names are taken too (:data:`JAX_ALIASES`): ``None``,
-``"auto"``, ``"pallas"`` and ``"warm"`` all mean ``"kernel"``. JAX
-``'warm'`` runs the Pallas kernel's own bodies in XLA, so on the card it
-takes the hand-written kernel; it revisits a chain's first chunk, which
-the port's chained solver, as JAX ``'pallas'``, does not.
+The JAX package's names are taken too (:data:`JAX_ALIASES`): ``None``
+and ``"auto"`` resolve the ``thth.retrieval_eig`` formulation (:41,
+registered here, "pallas" on both devices); ``"pallas"`` and ``"warm"``
+mean ``"kernel"``. JAX ``'warm'`` runs the Pallas kernel's own bodies
+in XLA, so on the card it takes the hand-written kernel; it revisits a
+chain's first chunk, which the port's chained solver, as JAX
+``'pallas'``, does not.
+
+The group size is the ``thth.retrieval_group`` formulation (:53):
+``"hbm"`` (:func:`hbm_group`, both devices) or ``"cache"``, groups of 8.
+The front's conjugate spectrum follows ``ops.cs``: ``"rfft"`` gathers
+from the half spectrum, ``"fft2"`` from the full complex one.
 
 On the chained routes the chunks are walked in chains of ``group`` (the
 first chunk of each chain starts cold), exactly the JAX package's
@@ -45,9 +52,10 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..backend import as_tensor, fifo_cached, resolve_device
+from ..backend import (as_tensor, fifo_cached, formulation,
+                       register_formulation, resolve_device)
 from ..ops import xfft
-from ..ops.sspec import pad_chunk_batch
+from ..ops.sspec import chunk_conjugate_spectrum_batch, pad_chunk_batch
 from ..robust import guards
 from ..utils import slog
 from .core import (dominant_eig_power, fft_axis, rev_map, th_cents_from_edges,
@@ -57,22 +65,52 @@ from .eig import (batched_eigvec_warmstart, batched_eigvec_warmstart_plain,
                   pad_to_multiple)
 
 METHODS = ("kernel", "plain", "eigh", "power")
-# the JAX package's names for the kernel route
+# the JAX package's names: None and "auto" resolve the registry, the
+# others are the kernel route
 JAX_ALIASES = (None, "auto", "pallas", "warm")
 
+register_formulation(
+    "thth.retrieval_eig", default="eigh",
+    choices=("eigh", "power", "warm", "pallas"),
+    platforms={"cpu": "pallas", "cuda": "pallas"},
+    doc="batched retrieval eigenpair: dense eigh vs cold power iteration "
+        "vs the chunk-chained warm start (eigvec_warmstart kernel; 'warm' "
+        "and 'pallas' both take it)")
+register_formulation(
+    "thth.retrieval_group", default="hbm", choices=("hbm", "cache"),
+    platforms={"cpu": "hbm", "cuda": "hbm"},
+    doc="retrieval chain length: the largest group of at most 32 "
+        "(hbm_group) vs groups of 8 whose spectra stay in cache")
 
-def resolve_retrieval_method(method, n_edges=None):
-    """The port's name of a retrieval ``method``: :data:`JAX_ALIASES` →
-    ``"kernel"``; one of :data:`METHODS` as it is; anything else raises
-    ``ValueError``. ``n_edges`` is the JAX package's second argument
-    (its VMEM guard); the card's kernel takes every size, so it is
-    unused."""
+#: the chain length of the ``"cache"`` group formulation
+CACHE_GROUP = 8
+
+
+def resolve_retrieval_method(method, n_edges=None, platform=None):
+    """The port's name of a retrieval ``method``: ``None`` and ``"auto"``
+    resolve the ``thth.retrieval_eig`` formulation on ``platform`` (a
+    device type; ``None``: ``backend.formulation_platform()``);
+    ``"pallas"`` and ``"warm"`` → ``"kernel"``; one of :data:`METHODS`
+    as it is; anything else raises ``ValueError``. ``n_edges`` is the
+    JAX package's second argument (its VMEM guard, which falls back to
+    ``"warm"``); the card's kernel takes every size, so it is unused."""
+    if method in (None, "auto"):
+        method = formulation("thth.retrieval_eig", platform)
     if method in JAX_ALIASES:
         return "kernel"
     if method not in METHODS:
         raise ValueError(f"unknown retrieval method {method!r} (want one "
                          f"of {METHODS} or {JAX_ALIASES})")
     return method
+
+
+def default_group(n, platform=None):
+    """The chain length of a retrieval of ``n`` chunks under the
+    ``thth.retrieval_group`` formulation on ``platform``:
+    :func:`hbm_group` or :data:`CACHE_GROUP`, at most ``n``."""
+    if formulation("thth.retrieval_group", platform) == "cache":
+        return min(CACHE_GROUP, max(int(n), 1))
+    return hbm_group(n)
 
 
 def _numpy(x):
@@ -331,7 +369,7 @@ def _eigpair_one(thth):
 
 def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
                             method="kernel", iters=1024, warm_iters=64,
-                            device=None):
+                            device=None, cs_method=None):
     """Build the batched retrieval on ``device`` (``None``: the card):
     ``fn(chunks[B, nf, nt], edges[B, n_edges], etas[B], tau_mask=0.0,
     group=None, mark=None) → (E[B, nf, nt] complex64, ok[B] int32)``,
@@ -355,9 +393,16 @@ def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
 
     ``fn.front`` (chunks → θ-θ stack) and ``fn.pack`` (θ-θ stack →
     padded float32 chains) are the stages before the eigensolver.
+    ``cs_method`` is the ``ops.cs`` choice of the front (``None``:
+    resolved on ``device``).
     """
     dev = resolve_device(device)
-    method = resolve_retrieval_method(method)
+    method = resolve_retrieval_method(method, n_edges, dev.type)
+    if cs_method is None:
+        cs_method = formulation("ops.cs", dev.type)
+    if cs_method not in ("rfft", "fft2"):
+        raise ValueError(f"unknown conjugate-spectrum method {cs_method!r} "
+                         "(want 'rfft' or 'fft2')")
     g = _geometry(nf_chunk, nt_chunk, dt, df, npad, dev)
     n_th = n_edges - 1
     n_pad = pad_to_multiple(n_th)
@@ -370,8 +415,12 @@ def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
         ``valid[B, n]``, ``cents[B, n]`` float64 and the input and
         spectrum health flags."""
         in_ok = guards.chunk_finite_ok(chunks)
-        H = torch.fft.rfft2(pad_chunk_batch(guards.sanitize_chunks(chunks),
-                                            npad))
+        chunks = guards.sanitize_chunks(chunks)
+        if cs_method == "rfft":
+            H = torch.fft.rfft2(pad_chunk_batch(chunks, npad))
+        else:
+            H = chunk_conjugate_spectrum_batch(chunks, npad=npad,
+                                               method="fft2", shift=False)
         cs_ok = guards.chunk_finite_ok(torch.view_as_real(H))
         cents = _cents(edges_b)
         eta = etas_b[:, None, None]
@@ -386,7 +435,11 @@ def make_chunk_retrieval_fn(nf_chunk, nt_chunk, dt, df, n_edges, npad=3,
         pnts &= g.abs_tau[ti] >= tau_mask
         # negative fd_inv wraps by floor-mod (torch's `%` on integers)
         cc = g.shift_fd[torch.where(pnts, fd_inv, 0).long() % g.nfd]
-        vals = xfft.hermitian_half_gather(H, g.nfd, g.shift_tau[ti], cc)
+        if cs_method == "rfft":
+            vals = xfft.hermitian_half_gather(H, g.nfd, g.shift_tau[ti], cc)
+        else:
+            b = torch.arange(H.shape[0], device=dev)[:, None, None]
+            vals = H[b, g.shift_tau[ti], cc]
         w = torch.sqrt(torch.abs(2 * eta * (th2 - th1)))
         thth = torch.where(pnts, vals, 0) * w.to(torch.float32)
         thth = torch.nan_to_num(_hermitian_sym(thth, tril, anti))
@@ -459,12 +512,14 @@ _CACHE_SIZE = 16
 def _retrieval_fn(nf, nt, dt, df, n_edges, npad, method, iters, warm_iters,
                   dev):
     """The retrieval function of one geometry, built once and kept in a
-    FIFO-bounded dict."""
+    FIFO-bounded dict keyed on the resolved formulations."""
+    method = resolve_retrieval_method(method, n_edges, dev.type)
+    cs_method = formulation("ops.cs", dev.type)
     key = (int(nf), int(nt), float(dt), float(df), int(n_edges), int(npad),
-           method, int(iters), int(warm_iters), str(dev))
+           method, cs_method, int(iters), int(warm_iters), str(dev))
     return fifo_cached(_RETRIEVAL_CACHE, key, lambda: make_chunk_retrieval_fn(
         nf, nt, dt, df, n_edges, npad=npad, method=method, iters=iters,
-        warm_iters=warm_iters, device=dev), _CACHE_SIZE)
+        warm_iters=warm_iters, device=dev, cs_method=cs_method), _CACHE_SIZE)
 
 
 def hbm_group(n):
@@ -489,13 +544,13 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     ``edges_per[N, n_edges]`` and ``etas_per[N]`` → complex wavefield
     chunks ``[N, nf, nt]`` (numpy; with ``with_ok`` also the health
     bitmask ``ok[N]``). The chunk axis is walked in chains of ``group``
-    (default :func:`hbm_group`), padded at the end with zero chunks
+    (default :func:`default_group`), padded at the end with zero chunks
     that are cropped after. ``device_out=True`` returns the complex64
     tensors on ``device`` instead, ready for :func:`mosaic_device`.
     ``method``: ``"eigh"`` (the default here, as in the JAX package),
     ``"kernel"``, ``"plain"`` or ``"power"`` (``iters`` cold power steps
     per chunk); the JAX names ``None``, ``"auto"``, ``"pallas"`` and
-    ``"warm"`` mean ``"kernel"`` (:func:`resolve_retrieval_method`). ``mark``
+    ``"warm"`` resolve as :func:`resolve_retrieval_method` does. ``mark``
     gets ``upload`` once the chunks are on ``device``, then the stages
     of :func:`make_chunk_retrieval_fn`.
 
@@ -507,7 +562,8 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     if mesh is not None:
         device = mesh.first
     dev = resolve_device(device)
-    method = resolve_retrieval_method(method)
+    method = resolve_retrieval_method(method, np.shape(edges_per)[-1],
+                                      dev.type)
     if isinstance(chunks, torch.Tensor):
         chunks = chunks.to(device=dev, dtype=torch.float32)
     else:
@@ -515,7 +571,8 @@ def grid_retrieval_batch(chunks, edges_per, etas_per, dt, df, npad=3,
     N, nf, nt = chunks.shape
     edges_per = np.asarray(unit_checks(edges_per, "edges"), dtype=float)
     etas_per = np.asarray(unit_checks(etas_per, "etas"), dtype=float)
-    group = min(hbm_group(N) if group is None else int(group), max(N, 1))
+    group = min(default_group(N, dev.type) if group is None else int(group),
+                max(N, 1))
     pad_n = (-N) % group
     if pad_n:
         chunks = torch.cat([chunks, chunks.new_zeros((pad_n, nf, nt))])
@@ -1115,7 +1172,8 @@ def _gs_sharded_fn(mesh):
 
 __all__ = ["calc_asymmetry", "campaign_retrieval_batch", "chunk_mask",
            "chunk_retrieval_batch", "err_string", "gerchberg_saxton",
-           "grid_retrieval_batch", "hbm_group", "make_chunk_retrieval_fn",
+           "default_group", "grid_retrieval_batch", "hbm_group",
+           "make_chunk_retrieval_fn",
            "make_mosaic_fn",
            "make_vlbi_retrieval_fn", "mask_func", "mosaic", "mosaic_device",
            "mosaic_objective", "mosaic_shape", "refine_mosaic",

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from scipy.optimize import curve_fit
 
-from ..backend import as_tensor, fifo_cached, resolve_device
+from ..backend import as_tensor, fifo_cached, formulation, resolve_device
 from ..obs import retrace as _retrace
 from ..robust import guards
 from .batch import check_method
@@ -232,12 +232,14 @@ def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, method,
     """The fused search function for one geometry and eigensolver
     method, built once and kept in a FIFO-bounded dict keyed on the
     geometry's bytes and the method."""
-    from .batch import make_fused_search_fn
+    from .batch import make_fused_search_fn, resolve_fused_method
 
     nf, nt = shape
+    method = resolve_fused_method(method, len(edges), device.type)
     key = ("fused", tau.tobytes(), fd.tobytes(), edges.tobytes(),
            (int(nf), int(nt)), int(npad), bool(coher), float(tau_mask),
-           float(fw), method, eig, str(device))
+           float(fw), method, formulation("ops.cs", device.type), eig,
+           str(device))
 
     def build():
         FUSED_CACHE_STATS["builder_calls"] += 1
@@ -258,7 +260,8 @@ def _fused_thin_eval(tau, fd, edges, edges_arclet, center_cut, shape, npad,
     nf, nt = shape
     key = ("fused_thin", tau.tobytes(), fd.tobytes(), edges.tobytes(),
            edges_arclet.tobytes(), float(center_cut), (int(nf), int(nt)),
-           int(npad), bool(coher), float(tau_mask), float(fw), str(device))
+           int(npad), bool(coher), float(tau_mask), float(fw),
+           formulation("ops.cs", device.type), str(device))
 
     def build():
         FUSED_CACHE_STATS["builder_calls"] += 1
