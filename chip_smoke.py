@@ -497,6 +497,13 @@ def check(cond, msg):
         fail(msg)
 
 
+def _builds(site):
+    """Built functions counted at ``site`` so far (``obs.retrace``)."""
+    from scintools_tpu_torch.obs.retrace import compile_counts
+
+    return compile_counts().get(site, 0)
+
+
 def smi():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2089,7 +2096,7 @@ def survey_arc_phase(dev, ptxas):
         F._ARC_FIT_CACHE.clear()
         return fit()
 
-    builds = F.ARC_FIT_CACHE_STATS["builds"]
+    builds = _builds("ops.arc_fit_device")
     fits_u = uncached()
     same = np.array_equal(np.array([[f.eta, f.etaerr, f.etaerr2]
                                     for f in fits_u]),
@@ -2098,7 +2105,7 @@ def survey_arc_phase(dev, ptxas):
     rounds = {fit: [], uncached: []}
     for fn in (fit, uncached, uncached, fit) * 2:
         rounds[fn].append(timed(fn, reps=5)[1])
-    rebuilt = F.ARC_FIT_CACHE_STATS["builds"] - builds
+    rebuilt = _builds("ops.arc_fit_device") - builds
     cached_ms, uncached_ms = min(rounds[fit]), min(rounds[uncached])
     build_s = []
     for _ in range(5):
@@ -2112,7 +2119,7 @@ def survey_arc_phase(dev, ptxas):
         build_s.append(time.perf_counter() - t0)
     build_ms = min(build_s) * 1e3
     fit()
-    builds = F.ARC_FIT_CACHE_STATS["builds"]
+    builds = _builds("ops.arc_fit_device")
     fit()
     print(f"    fit_arc_batch: {fit_ms:.3f} ms, mean of 3 "
           f"({B / fit_ms * 1e3:.1f} epochs/s); arc_profile launches "
@@ -2124,7 +2131,7 @@ def survey_arc_phase(dev, ptxas):
           f"same bits {same}", flush=True)
     check(launches > 0, "fit_arc_batch never launched arc_profile")
     check(same, "the cached fit's bits differ from a fresh build's")
-    check(F.ARC_FIT_CACHE_STATS["builds"] == builds,
+    check(_builds("ops.arc_fit_device") == builds,
           "a repeated fit_arc_batch call built its function again")
     # where the fit's time goes, by torch.profiler: the whole fit, then
     # its profile stage (the fit's own call: spectra → scales → kernel →
@@ -2512,14 +2519,14 @@ def thin_grid_phase(prob, bd, eta_true, dev):
     prep = dict(fitting_proc="thin", cwf=512, cwt=512, npad=1,
                 eta_min=0.5 * eta_true, eta_max=2 * eta_true, neta=N_ETA,
                 nedge=256, edges_lim=prob["th_lim"])
-    builds0 = S.FUSED_CACHE_STATS["builder_calls"]
+    builds0 = _builds("thth.fused_thin")
     t0 = time.perf_counter()
     ds = Dynspec(dyn=bd, process=False, verbose=False)
     ds.prep_thetatheta(**prep)
     ds.fit_thetatheta()
     torch.cuda.synchronize()
     wall_first = time.perf_counter() - t0
-    builds = S.FUSED_CACHE_STATS["builder_calls"] - builds0
+    builds = _builds("thth.fused_thin") - builds0
     evo, th81 = ds.eta_evo.copy(), ds.ththeta
     th_err = (th81 - eta_true) / eta_true
     med = float(np.nanmedian(np.abs(evo - eta_true) / eta_true))
@@ -2611,12 +2618,12 @@ def thin_grid_phase(prob, bd, eta_true, dev):
 
     # 8.2 time_avg: a second fit of the same geometry builds nothing and
     # gives the same eta_evo; ththeta is the host formula, bit for bit
-    builds0 = S.FUSED_CACHE_STATS["builder_calls"]
+    builds0 = _builds("thth.fused_thin")
     t0 = time.perf_counter()
     ds.fit_thetatheta(time_avg=True)
     torch.cuda.synchronize()
     wall_again = time.perf_counter() - t0
-    rebuilt = S.FUSED_CACHE_STATS["builder_calls"] - builds0
+    rebuilt = _builds("thth.fused_thin") - builds0
     with np.errstate(divide="ignore", invalid="ignore"):
         eta_avg = np.nanmean(ds.eta_evo, 1)
         count = np.nansum(ds.eta_evo, 1) / eta_avg
@@ -3038,14 +3045,14 @@ def scint_phase(da, dev, B1=256, nf1=512, nt1=128, nc2=129, B3=32, nc3=65):
                                         seed=77 + b) for b in range(B1)])
     make_s = time.perf_counter() - t0
     dyns = torch.as_tensor(host, dtype=torch.float32, device=dev)
-    builds0 = FB.ACF1D_CACHE_STATS["builds"]
+    builds0 = _builds("fit.acf1d_batch")
     t0 = time.perf_counter()
     res = FB.scint_params_batch(dyns, dt, df, device=dev)
     first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     res2 = FB.scint_params_batch(dyns, dt, df, device=dev)
     wall_s = time.perf_counter() - t0
-    builds = FB.ACF1D_CACHE_STATS["builds"] - builds0
+    builds = _builds("fit.acf1d_batch") - builds0
     rerun_equal = all(np.array_equal(res[k], res2[k]) for k in keys)
     positive = all(bool(np.all(np.isfinite(res[k]) & (res[k] > 0)))
                    for k in ("tau", "dnu", "amp"))
@@ -3218,13 +3225,13 @@ def scint_phase(da, dev, B1=256, nf1=512, nt1=128, nc2=129, B3=32, nc3=65):
     t0 = time.perf_counter()
     res0, ok0 = A2.fit_acf2d_batch(start3(), variants[0], None, device=dev)
     first_s = time.perf_counter() - t0
-    builds0 = A2.ACF2D_CACHE_STATS["builder_calls"]
+    builds0 = _builds("fit.acf2d_batch")
     t0 = time.perf_counter()
     for v in variants[1:]:
         _, okv = A2.fit_acf2d_batch(start3(), v, None, device=dev)
         check(not okv.any(), "10.3: a repeat lane flagged")
     batch_s = (time.perf_counter() - t0) / 2
-    rebuilt = A2.ACF2D_CACHE_STATS["builder_calls"] - builds0
+    rebuilt = _builds("fit.acf2d_batch") - builds0
     A2.fit_acf2d(start3(), epochs[0], None, precision="highest", device=dev)
     t0 = time.perf_counter()
     looped = [A2.fit_acf2d(start3(), epochs[b], None, precision="highest",
@@ -3808,10 +3815,10 @@ def factory_phase(dev, B, ns, nf, sf_B, sf_ns, sf_pairs=8):
                                      device=dev, **{**sweep(seed), **kw})
 
     (dyn, ok), first_s = host_s(lambda: run(101))
-    builds = FA.SCENARIO_CACHE_STATS["builds"]
+    builds = _builds("sim.factory")
     steady = [host_s(lambda s=s: run(s))[1] for s in (102, 103, 104)]
     steady_s = float(np.mean(steady))
-    rebuilt = FA.SCENARIO_CACHE_STATS["builds"] - builds
+    rebuilt = _builds("sim.factory") - builds
     healthy = bool((ok == 0).all() and torch.isfinite(dyn).all())
     print(f"    {B} screens of {ns}², nf {nf}, column/compensated: first "
           f"call {first_s:.3f} s, steady {steady_s * 1e3:.3f} ms a call "

@@ -54,6 +54,7 @@ accepted and ignored, as the JAX package does off its numpy backend.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -66,6 +67,7 @@ from .fit.fitter import fitter
 from .fit.parameters import Parameters
 from .io.psrflux import RawDynSpec, concatenate_time, load_psrflux, \
     write_psrflux
+from .obs import trace as _trace
 from .ops import acf as acf_ops
 from .ops import fitarc as fitarc_ops
 from .ops import inpaint as inpaint_ops
@@ -89,6 +91,18 @@ _STATE_KEYS = ("dyn", "times", "freqs", "dt", "df", "cwf", "cwt", "ncf_fit",
 _OBS_KEYS = ("tobs", "bw", "nsub", "nchan", "freq", "mjd")
 
 
+def _stage(name):
+    """Run the method inside the program span ``name`` of the
+    instance's observation (``obs.trace.span``)."""
+    def wrap(method):
+        @functools.wraps(method)
+        def run(self, *args, **kwargs):
+            with _trace.span(name, observation=self.observation_id):
+                return method(self, *args, **kwargs)
+        return run
+    return wrap
+
+
 class Dynspec:
     """Dynamic spectrum analysis object on a torch device."""
 
@@ -97,20 +111,25 @@ class Dynspec:
                  mjd=None, backend=None, device=None):
         """Load the psrflux file ``filename`` (:meth:`load_file`) or the
         adapter object ``dyn`` (:meth:`load_dyn_obj`). ``backend`` is the
-        JAX package's and must stay None: the port runs on ``device``."""
+        JAX package's and must stay None: the port runs on ``device``.
+        ``observation_id`` numbers the instance among the process's
+        observations, for the program spans of its work."""
         if backend is not None:
             raise NotImplementedError(
                 "backend= is the JAX package's; the port runs on device=")
-        self.device = resolve_device(device)
-        if filename:
-            self.load_file(filename, verbose=verbose, process=process,
-                           lamsteps=lamsteps, subint_thresh=subint_thresh,
-                           remove_short_subs=remove_short_subs, mjd=mjd)
-        elif dyn is not None:
-            self.load_dyn_obj(dyn, verbose=verbose, process=process,
-                              lamsteps=lamsteps)
-        else:
-            raise ValueError("No dynamic spectrum file or object")
+        self.observation_id = _trace.new_observation()
+        with _trace.span("dynspec.init", observation=self.observation_id):
+            self.device = resolve_device(device)
+            if filename:
+                self.load_file(filename, verbose=verbose, process=process,
+                               lamsteps=lamsteps,
+                               subint_thresh=subint_thresh,
+                               remove_short_subs=remove_short_subs, mjd=mjd)
+            elif dyn is not None:
+                self.load_dyn_obj(dyn, verbose=verbose, process=process,
+                                  lamsteps=lamsteps)
+            else:
+                raise ValueError("No dynamic spectrum file or object")
 
     @classmethod
     def from_reference_state(cls, state, device=None):
@@ -130,6 +149,7 @@ class Dynspec:
         if missing:
             raise KeyError(f"reference state lacks {missing}")
         self = cls.__new__(cls)
+        self.observation_id = _trace.new_observation()
         self.device = resolve_device(device)
         for k in _STATE_KEYS:
             v = state[k]
@@ -522,6 +542,7 @@ class Dynspec:
             return self.trapdyn
         return self.dyn
 
+    @_stage("dynspec.calc_sspec")
     def calc_sspec(self, prewhite=False, halve=True, plot=False,
                    lamsteps=False, input_dyn=None, input_x=None,
                    input_y=None, trap=False, window="hanning",
@@ -541,10 +562,13 @@ class Dynspec:
         else:
             dyn = input_dyn
         dlam = self.dlam if lamsteps else None
-        fdop, _, sec = sspec_ops.secondary_spectrum(
-            dyn, self.dt, self.df, window=window, window_frac=window_frac,
-            prewhite=prewhite, halve=halve, dlam=dlam, device=self.device)
-        sec = sec.cpu().numpy()
+        with _trace.span("sspec.transform"):
+            fdop, _, sec = sspec_ops.secondary_spectrum(
+                dyn, self.dt, self.df, window=window,
+                window_frac=window_frac, prewhite=prewhite, halve=halve,
+                dlam=dlam, device=self.device)
+        with _trace.span("sspec.fetch"):
+            sec = sec.cpu().numpy()
         nf, nt = np.shape(dyn)
         _, tdel, beta = sspec_ops.sspec_axes(nf, nt, self.dt, self.df,
                                              halve=halve, dlam=dlam)
@@ -1180,6 +1204,7 @@ class Dynspec:
     # ------------------------------------------------------------------
     # θ-θ pipeline
     # ------------------------------------------------------------------
+    @_stage("dynspec.prep_thetatheta")
     def prep_thetatheta(self, fw=.1, npad=3, verbose=False,
                         fitting_proc="standard", **kwargs):
         """Chunk geometry + η range + edges for θ-θ (η in s³, edges
@@ -1359,6 +1384,7 @@ class Dynspec:
             plt.show()
         return fig
 
+    @_stage("dynspec.fit_thetatheta")
     def fit_thetatheta(self, verbose=False, plot=False, pool=None,
                        time_avg=False, mesh=None, eig="kernel"):
         """Per-chunk η(f, t) searches → weighted global η ∝ f⁻² fit
@@ -1395,22 +1421,7 @@ class Dynspec:
             self._fit_thetatheta_sharded(mesh, eig=eig, verbose=verbose)
         for cf in range(self.ncf_fit if mesh is None else 0):
             if self.nct_fit > 1:
-                chunks, tlist, freq2 = [], [], None
-                for ct in range(self.nct_fit):
-                    dspec2, freq2, time2 = self._chunk(cf, ct)
-                    chunks.append(dspec2)
-                    tlist.append(time2)
-                etas, edges = self._thth_row_geometry(freq2)
-                if self.thetatheta_proc == "thin":
-                    results = self._thin_search(chunks, freq2, tlist, etas,
-                                                edges)
-                else:
-                    results = thth_search.multi_chunk_search(
-                        chunks, freq2, tlist, etas, edges, fw=self.fw,
-                        npad=self.npad,
-                        coher=(self.thetatheta_proc != "incoherent"),
-                        tau_mask=self.thth_tau_mask, eig=eig,
-                        device=self.device)
+                results = self._fit_row(cf, eig)
             else:
                 results = [self.thetatheta_single(cf, 0, verbose=verbose,
                                                   eig=eig)]
@@ -1442,12 +1453,33 @@ class Dynspec:
             print(f"fit_thetatheta: {n_quar} chunk(s) quarantined "
                   "(non-finite input/CS power; see eta_evo_ok)")
 
-        self.ththeta, self.ththetaerr = global_eta_fit(
-            self.eta_evo, self.eta_evo_err, self.f0s, self.fref, time_avg)
+        with _trace.span("thth.global_fit"):
+            self.ththeta, self.ththetaerr = global_eta_fit(
+                self.eta_evo, self.eta_evo_err, self.f0s, self.fref,
+                time_avg)
         if plot:
             from . import plotting
 
             plotting.plot_eta_evolution(self, time_avg=time_avg)
+
+    def _fit_row(self, cf, eig):
+        """The fused search of chunk row ``cf`` (two or more chunks),
+        in the program span ``thth.row``."""
+        with _trace.span("thth.row", cf=cf, chunks=self.nct_fit,
+                         proc=self.thetatheta_proc):
+            with _trace.span("thth.row.chunk"):
+                chunks, tlist, freq2 = [], [], None
+                for ct in range(self.nct_fit):
+                    dspec2, freq2, time2 = self._chunk(cf, ct)
+                    chunks.append(dspec2)
+                    tlist.append(time2)
+            etas, edges = self._thth_row_geometry(freq2)
+            if self.thetatheta_proc == "thin":
+                return self._thin_search(chunks, freq2, tlist, etas, edges)
+            return thth_search.multi_chunk_search(
+                chunks, freq2, tlist, etas, edges, fw=self.fw,
+                npad=self.npad, coher=(self.thetatheta_proc != "incoherent"),
+                tau_mask=self.thth_tau_mask, eig=eig, device=self.device)
 
     def _fit_thetatheta_sharded(self, mesh, verbose=False, eig="kernel"):
         """The whole fitting chunk grid over ``mesh``: every (cf, ct) chunk

@@ -17,7 +17,8 @@ Nothing is rebuilt per epoch: the lag steps ``dt``/``df`` are inputs of
 the built model, crops are padded to ``SHAPE_BUCKETS`` with zero-weight
 borders and per-epoch rescaled lag steps that keep the original lag
 positions exact, and the built fits are cached on the static
-configuration (a FIFO of 16; ``ACF2D_CACHE_STATS`` counts builds).
+configuration (a FIFO of 16; ``obs.retrace`` counts builds at site
+``fit.acf2d_batch``).
 
 Precision: ``"default"`` runs float32/complex64 rows with the static
 e-field kernel SVD-factorised and the ``xtol`` step exit;
@@ -53,7 +54,6 @@ ACF2D_GROUP_SIZE = 8
 
 _SOLVER_CACHE = {}
 _SOLVER_CACHE_SIZE = 16
-ACF2D_CACHE_STATS = {"builder_calls": 0}
 
 
 def _resolve_precision(precision):
@@ -159,9 +159,8 @@ def make_acf2d_fit_one(nt_crop, nf_crop, ar, alpha, theta, tau0, dt0, vary,
 
 def _batch_program(key, make_fit):
     """The built fit for ``key`` from a FIFO of 16; each miss calls
-    ``make_fit`` and adds one to ``ACF2D_CACHE_STATS["builder_calls"]``."""
+    ``make_fit`` and counts one build at site ``fit.acf2d_batch``."""
     def build():
-        ACF2D_CACHE_STATS["builder_calls"] += 1
         _retrace.record_build("fit.acf2d_batch", key)
         return make_fit()
 

@@ -30,12 +30,11 @@ from .models import scint_acf_model
 F64 = torch.float64
 
 # built 1-D fitters and serve programs, keyed on the static
-# configuration and the device (FIFO of 16 each); every miss adds one to
-# the matching count
+# configuration and the device (FIFO of 16 each); every miss counts one
+# build at its ``obs.retrace`` site
 _ACF1D_CACHE = {}
 _SERVE_CACHE = {}
 _CACHE_SIZE = 16
-ACF1D_CACHE_STATS = {"builds": 0, "serve_builds": 0}
 
 
 def acf_cuts_batch(dyns, device=None):
@@ -152,14 +151,14 @@ def make_acf1d_fit_one(nt, nf, dt, df, alpha=5 / 3, n_iter=100,
 def make_acf1d_batch(nt, nf, dt, df, alpha=5 / 3, n_iter=100,
                      bartlett=True, weighted=True, device=None):
     """:func:`make_acf1d_fit_one`, built once per static configuration and
-    device and cached (``ACF1D_CACHE_STATS["builds"]`` counts builds),
+    device and cached (``obs.retrace`` counts builds at site
+    ``fit.acf1d_batch``),
     so a survey's repeated geometry builds nothing."""
     dev = resolve_device(device)
     key = (int(nt), int(nf), float(dt), float(df), float(alpha),
            int(n_iter), bool(bartlett), bool(weighted), str(dev))
 
     def build():
-        ACF1D_CACHE_STATS["builds"] += 1
         _retrace.record_build("fit.acf1d_batch", key)
         return make_acf1d_fit_one(nt, nf, dt, df, alpha=alpha, n_iter=n_iter,
                                   bartlett=bartlett, weighted=weighted,
@@ -221,13 +220,12 @@ def make_scint_params_serve(B, nf, nt, dt, df, alpha=5 / 3, n_iter=100,
     finite) and comes back as NaN results, while every healthy lane is
     bitwise what it would be beside any other lane content: nothing in
     the program mixes lanes. Cached per static key and device
-    (``ACF1D_CACHE_STATS["serve_builds"]``)."""
+    (builds counted at site ``fit.scint_params_serve``)."""
     dev = resolve_device(device)
     key = (int(B), int(nf), int(nt), float(dt), float(df), float(alpha),
            int(n_iter), bool(bartlett), bool(weighted), str(dev))
 
     def build():
-        ACF1D_CACHE_STATS["serve_builds"] += 1
         _retrace.record_build("fit.scint_params_serve", key)
         fit_one = make_acf1d_fit_one(nt, nf, dt, df, alpha=alpha,
                                      n_iter=n_iter, bartlett=bartlett,

@@ -211,16 +211,15 @@ class FleetWorker:
         # span the runner records is flushed journal-adjacently (on
         # the heartbeat cadence, so spans survive a SIGKILL up to the
         # last beat) for the pod's cross-process trace merge
-        # (obs/trace.py:merge_traces). perf_counter spans are shifted
-        # onto the wall clock by a once-sampled anchor so fragments
-        # from different processes share one timeline.
+        # (obs/trace.py:merge_traces). The timeline's spans are on the
+        # wall clock (utils/profiling.py:clock), so fragments from
+        # different processes share one timeline.
         self.timeline = None
         self.trace_path = os.path.join(self.workdir, "trace.jsonl")
         if trace_spool:
             from ..utils.profiling import StageTimeline
 
             self.timeline = StageTimeline()
-        self._trace_anchor = time.time() - time.perf_counter()
         self._trace_flushed = 0
         self._trace_ids_flushed = set()
 
@@ -279,8 +278,7 @@ class FleetWorker:
             lines.append(json.dumps(
                 {"worker": self.worker_id, "stage": stage,
                  "epoch": str(epoch),
-                 "t0": round(t0 + self._trace_anchor, 6),
-                 "t1": round(t1 + self._trace_anchor, 6)}))
+                 "t0": round(t0, 6), "t1": round(t1, 6)}))
         self.fs.append_text(self.trace_path, "\n".join(lines) + "\n")
         self._trace_flushed += len(new)
         self._trace_ids_flushed.update(new_ids)

@@ -3,10 +3,10 @@
 The port's own copy of ``scintools_tpu/obs/retrace.py``. The port has
 no jit, but it keeps built functions (with their device grids, plans
 and index maps) per geometry where the JAX package keeps jitted
-programs: ``ops.fitarc.ARC_FIT_CACHE_STATS``, the acf1d and acf2d
-builders, ``thth.search.FUSED_CACHE_STATS``, the scenario factory and
-the spectrum-database FIFO. A silent rebuild per call costs what a
-retrace did, so:
+programs: the arc fit's device functions, the acf1d and acf2d
+builders, the fused θ-θ searches, the scenario factory and the
+spectrum-database FIFO. A silent rebuild per call costs what a retrace
+did, so:
 
 - every cached factory calls :func:`record_build` exactly on a cache
   MISS;
@@ -14,6 +14,9 @@ retrace did, so:
   counts and distinct-geometry counts (mirrored into the metrics
   registry as ``jit_builds_total{site=...}``, the JAX package's name,
   so the RunReport and Prometheus export carry them);
+- while a torch profiler runs, each build also leaves an instant
+  ``build`` record carrying its ``site`` among the program spans
+  (:func:`.trace.program_spans`), on the device trace's clock;
 - :func:`retrace_guard` is the regression gate: wrap a block that
   repeats an already-built workload and it raises
   :class:`RetraceRegression` if ANY site (or a named subset) built
@@ -27,6 +30,8 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
+
+from . import trace as _trace
 
 _LOCK = threading.Lock()
 _SITES = {}     # site -> {"builds": int, "keys": set of key hashes}
@@ -44,6 +49,7 @@ def record_build(site, key=None, seconds=None):
     the caller measured it (forwarded to the program cost ledger as
     a ``compile`` sample)."""
     site = str(site)
+    _trace.instant("build", site=site)
     with _LOCK:
         rec = _SITES.setdefault(site, {"builds": 0, "keys": set()})
         rec["builds"] += 1

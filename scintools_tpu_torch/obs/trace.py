@@ -1,12 +1,14 @@
-"""Chrome-trace (Perfetto-loadable) export of survey stage spans.
+"""Chrome-trace (Perfetto-loadable) export of survey stage spans, and
+the program's own spans on the profiler's clock.
 
 The port's own copy of ``scintools_tpu/obs/trace.py``.
 ``StageTimeline`` (utils/profiling.py) records ``(stage, epoch, t0,
-t1)`` wall-clock spans from the prefetch loader threads, the dispatch
-loop, the fence points, and the journal writer thread. This module
-turns that span list into the Chrome Trace Event JSON format — the
-``{"traceEvents": [...]}`` array of ``"ph": "X"`` complete events —
-which loads directly in ``chrome://tracing`` and Perfetto.
+t1)`` wall-clock spans (seconds of ``time.time_ns()``) from the
+prefetch loader threads, the dispatch loop, the fence points, and the
+journal writer thread. This module turns that span list into the
+Chrome Trace Event JSON format — the ``{"traceEvents": [...]}`` array
+of ``"ph": "X"`` complete events — which loads directly in
+``chrome://tracing`` and Perfetto.
 
 Layout conventions (the JAX package's, so one validator reads both):
 
@@ -18,18 +20,38 @@ Layout conventions (the JAX package's, so one validator reads both):
 - each event's ``args`` carries the epoch id and its per-epoch
   ``trace_id``, so every row of one epoch's lifecycle is searchable
   by one string in the trace viewer.
+
+Program spans (the port's own, :func:`span`): the host stages of the
+hot path (``dynspec.*``, ``sspec.*``, ``thth.*``) each leave a
+:class:`SpanRecord` (name, id, parent id, observation id, start and
+end in ns of ``time.time_ns()``, the clock ``torch.profiler`` stamps
+host events with, and attributes) in a bounded process-wide ring while
+a torch profiler runs, and only then; :func:`program_spans` reads the
+ring over an interval of that clock, and
+:func:`program_trace_events` lays it out as a track of a profiler's
+Chrome trace. A span never opens a ``record_function``: the profiler
+mirrors those onto the device's timeline, where a reader of the trace
+would count them as device work.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
+import itertools
 import json
 import os
+import time
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def chrome_trace_events(spans, trace_ids=None, pid=None,
                         process_name="scintools_tpu_torch survey"):
     """Build the Chrome-trace event list from ``(stage, epoch, t0,
-    t1)`` spans (absolute ``perf_counter`` seconds). ``trace_ids``
+    t1)`` spans (absolute seconds). ``trace_ids``
     optionally maps epoch id → trace-id string. Returns a list of
     event dicts: metadata events first, then the ``"X"`` spans sorted
     by ``ts``."""
@@ -241,4 +263,150 @@ def validate_chrome_trace(doc):
         if last_ts is not None and e["ts"] < last_ts:
             raise ValueError("X events not sorted by ts")
         last_ts = e["ts"]
+    return events
+
+
+# ---------------------------------------------------------------------
+# program spans — the host stages of the hot path, recorded while a
+# torch profiler runs, on its clock
+# ---------------------------------------------------------------------
+
+RING = collections.deque(maxlen=1 << 16)
+_SPAN_IDS = itertools.count(1)
+_OBSERVATIONS = itertools.count(1)
+# (span id, observation id) of the innermost open span of this context
+_OPEN = contextvars.ContextVar("scintools_tpu_torch_open_span",
+                               default=None)
+_OFF = contextlib.nullcontext()
+_now = time.time_ns
+
+
+class SpanRecord:
+    """One finished program span (or, named ``build``, an instant: a
+    cache miss of a built-function factory, its ``site`` an
+    attribute). ``start_ns``/``end_ns`` are ``time.time_ns()``;
+    ``parent`` is the enclosing span's ``span_id`` (None at the root);
+    ``observation`` the id of the ``Dynspec`` the work belongs to.
+    :attr:`device_ms` is the span's time on the device, read from its
+    CUDA events when asked (None without them)."""
+
+    __slots__ = ("name", "span_id", "parent", "observation", "start_ns",
+                 "end_ns", "attrs", "events")
+
+    def __init__(self, name, span_id, parent, observation, start_ns,
+                 end_ns=None, attrs=None, events=None):
+        self.name, self.span_id, self.parent = name, span_id, parent
+        self.observation = observation
+        self.start_ns, self.end_ns = start_ns, end_ns
+        self.attrs = attrs or {}
+        self.events = events
+
+    @property
+    def device_ms(self):
+        if self.events is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return float(start.elapsed_time(end))
+
+
+def new_observation():
+    """A fresh observation id (a process-wide count from 1)."""
+    return next(_OBSERVATIONS)
+
+
+class _Span:
+    __slots__ = ("record", "device", "token")
+
+    def __init__(self, name, observation, device, attrs):
+        self.record = SpanRecord(name, None, None, observation, None,
+                                 attrs=attrs)
+        self.device = device
+
+    def __enter__(self):
+        rec = self.record
+        outer = _OPEN.get()
+        rec.span_id = next(_SPAN_IDS)
+        if outer is not None:
+            rec.parent = outer[0]
+            if rec.observation is None:
+                rec.observation = outer[1]
+        self.token = _OPEN.set((rec.span_id, rec.observation))
+        if self.device is not None and torch.device(
+                self.device).type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record(stream)
+        rec.start_ns = _now()
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.record
+        rec.end_ns = _now()
+        if rec.events is not None:
+            rec.events[1].record(torch.cuda.current_stream(self.device))
+        _OPEN.reset(self.token)
+        RING.append(rec)
+        return False
+
+
+def span(name, observation=None, device=None, **attrs):
+    """Context manager of the program span ``name`` with attributes
+    ``attrs``: while a torch profiler runs it leaves a
+    :class:`SpanRecord` in :data:`RING` when it closes; otherwise it
+    is one check and records nothing. ``observation`` (default: the
+    enclosing span's) is the observation id. ``device``, the device
+    the span's tensors are on, also times the span on the device with
+    a pair of CUDA events on its current stream when it is a CUDA
+    device (read lazily as :attr:`SpanRecord.device_ms`)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, observation, device, attrs)
+
+
+def instant(name, **attrs):
+    """An instant record ``name`` (start = end) under the open span,
+    while a torch profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    outer = _OPEN.get()
+    t = _now()
+    RING.append(SpanRecord(name, next(_SPAN_IDS),
+                           outer[0] if outer else None,
+                           outer[1] if outer else None, t, t, attrs))
+
+
+def program_spans(lo_ns=None, hi_ns=None):
+    """The records of :data:`RING` that overlap [``lo_ns``, ``hi_ns``]
+    (ns of ``time.time_ns()``; None: unbounded), oldest first."""
+    lo = -1 if lo_ns is None else lo_ns
+    hi = float("inf") if hi_ns is None else hi_ns
+    return [r for r in list(RING) if r.end_ns >= lo and r.start_ns <= hi]
+
+
+def program_trace_events(records, base_ns, pid="scintools program"):
+    """``records`` as Chrome-trace events on a track of their own
+    (``pid``, one ``tid`` per observation), ``ts`` in µs from
+    ``base_ns`` (a profiler trace's ``baseTimeNanoseconds``): the
+    spans as ``"X"`` events, builds as ``"i"`` instants, each with its
+    ids and attributes in ``args``."""
+    tids = sorted({r.observation or 0 for r in records})
+    events = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+               "args": {"name": "scintools_tpu_torch program spans"}}]
+    events += [{"name": "thread_name", "ph": "M", "pid": pid, "tid": t,
+                "args": {"name": f"observation {t}" if t
+                         else "no observation"}} for t in tids]
+    for r in records:
+        args = {"span_id": r.span_id, "parent": r.parent,
+                **{k: v if isinstance(v, (int, float, str, bool))
+                   else repr(v) for k, v in r.attrs.items()}}
+        ev = {"name": r.name, "cat": "program", "pid": pid,
+              "tid": r.observation or 0,
+              "ts": round((r.start_ns - base_ns) / 1e3, 3), "args": args}
+        if r.end_ns == r.start_ns:
+            ev.update(ph="i", s="t")
+        else:
+            ev.update(ph="X", dur=round((r.end_ns - r.start_ns) / 1e3, 3))
+        events.append(ev)
     return events

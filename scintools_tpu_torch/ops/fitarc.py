@@ -28,10 +28,9 @@ from .normsspec import make_arc_profile_batch_fn, normalise_sspec
 
 # fit_arc_batch's built functions and their device grids, keyed on the
 # geometry, the fit parameters and the device (FIFO of 8); every miss
-# adds one to ``builds``
+# counts one build at the ``obs.retrace`` site ``ops.arc_fit_device``
 _ARC_FIT_CACHE = {}
 _ARC_FIT_CACHE_SIZE = 8
-ARC_FIT_CACHE_STATS = {"builds": 0}
 
 
 @dataclass
@@ -276,7 +275,6 @@ def _arc_fit_fn(yaxis, fdop, delmax, startbin, cutmid, numsteps, nsmooth,
            formulation("ops.arc_profile_interp", dev.type))
 
     def build():
-        ARC_FIT_CACHE_STATS["builds"] += 1
         _retrace.record_build("ops.arc_fit_device", key)
         if mesh is not None:
             from ..parallel import survey as par_survey
@@ -327,7 +325,8 @@ def fit_arc_batch(sspecs, yaxis, fdop, delmax=None, numsteps=1e4,
     call of the arc-profile kernel on ``device`` (its plain version on
     the CPU). The function this builds and its device grids are kept per
     geometry, fit parameters and device (a FIFO of 8), so a survey's
-    later batches build nothing (``ARC_FIT_CACHE_STATS``).
+    later batches build nothing (``obs.retrace.compile_counts()`` site
+    ``ops.arc_fit_device``).
 
     ``sspecs_device`` is the JAX package's name for spectra already on
     the device: given alone it stands for ``sspecs``; given with

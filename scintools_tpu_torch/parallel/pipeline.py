@@ -42,6 +42,7 @@ import torch
 
 from .checkpoint import EpochJournal
 from ..obs import metrics as _metrics
+from ..utils.profiling import clock
 
 
 @dataclass
@@ -146,7 +147,7 @@ class PrefetchLoader:
                 epoch_id, payload, slot = self._tasks.get(timeout=0.1)
             except queue.Empty:
                 continue
-            t0 = time.perf_counter()
+            t0 = clock()
             try:
                 if self._load_fn is not None:
                     payload = self._load_fn(payload)
@@ -157,7 +158,7 @@ class PrefetchLoader:
                 # per-epoch: the runner quarantines it; a crash here
                 # would kill the whole pipeline for one bad file
                 out = LoadedEpoch(epoch_id, error=e)
-            t1 = time.perf_counter()
+            t1 = clock()
             out.load_s = t1 - t0
             _metrics.histogram(
                 "survey_load_seconds",
@@ -296,7 +297,7 @@ class AsyncJournalWriter:
                     self._q.put(self._CLOSE)   # re-deliver after batch
                     break
                 batch.append(nxt)
-            t0 = time.perf_counter()
+            t0 = clock()
             try:
                 lines = [self.journal.format_line(epoch, **fields)
                          for epoch, fields in batch]
@@ -315,7 +316,7 @@ class AsyncJournalWriter:
                 ).inc()
                 if self._timeline is not None:
                     self._timeline.record(batch[0][0], self._stage,
-                                          t0, time.perf_counter())
+                                          t0, clock())
             except BaseException as e:  # noqa: BLE001 — surfaced at
                 # the next append()/drain(); a silent loss here would
                 # break the resume guarantee

@@ -59,7 +59,7 @@ from ..parallel.pipeline import AsyncJournalWriter, PrefetchLoader
 from ..robust import runner as _runner
 from ..robust.runner import EpochOutcome
 from ..utils import slog
-from ..utils.profiling import StageTimeline
+from ..utils.profiling import StageTimeline, clock
 from . import lanes as _lanes
 from .store import ResultsStore
 
@@ -440,7 +440,7 @@ class SurveyService:
             self._index += 1
             self.timeline.assign_trace(
                 key, _runner._trace_id(self._index - 1, key))
-            now = time.perf_counter()
+            now = clock()
             self.timeline.record(key, "ingest", item.t_arrive, now)
             if key in self._done_records:
                 self._rec.tally["n_epochs"] += 1
@@ -548,7 +548,7 @@ class SurveyService:
         # the assembler and the staging clock are loop-thread-only
         # (staged by _route, drained by _maybe_assemble and
         # _dispatch_group, all in _loop)
-        self._staged_t[key] = time.perf_counter()
+        self._staged_t[key] = clock()
         self._assembler.stage((key, loaded.payload), tenant, geometry)
 
     def _maybe_assemble(self, idle):
@@ -574,7 +574,7 @@ class SurveyService:
             t_staged = self._staged_t.pop(key, None)
             if t_staged is not None:
                 self.timeline.record(key, "assemble", t_staged,
-                                     time.perf_counter())
+                                     clock())
             with self._lock:
                 st = self._states.get(key, {})
                 st["status"] = "in_flight"
@@ -606,7 +606,7 @@ class SurveyService:
         descent), then per-lane publish in group order."""
         keys = [k for k, _ in entries]
         payloads = dict(entries)
-        now = time.perf_counter()
+        now = clock()
         for key in keys:
             t_staged = self._staged_t.pop(key, None)
             if t_staged is not None:
@@ -639,13 +639,13 @@ class SurveyService:
             geometry=repr(geometry) if geometry is not None else None,
             tenants=tenants)
         outs = []
-        t0 = time.perf_counter()
+        t0 = clock()
         _runner.run_group(
             entries, self._group_process, self.process, self.tiers,
             self.retries, self.validate or _runner.default_lane_validate,
             lambda eid, out: outs.append((eid, out)),
             epoch_label=f"group[{keys[0]}+{len(entries)}]")
-        t1 = time.perf_counter()
+        t1 = clock()
         # the measured per-bucket batch service time — the gain
         # scheduler's input and the /ledger endpoint's content
         _ledger.record("serve.batch", t1 - t0, "steady", shape=bucket)
@@ -659,7 +659,7 @@ class SurveyService:
             # per-lane fence span: program return → this lane's
             # publish (the lane's wait behind its groupmates)
             self.timeline.record(eid, "fence", t1,
-                                 time.perf_counter())
+                                 clock())
             self._publish(out)
             if self._hooks:
                 self._defer(self._run_hooks, eid, payloads.get(str(eid)),
@@ -805,7 +805,7 @@ class SurveyService:
 
     def _publish(self, out):
         key = str(out.epoch)
-        t0 = time.perf_counter()
+        t0 = clock()
         with self._lock:
             self._rec.record(out)
             st = self._states.setdefault(key, {})
@@ -813,7 +813,7 @@ class SurveyService:
             st["tier"] = out.tier
             if out.status == "quarantined":
                 st["error_class"] = out.error_class
-            t_pub = time.perf_counter()
+            t_pub = clock()
             t_in = st.get("t_ingest")
             tenant = st.get("tenant")
             if t_in is not None:
@@ -851,7 +851,7 @@ class SurveyService:
                         help="quarantined epochs, by tenant "
                              "namespace").labels(
                         tenant=self._tenant_label(tenant)).inc()
-        self.timeline.record(key, "publish", t0, time.perf_counter())
+        self.timeline.record(key, "publish", t0, clock())
         if out.status == "ok":
             self._warm = True            # loop-thread latch (_warmup)
 

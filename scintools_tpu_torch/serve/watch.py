@@ -41,6 +41,7 @@ import time
 from dataclasses import dataclass, field
 
 from ..utils import slog
+from ..utils.profiling import clock
 from .store import content_hash
 
 
@@ -50,13 +51,14 @@ class ArrivedEpoch:
     basename / caller-chosen id), ``payload`` what the pipeline
     loader receives (a path for the spool, anything for the queue),
     ``sha`` the content hash when the source could compute one, and
-    ``t_arrive`` the perf-counter instant the source admitted it (the
-    start of the epoch's ingest→publish latency span)."""
+    ``t_arrive`` the instant the source admitted it, in seconds of
+    ``utils.profiling.clock`` (the start of the epoch's ingest→publish
+    latency span)."""
 
     epoch: str
     payload: object
     sha: str = None
-    t_arrive: float = field(default_factory=time.perf_counter)
+    t_arrive: float = field(default_factory=clock)
     #: multi-tenant namespace the arrival belongs to:
     #: admission control, fair-share lane quotas, and per-tenant
     #: metrics key off this; None = the daemon's default tenant

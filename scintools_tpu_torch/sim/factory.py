@@ -91,7 +91,6 @@ register_formulation(
         "full-plane fft2/ifft2")
 
 #: built functions per geometry, formulations and device (a FIFO of 32)
-SCENARIO_CACHE_STATS = {"builds": 0}
 _SCENARIO_CACHE = {}
 _SCENARIO_CACHE_SIZE = 32
 
@@ -404,7 +403,7 @@ def make_scenario_factory(ns=128, nf=128, dlam=0.25, rf=1.0, ds=0.01,
                           device=None):
     """:func:`build_scenario_fn`, built once per geometry, resolved
     formulations and device and kept in a FIFO of 32
-    (``SCENARIO_CACHE_STATS["builds"]`` counts the builds)."""
+    (``obs.retrace`` counts the builds at site ``sim.factory``)."""
     dev = resolve_device(device)
     _, screen_f, prop_f = _formulations(precision, screen, propagate,
                                         dev.type)
@@ -415,7 +414,6 @@ def make_scenario_factory(ns=128, nf=128, dlam=0.25, rf=1.0, ds=0.01,
            output, str(dev))
 
     def build():
-        SCENARIO_CACHE_STATS["builds"] += 1
         _retrace.record_build("sim.factory", key)
         return build_scenario_fn(
             ns=ns, nf=nf, dlam=dlam, rf=rf, ds=ds, inner=inner,

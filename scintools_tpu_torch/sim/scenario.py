@@ -70,7 +70,6 @@ def _no_mark(name):
 
 _SSPEC_DB_CACHE = {}
 _SSPEC_DB_CACHE_SIZE = 16
-SSPEC_DB_CACHE_STATS = {"builds": 0}
 
 
 def scenario_truths(mb2, ar, psi, alpha, rf=1.0, ds=0.02, dt=30.0,
@@ -104,7 +103,8 @@ def make_sspec_db_batch(nt, nf, window="hanning", window_frac=0.1,
                         device=None):
     """``fn(dyns[B, nf, nt]) → sec_db[B, ntdel, nfdop]``: the batched
     secondary spectrum in dB on ``device``, built once per geometry and
-    device (a FIFO of 16, ``SSPEC_DB_CACHE_STATS["builds"]``)."""
+    device (a FIFO of 16; builds counted at site
+    ``sim.scenario_sspec``)."""
     from ..ops.sspec import secondary_spectrum_power
     from ..ops.windows import get_window
 
@@ -112,7 +112,6 @@ def make_sspec_db_batch(nt, nf, window="hanning", window_frac=0.1,
     key = (int(nt), int(nf), window, float(window_frac), str(dev))
 
     def build():
-        SSPEC_DB_CACHE_STATS["builds"] += 1
         _retrace.record_build("sim.scenario_sspec", key)
         wins = get_window(nt, nf, window=window, frac=window_frac)
 

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..backend import formulation, register_formulation, resolve_device
+from ..obs import trace as _trace
 from ..ops.sspec import chunk_conjugate_spectrum_batch
 from ..robust import guards
 from .core import _EPS, dominant_eig_power, th_cents_from_edges, unit_checks
@@ -110,15 +111,18 @@ def make_multi_eval_fn(tau, fd, edges, iters=200, method="auto",
     the CUDA card, see :func:`backend.resolve_device`).
 
     ``method`` is one of :data:`METHODS` (see the module docstring).
+    Every method exposes its two stages, ``fn(CS_ri, etas) ==
+    fn.solve(fn.gather(CS_ri, etas))``: ``fn.gather`` is the masked θ-θ
+    gather and ``fn.solve`` the eigensolver on its output. For
     ``"auto"``/``"pallas"`` (the warm-start eigensolver) and
-    ``"square"`` (the cold squaring start alone, per matrix) expose their
-    stages: ``fn.gather(CS_ri, etas)`` is the masked θ-θ gather,
-    returning the padded (B, neta, 2, N, N) float32 batch, and
-    ``fn.solve(a_ri)`` the eigensolver on it. ``eig='kernel'``
-    dispatches by device (:func:`batched_eig_warmstart`,
-    :func:`batched_eig_cold`: the kernel on a CUDA tensor, which launches
-    or raises); ``eig='plain'`` always runs the plain PyTorch version
-    (the reference the kernel is held to). ``"warm"`` and ``"power"``
+    ``"square"`` (the cold squaring start alone, per matrix) the gather
+    returns the padded (B, neta, 2, N, N) float32 batch; for ``"power"``
+    the (B, neta, n, n) and for ``"warm"`` the (neta, B, n, n) complex64
+    matrices. ``eig='kernel'`` dispatches by device
+    (:func:`batched_eig_warmstart`, :func:`batched_eig_cold`: the kernel
+    on a CUDA tensor, which launches or raises); ``eig='plain'`` always
+    runs the plain PyTorch version (the reference the kernel is held
+    to). ``"warm"`` and ``"power"``
     run in plain PyTorch on any device, as the JAX package runs them in
     XLA."""
     if eig not in ("kernel", "plain"):
@@ -185,26 +189,22 @@ def make_multi_eval_fn(tau, fd, edges, iters=200, method="auto",
         return a_ri
 
     if method == "power":
-        def fn(CS_ri, etas):
+        def gather(CS_ri, etas):
             # chunk-major and contiguous: each power step's batched
             # product would otherwise copy the permuted stack
-            thth = build_batch(CS_ri, etas).permute(3, 0, 1, 2).contiguous()
+            return build_batch(CS_ri, etas).permute(3, 0, 1, 2).contiguous()
+
+        def solve(thth):
             lam, _ = dominant_eig_power(thth, iters=iters)
             return lam.abs()
-
-        fn.build_batch, fn.n_th = build_batch, n_th
-        return fn
-
-    if method == "warm":
-        def fn(CS_ri, etas):
+    elif method == "warm":
+        def gather(CS_ri, etas):
             # (neta, B, n, n): the scan walks η, every chunk at once
-            A = build_batch(CS_ri, etas).permute(0, 3, 1, 2).contiguous()
+            return build_batch(CS_ri, etas).permute(0, 3, 1, 2).contiguous()
+
+        def solve(A):
             return _eta_scan(A, iters, warm_iters).T
-
-        fn.build_batch, fn.n_th = build_batch, n_th
-        return fn
-
-    if method == "square":
+    elif method == "square":
         cold = batched_eig_cold if eig == "kernel" else batched_eig_cold_plain
 
         def solve(a_ri):
@@ -578,7 +578,10 @@ def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
     mean-pad → rfft2 conjugate spectrum (+ health guards) → masked
     θ-θ gather → eigen curve (:func:`make_multi_eval_fn` with ``method``,
     ``iters``, ``squarings``, ``warm_iters`` and ``eig``) → closed-form
-    parabola peak fit → health bitmask and quarantine. The geometry is
+    parabola peak fit → health bitmask and quarantine, the four stages
+    in the program spans ``thth.cs``, ``thth.gather``, ``thth.eig`` and
+    ``thth.peak``, each timed on the device too while a profiler runs
+    (``obs.trace.span``). The geometry is
     baked in on the host; the raw chunk stack is the only host→device
     copy. ``warm_iters=None`` takes the JAX package's per-method
     default: 64 for the ``"warm"`` η-scan (it has no restarts), 24
@@ -602,13 +605,18 @@ def make_fused_search_fn(tau, fd, edges, nf, nt, npad=3, coher=True,
                                eig=eig, device=device)
 
     def fn(dspecs, etas):
-        cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep,
-                                              coher, cs_method=cs_method)
-        eigs = multi(cs_ri, etas)
-        eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
-            etas, eigs, fw=fw, with_ok=True)
-        eta, sig, popt, ok = _health_and_quarantine(
-            eigs, in_ok, cs_ok, fit_ok, eta, sig, popt)
+        with _trace.span("thth.cs", device=device):
+            cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep,
+                                                  coher, cs_method=cs_method)
+        with _trace.span("thth.gather", device=device):
+            a = multi.gather(cs_ri, etas)
+        with _trace.span("thth.eig", device=device):
+            eigs = multi.solve(a)
+        with _trace.span("thth.peak", device=device):
+            eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
+                etas, eigs, fw=fw, with_ok=True)
+            eta, sig, popt, ok = _health_and_quarantine(
+                eigs, in_ok, cs_ok, fit_ok, eta, sig, popt)
         return eigs, eta, sig, popt, ok
 
     return fn
@@ -622,7 +630,9 @@ def make_fused_thin_search_fn(tau, fd, edges, edges_arclet, center_cut, nf,
     etas[neta]) → (σ[B, neta], eta[B], eta_sig[B], popt[B, 3], ok[B])``.
     Raw chunks in; mean-pad → rfft2 conjugate spectrum (|CS|² with
     ``coher=False``) → :func:`make_thin_eval_fn` → closed-form peak fit
-    → health bitmask out. ``fn.thin`` is the evaluator, for timing its
+    → health bitmask out; the spans are the standard search's, with the
+    two-curve θ-θ and its Gram as ``thth.gather`` and the power steps
+    as ``thth.eig``. ``fn.thin`` is the evaluator, for timing its
     stages."""
     device = resolve_device(device)
     tau_a, tau_keep = _tau_keep_mask(tau, tau_mask)
@@ -635,13 +645,19 @@ def make_fused_thin_search_fn(tau, fd, edges, edges_arclet, center_cut, nf,
     cs_method = formulation("ops.cs", device.type)
 
     def fn(dspecs, etas):
-        cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(dspecs, npad, tau_keep, coher,
-                                              power=True, cs_method=cs_method)
-        sigs = thin(cs_ri, etas)
-        eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
-            etas, sigs, fw=fw, with_ok=True)
-        eta, sig, popt, ok = _health_and_quarantine(
-            sigs, in_ok, cs_ok, fit_ok, eta, sig, popt)
+        with _trace.span("thth.cs", device=device):
+            cs_ri, in_ok, cs_ok = _chunk_cs_to_ri(
+                dspecs, npad, tau_keep, coher, power=True,
+                cs_method=cs_method)
+        with _trace.span("thth.gather", device=device):
+            gram, scale = thin.gram(thin.build(cs_ri, etas))
+        with _trace.span("thth.eig", device=device):
+            sigs = thin.solve(gram, scale)
+        with _trace.span("thth.peak", device=device):
+            eta, sig, popt, fit_ok = fit_eig_peak_batch_device(
+                etas, sigs, fw=fw, with_ok=True)
+            eta, sig, popt, ok = _health_and_quarantine(
+                sigs, in_ok, cs_ok, fit_ok, eta, sig, popt)
         return sigs, eta, sig, popt, ok
 
     fn.thin = thin

@@ -22,9 +22,9 @@ per method as well as per geometry.
 The thin-screen search (:func:`single_search_thin`,
 :func:`multi_chunk_search_thin`; :412-551) has three routes: the fused device search
 (``thth/batch.py:make_fused_thin_search_fn``, built once per geometry
-and counted in ``FUSED_CACHE_STATS``), the staged route ``fused=False``
-(the float64 host FFT, the device thin evaluator, the scipy peak fit)
-and ``eig="svd"``, the per-η float64 host SVD loop that the JAX package
+and counted by ``obs.retrace.record_build``), the staged route
+``fused=False`` (the float64 host FFT, the device thin evaluator, the
+scipy peak fit) and ``eig="svd"``, the per-η float64 host SVD loop that the JAX package
 runs on its numpy backend: the oracle, taken only when asked for.
 """
 
@@ -38,6 +38,7 @@ from scipy.optimize import curve_fit
 
 from ..backend import as_tensor, fifo_cached, formulation, resolve_device
 from ..obs import retrace as _retrace
+from ..obs import trace as _trace
 from ..robust import guards
 from .batch import check_method
 from .core import (cs_to_ri, eval_calc_batch, fft_axis,
@@ -222,9 +223,6 @@ def _host_fit_result(dspec, eigs, etas, fw, freq, time):
 
 _FUSED_CACHE = {}
 _CACHE_SIZE = 16
-# ``builder_calls`` counts the fused search functions built (a cache
-# miss each): a repeated search of one geometry builds nothing
-FUSED_CACHE_STATS = {"builder_calls": 0}
 
 
 def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, method,
@@ -242,7 +240,6 @@ def _fused_eval(tau, fd, edges, shape, npad, coher, tau_mask, fw, method,
            str(device))
 
     def build():
-        FUSED_CACHE_STATS["builder_calls"] += 1
         _retrace.record_build("thth.fused", key)
         return make_fused_search_fn(
             tau, fd, edges, nf, nt, npad=npad, coher=coher,
@@ -264,7 +261,6 @@ def _fused_thin_eval(tau, fd, edges, edges_arclet, center_cut, shape, npad,
            formulation("ops.cs", device.type), str(device))
 
     def build():
-        FUSED_CACHE_STATS["builder_calls"] += 1
         _retrace.record_build("thth.fused_thin", key)
         return make_fused_thin_search_fn(
             tau, fd, edges, edges_arclet, center_cut, nf, nt, npad=npad,
@@ -285,25 +281,38 @@ def _thin_eval(tau, fd, edges, edges_arclet, center_cut, device):
         _CACHE_SIZE)
 
 
-def _fused_results(fn, stack, etas, freq, times):
-    """Run a fused search and unpack its outputs into per-chunk
-    :class:`ChunkSearchResult` (NaN strip and popt gating on host)."""
-    eigs, eta, sig, popt, ok = fn(stack, etas)
-    eigs, eta, sig, popt, ok = (t.cpu().numpy()
-                                for t in (eigs, eta, sig, popt, ok))
-    freq_m = float(np.asarray(unit_checks(freq, "freq"),
-                              dtype=float).mean())
-    etas = np.asarray(etas, dtype=float)
-    out = []
-    for b, t in enumerate(times):
-        fin = np.isfinite(eigs[b])
-        t_a = np.asarray(unit_checks(t, "time"), dtype=float)
-        out.append(ChunkSearchResult(
-            eta=float(eta[b]), eta_sig=float(sig[b]),
-            freq_mean=freq_m, time_mean=float(t_a.mean()),
-            eigs=eigs[b][fin].astype(float), etas=etas[fin],
-            popt=(popt[b].astype(float) if np.isfinite(eta[b]) else None),
-            ok=int(ok[b])))
+def _stack_chunks(dspecs):
+    """The chunks as one float32 (B, nf, nt) host array."""
+    with _trace.span("thth.row.chunk"):
+        return np.stack([np.asarray(unit_checks(d), dtype=np.float32)
+                         for d in dspecs])
+
+
+def _fused_results(fn, stack, etas, freq, times, device):
+    """Upload the chunk ``stack``, run a fused search on ``device`` and
+    unpack its outputs into per-chunk :class:`ChunkSearchResult` (NaN
+    strip and popt gating on host), each stage in its program span."""
+    with _trace.span("thth.row.upload"):
+        stack = as_tensor(stack, device)
+    with _trace.span("thth.row.search"):
+        outs = fn(stack, etas)
+    with _trace.span("thth.row.fetch"):
+        eigs, eta, sig, popt, ok = (t.cpu().numpy() for t in outs)
+    with _trace.span("thth.row.results"):
+        freq_m = float(np.asarray(unit_checks(freq, "freq"),
+                                  dtype=float).mean())
+        etas = np.asarray(etas, dtype=float)
+        out = []
+        for b, t in enumerate(times):
+            fin = np.isfinite(eigs[b])
+            t_a = np.asarray(unit_checks(t, "time"), dtype=float)
+            out.append(ChunkSearchResult(
+                eta=float(eta[b]), eta_sig=float(sig[b]),
+                freq_mean=freq_m, time_mean=float(t_a.mean()),
+                eigs=eigs[b][fin].astype(float), etas=etas[fin],
+                popt=(popt[b].astype(float) if np.isfinite(eta[b])
+                      else None),
+                ok=int(ok[b])))
     return out
 
 
@@ -343,8 +352,7 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
         return _multi_chunk_search_staged(dspecs, freq, times, etas, edges,
                                           fw, npad, coher, tau_mask, method,
                                           eig, dev)
-    stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
-                      for d in dspecs])
+    stack = _stack_chunks(dspecs)
     _, nf, nt = stack.shape
     time0 = np.asarray(unit_checks(times[0], "time"), dtype=float)
     freq_a = np.asarray(unit_checks(freq, "freq"), dtype=float)
@@ -354,7 +362,7 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     fn = _fused_eval(tau, fd, edges_a, (nf, nt), npad, coher,
                      float(unit_checks(tau_mask) or 0.0), fw, method, eig,
                      dev)
-    return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
+    return _fused_results(fn, stack, etas, freq, times, dev)
 
 
 def _multi_chunk_search_staged(dspecs, freq, times, etas, edges, fw, npad,
@@ -417,8 +425,7 @@ def multi_chunk_search_thin(dspecs, freq, times, etas, edges, edgesArclet,
                           dtype=float)
     cut = float(unit_checks(centerCut, "center_cut"))
     if eig == "power" and fused:
-        stack = np.stack([np.asarray(unit_checks(d), dtype=np.float32)
-                          for d in dspecs])
+        stack = _stack_chunks(dspecs)
         _, nf, nt = stack.shape
         time0 = np.asarray(unit_checks(times[0], "time"), dtype=float)
         freq_a = np.asarray(unit_checks(freq, "freq"), dtype=float)
@@ -427,7 +434,7 @@ def multi_chunk_search_thin(dspecs, freq, times, etas, edges, edgesArclet,
         fn = _fused_thin_eval(tau, fd, edges_a, arclet_a, cut, (nf, nt),
                               npad, coher,
                               float(unit_checks(tau_mask) or 0.0), fw, dev)
-        return _fused_results(fn, as_tensor(stack, dev), etas, freq, times)
+        return _fused_results(fn, stack, etas, freq, times, dev)
 
     bases = []
     for dspec, time in zip(dspecs, times):

@@ -6,10 +6,13 @@ The port's own copy of ``scintools_tpu/utils/profiling.py``:
   into a table. CUDA launches are asynchronous, so every section
   entry and exit fences with ``torch.cuda.synchronize()`` (where the
   JAX package blocks until ready) before reading the clock;
+- :func:`clock` — the timelines' clock: seconds of ``time.time_ns()``,
+  the clock ``torch.profiler`` stamps host events with;
 - :class:`StageTimeline` — per-epoch stage spans with overlap
   accounting for the pipelined survey runner;
 - :func:`trace` — context manager around ``torch.profiler`` that
-  writes a Chrome trace of the card's kernels and the host's ops;
+  writes a Chrome trace of the card's kernels, the host's ops and the
+  program's own spans (``obs.trace.span``);
 - :func:`timeit_fn` — best-of-N timing of a callable with a separate
   (reported) first-call time.
 """
@@ -98,6 +101,13 @@ class Timer:
         return "\n".join(rows)
 
 
+def clock():
+    """Seconds of ``time.time_ns()``: the wall clock that
+    ``torch.profiler`` stamps host events with, so spans taken on it
+    line up with a device trace, and with spans of other processes."""
+    return time.time_ns() / 1e9
+
+
 def _interval_union(intervals):
     """Total length of the union of ``[(t0, t1), ...]`` intervals."""
     total = 0.0
@@ -125,9 +135,10 @@ class StageTimeline:
     >>> tl.summary()["overlap_frac"]
 
     Spans may be recorded from any thread (`record` appends under a
-    lock); the clock is ``time.perf_counter`` so spans from the
-    loader threads, the main dispatch loop, and the journal writer
-    share one timeline.
+    lock); the clock is :func:`clock` (seconds of ``time.time_ns()``),
+    so spans from the loader threads, the main dispatch loop, and the
+    journal writer share one timeline, which is also the timeline of a
+    ``torch.profiler`` trace and of other processes' timelines.
 
     :meth:`summary` reports:
 
@@ -163,7 +174,7 @@ class StageTimeline:
         self._lock = threading.Lock()
 
     def record(self, epoch, stage, t0, t1):
-        """Record one finished span (absolute perf_counter times)."""
+        """Record one finished span (absolute :func:`clock` times)."""
         with self._lock:
             self._spans.append((str(stage), epoch, float(t0),
                                 float(t1)))
@@ -195,11 +206,11 @@ class StageTimeline:
 
     @contextmanager
     def span(self, epoch, stage):
-        t0 = time.perf_counter()
+        t0 = clock()
         try:
             yield
         finally:
-            self.record(epoch, stage, t0, time.perf_counter())
+            self.record(epoch, stage, t0, clock())
 
     def stages(self):
         return sorted({s for s, _, _, _ in self._spans})
@@ -259,21 +270,35 @@ class StageTimeline:
 def trace(trace_dir):
     """``torch.profiler`` trace context: the host's ops and, with a
     card, its kernels, exported as a Chrome trace
-    ``<trace_dir>/trace.json`` (loads in Perfetto). Yields the
+    ``<trace_dir>/trace.json`` (loads in Perfetto), with the program
+    spans recorded meanwhile (``obs.trace.span``) on a track of their
+    own above the kernels, on the profiler's time base. Yields the
     profiler, whose ``key_averages()`` give per-op device times. The
     traced body's own exceptions propagate untouched."""
+    import json
     import os
 
     from torch.profiler import ProfilerActivity, profile
+
+    from ..obs import trace as obs_trace
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(str(trace_dir), exist_ok=True)
+    path = os.path.join(str(trace_dir), "trace.json")
+    t0 = time.time_ns()
     with profile(activities=acts) as prof:
         yield prof
         _device_fence()
-    prof.export_chrome_trace(os.path.join(str(trace_dir), "trace.json"))
+    records = obs_trace.program_spans(t0, time.time_ns())
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        doc = json.load(fh)
+    doc["traceEvents"] += obs_trace.program_trace_events(
+        records, int(doc.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
 
 
 def timeit_fn(fn, *args, repeats=3, **kwargs):

@@ -37,8 +37,14 @@ from scintools_tpu_torch.ops import fitarc_device as tfd  # noqa: E402
 from scintools_tpu_torch.ops import normsspec as tns  # noqa: E402
 from scintools_tpu_torch.ops import scale as tscale  # noqa: E402
 from scintools_tpu_torch.ops.sspec import secondary_spectrum  # noqa: E402
+from scintools_tpu_torch.obs.retrace import compile_counts  # noqa: E402
 
 CPU = "cpu"
+
+
+def _arc_fit_builds():
+    """Builds of ``fit_arc_batch``'s device functions so far."""
+    return compile_counts().get("ops.arc_fit_device", 0)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -691,14 +697,13 @@ class TestFitArcBatchCache:
     def test_repeat_call_builds_nothing_and_keeps_the_bits(self, arc_epochs,
                                                            on_device):
         sspecs, tdel, fdop = arc_epochs
-        stats = tfa.ARC_FIT_CACHE_STATS
         tfa._ARC_FIT_CACHE.clear()
         kw = dict(numsteps=2000, on_device=on_device, device=CPU)
-        n0 = stats["builds"]
+        n0 = _arc_fit_builds()
         fresh = tfa.fit_arc_batch(sspecs, tdel, fdop, **kw)
-        assert stats["builds"] == n0 + 1
+        assert _arc_fit_builds() == n0 + 1
         again = tfa.fit_arc_batch(sspecs, tdel, fdop, **kw)
-        assert stats["builds"] == n0 + 1
+        assert _arc_fit_builds() == n0 + 1
         np.testing.assert_array_equal(self._eta(again), self._eta(fresh))
         for a, f in zip(again, fresh):
             np.testing.assert_array_equal(a.profile, f.profile)
@@ -712,25 +717,24 @@ class TestFitArcBatchCache:
     def test_a_changed_key_builds_and_the_ninth_evicts_the_first(
             self, arc_epochs):
         sspecs, tdel, fdop = arc_epochs
-        stats = tfa.ARC_FIT_CACHE_STATS
         tfa._ARC_FIT_CACHE.clear()
-        n0 = stats["builds"]
+        n0 = _arc_fit_builds()
         tfa.fit_arc_batch(sspecs, tdel, fdop, numsteps=2000, device=CPU)
         for kw in (dict(numsteps=2002), dict(nsmooth=7), dict(cutmid=5),
                    dict(startbin=4), dict(delmax=tdel[100]),
                    dict(on_device=False), dict(constraint=(1e-4, 1e-2))):
             tfa.fit_arc_batch(sspecs, tdel, fdop,
                               **dict(dict(numsteps=2000, device=CPU), **kw))
-        assert stats["builds"] == n0 + 8
+        assert _arc_fit_builds() == n0 + 8
         assert len(tfa._ARC_FIT_CACHE) == 8
         first = next(iter(tfa._ARC_FIT_CACHE))
         tfa.fit_arc_batch(sspecs, tdel, fdop * 1.5, numsteps=2000,
                           device=CPU)
-        assert stats["builds"] == n0 + 9
+        assert _arc_fit_builds() == n0 + 9
         assert len(tfa._ARC_FIT_CACHE) == 8
         assert first not in tfa._ARC_FIT_CACHE
         tfa.fit_arc_batch(sspecs, tdel, fdop, numsteps=2000, device=CPU)
-        assert stats["builds"] == n0 + 10
+        assert _arc_fit_builds() == n0 + 10
 
 class TestDeviceTailPieces:
     def test_savgol_matches_scipy(self):

@@ -34,6 +34,7 @@ from scintools_tpu.ops.sspec import sspec_axes as j_sspec_axes
 from scintools_tpu.sim import factory as jf
 from scintools_tpu.sim import scenario as jsc
 from scintools_tpu_torch.io.psrflux import MalformedInputError
+from scintools_tpu_torch.obs.retrace import compile_counts
 from scintools_tpu_torch.sim import factory as tf
 from scintools_tpu_torch.sim import scenario as tsc
 from scintools_tpu_torch.sim import simulation as tsim
@@ -205,14 +206,14 @@ class TestFactoryProperties:
     def test_one_build_serves_a_regime_sweep(self):
         kw = dict(group_size=4, device_out=True, **self.KW)
         tf.simulate_scenarios(4, mb2=[1, 2, 4, 8], seed=0, **kw)
-        n = tf.SCENARIO_CACHE_STATS["builds"]
+        n = compile_counts().get("sim.factory", 0)
         out = tf.simulate_scenarios(4, mb2=[0.5, 16, 2, 3],
                                     ar=[1, 2, 1.5, 1], psi=[0, 30, 60, 5],
                                     seed=9, **kw)
-        assert tf.SCENARIO_CACHE_STATS["builds"] == n
+        assert compile_counts().get("sim.factory", 0) == n
         assert isinstance(out, torch.Tensor)
         tf.simulate_scenarios(4, seed=0, dlam=0.125, **kw)
-        assert tf.SCENARIO_CACHE_STATS["builds"] == n + 1
+        assert compile_counts().get("sim.factory", 0) == n + 1
 
     def test_lane_draw_order(self):
         """A lane's normals come from one generator seeded by its key:
@@ -354,9 +355,9 @@ class TestScenario:
         got = fn(torch.as_tensor(dyns)).numpy()
         lin_w, lin_g = 10 ** (want / 10), 10 ** (got / 10)
         assert relmax(lin_g, lin_w) < 1e-5
-        n = tsc.SSPEC_DB_CACHE_STATS["builds"]
+        n = compile_counts().get("sim.scenario_sspec", 0)
         tsc.make_sspec_db_batch(128, 64, device=CPU)
-        assert tsc.SSPEC_DB_CACHE_STATS["builds"] == n
+        assert compile_counts().get("sim.scenario_sspec", 0) == n
 
     def test_fit_stage_on_jax_stack(self, workload):
         pay = [p for _, p in workload["epochs"]][4:12]

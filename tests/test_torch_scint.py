@@ -39,6 +39,7 @@ import scintools_tpu_torch.fit.fitter  # noqa: E402,F401 (the module)
 from scintools_tpu_torch.fit import lm as tlm
 from scintools_tpu_torch.fit import models as tmodels
 from scintools_tpu_torch.fit.parameters import Parameters as TParameters
+from scintools_tpu_torch.obs.retrace import compile_counts
 from scintools_tpu_torch.robust import guards as tguards
 from scintools_tpu_torch.sim import acf_model as tacf
 
@@ -467,10 +468,10 @@ class TestSurvey1d:
         for k in ("tauerr", "dnuerr", "amperr"):
             np.testing.assert_allclose(got[k], ref[k], rtol=1e-3, err_msg=k)
         # a repeated geometry builds nothing
-        before = tbatch.ACF1D_CACHE_STATS["builds"]
+        before = compile_counts().get("fit.acf1d_batch", 0)
         again = tbatch.scint_params_batch(torch.as_tensor(epochs1d), 2.0,
                                           0.05, device_out=True, device=CPU)
-        assert tbatch.ACF1D_CACHE_STATS["builds"] == before
+        assert compile_counts().get("fit.acf1d_batch", 0) == before
         np.testing.assert_array_equal(again["tau"].numpy(), got["tau"])
 
     @pytest.mark.parametrize("bartlett, weighted", [(False, True),
@@ -520,10 +521,10 @@ class TestSurvey1d:
         bad[2, 5, 7] = np.nan
         jp = jbatch.make_scint_params_serve(B, nf, nt, 2.0, 0.05)
         tp = tbatch.make_scint_params_serve(B, nf, nt, 2.0, 0.05, device=CPU)
-        builds = tbatch.ACF1D_CACHE_STATS["serve_builds"]
+        builds = compile_counts().get("fit.scint_params_serve", 0)
         assert tbatch.make_scint_params_serve(
             B, nf, nt, 2.0, 0.05, device=CPU) is tp
-        assert tbatch.ACF1D_CACHE_STATS["serve_builds"] == builds
+        assert compile_counts().get("fit.scint_params_serve", 0) == builds
         oj = {k: np.asarray(v) for k, v in jp(bad).items()}
         ot = {k: v.numpy() for k, v in tp(bad).items()}
         oc = {k: v.numpy() for k, v in tp(epochs1d).items()}
@@ -604,11 +605,11 @@ class TestAcf2dFit:
         kw = dict(tau=900.0, dnu=5.0)
         tstart = _acf2d_params(TParameters, **kw)
         tacf2d.fit_acf2d_batch(tstart, ys, None, n_iter=N_ITER, device=CPU)
-        before = tacf2d.ACF2D_CACHE_STATS["builder_calls"]
+        before = compile_counts().get("fit.acf2d_batch", 0)
         got = tacf2d.fit_acf2d(tstart, ys[0], None, n_iter=N_ITER, device=CPU)
         tacf2d.fit_acf2d_batch(tstart, ys + 1e-6, None, n_iter=N_ITER,
                                device=CPU)
-        assert tacf2d.ACF2D_CACHE_STATS["builder_calls"] == before
+        assert compile_counts().get("fit.acf2d_batch", 0) == before
         ref = jacf2d.fit_acf2d_tpu(_acf2d_params(JParameters, **kw), ys[0],
                                    None, n_iter=N_ITER)
         _hold_fit(got, ref, 1e-4)

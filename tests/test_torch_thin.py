@@ -36,6 +36,7 @@ from scintools_tpu_torch import dynspec as tdyn  # noqa: E402
 from scintools_tpu_torch.thth import batch as tbatch  # noqa: E402
 from scintools_tpu_torch.thth import core as tcore  # noqa: E402
 from scintools_tpu_torch.thth import search as tsearch  # noqa: E402
+from scintools_tpu_torch.obs.retrace import compile_counts  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -295,15 +296,15 @@ class TestThinSearch:
         args = (chunks, freqs, tlist, etas, edges, arclet, cut)
         first = tsearch.multi_chunk_search_thin(*args, npad=npad,
                                                 device="cpu")
-        built = tsearch.FUSED_CACHE_STATS["builder_calls"]
+        built = compile_counts().get("thth.fused_thin", 0)
         again = tsearch.multi_chunk_search_thin(*args, npad=npad,
                                                 device="cpu")
-        assert tsearch.FUSED_CACHE_STATS["builder_calls"] == built
+        assert compile_counts().get("thth.fused_thin", 0) == built
         for a, b in zip(first, again):
             np.testing.assert_array_equal(a.eigs, b.eigs)
         tsearch.multi_chunk_search_thin(*args, npad=npad, device="cpu",
                                         fw=0.2)
-        assert tsearch.FUSED_CACHE_STATS["builder_calls"] == built + 1
+        assert compile_counts().get("thth.fused_thin", 0) == built + 1
 
 
 _THIN_PREP = dict(fitting_proc="thin", cwf=128, cwt=128, eta_min=0.1,
