@@ -1400,7 +1400,9 @@ class Dynspec:
         rows' time-averaged η, weighted by their scatter over time, in
         place of every chunk's. ``pool`` is accepted and ignored. ``plot``
         draws η against frequency with the fit
-        (:func:`.plotting.plot_eta_evolution`).
+        (:func:`.plotting.plot_eta_evolution`). The rows' chunks are
+        cut and centred on ``self.device`` from one upload of the
+        spectrum (:meth:`_fit_grid`), made anew each call.
 
         ``mesh`` (:func:`.parallel.make_mesh`) searches the whole chunk
         grid at once, the chunks spread over the mesh's devices
@@ -1419,9 +1421,11 @@ class Dynspec:
         self.t0s = np.zeros(self.nct_fit)
         if mesh is not None:
             self._fit_thetatheta_sharded(mesh, eig=eig, verbose=verbose)
+        elif self.nct_fit > 1:
+            grid = self._fit_grid()
         for cf in range(self.ncf_fit if mesh is None else 0):
             if self.nct_fit > 1:
-                results = self._fit_row(cf, eig)
+                results = self._fit_row(cf, eig, grid[cf])
             else:
                 results = [self.thetatheta_single(cf, 0, verbose=verbose,
                                                   eig=eig)]
@@ -1462,17 +1466,30 @@ class Dynspec:
 
             plotting.plot_eta_evolution(self, time_avg=time_avg)
 
-    def _fit_row(self, cf, eig):
+    def _fit_grid(self):
+        """The fitting chunk grid on ``self.device``: one float64 upload
+        of the spectrum's tiled part, each chunk less its NaN-mean, NaNs
+        set to 0, as a (ncf_fit, nct_fit, cwf, cwt) float32 tensor
+        (:func:`_centred_chunk_grid`), in the program span
+        ``thth.row.chunk``."""
+        dyn = self.dyn[:self.ncf_fit * self.cwf, :self.nct_fit * self.cwt]
+        with _trace.span("thth.row.chunk", rows=self.ncf_fit,
+                         chunks=self.ncf_fit * self.nct_fit,
+                         bytes=dyn.size * 8):
+            return _centred_chunk_grid(
+                torch.as_tensor(dyn, dtype=torch.float64,
+                                device=self.device),
+                self.cwf, self.cwt)
+
+    def _fit_row(self, cf, eig, chunks):
         """The fused search of chunk row ``cf`` (two or more chunks),
-        in the program span ``thth.row``."""
+        ``chunks`` its row of :meth:`_fit_grid`, in the program span
+        ``thth.row``."""
         with _trace.span("thth.row", cf=cf, chunks=self.nct_fit,
-                         proc=self.thetatheta_proc):
-            with _trace.span("thth.row.chunk"):
-                chunks, tlist, freq2 = [], [], None
-                for ct in range(self.nct_fit):
-                    dspec2, freq2, time2 = self._chunk(cf, ct)
-                    chunks.append(dspec2)
-                    tlist.append(time2)
+                         proc=self.thetatheta_proc, grid=True):
+            freq2 = self.freqs[cf * self.cwf:(cf + 1) * self.cwf]
+            tlist = [self.times[ct * self.cwt:(ct + 1) * self.cwt]
+                     for ct in range(self.nct_fit)]
             etas, edges = self._thth_row_geometry(freq2)
             if self.thetatheta_proc == "thin":
                 return self._thin_search(chunks, freq2, tlist, etas, edges)
@@ -2357,6 +2374,18 @@ def _centred_chunk(dyn, fs, ts):
     chunk = np.array(dyn[fs, ts])
     chunk -= np.nanmean(chunk)
     return np.nan_to_num(chunk)
+
+
+def _centred_chunk_grid(dyn, cwf, cwt):
+    """The (cwf, cwt) chunks tiling the float64 tensor ``dyn`` (its
+    sides multiples of them) as one (ncf, nct, cwf, cwt) float32
+    tensor on its device: :func:`_centred_chunk` of every chunk, cast
+    as :func:`.thth.search.multi_chunk_search` casts a list (an all-NaN
+    chunk gives zeros; only the order of the mean's sum differs)."""
+    nf, nt = dyn.shape
+    g = dyn.reshape(nf // cwf, cwf, nt // cwt, cwt).permute(0, 2, 1, 3)
+    g = torch.nan_to_num_(g - torch.nanmean(g, dim=(2, 3), keepdim=True))
+    return g.to(torch.float32, memory_format=torch.contiguous_format)
 
 
 def _wavefield_grid(dyn, cwf, cwt):

@@ -281,8 +281,20 @@ def _thin_eval(tau, fd, edges, edges_arclet, center_cut, device):
         _CACHE_SIZE)
 
 
+def _host_chunks(dspecs):
+    """``dspecs`` as a list of host arrays: a tensor stack fetched, a
+    list as it is (the routes that take host chunks)."""
+    if isinstance(dspecs, torch.Tensor):
+        return list(dspecs.cpu().numpy())
+    return dspecs
+
+
 def _stack_chunks(dspecs):
-    """The chunks as one float32 (B, nf, nt) host array."""
+    """The chunks as one float32 (B, nf, nt) stack: a tensor stack (a
+    row of the façade's chunk grid, on the device already) as it is, a
+    list of host arrays stacked on the host."""
+    if isinstance(dspecs, torch.Tensor):
+        return dspecs
     with _trace.span("thth.row.chunk"):
         return np.stack([np.asarray(unit_checks(d), dtype=np.float32)
                          for d in dspecs])
@@ -326,8 +338,10 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     :func:`single_search` instead, whatever the method, as in the JAX
     package.
 
-    dspecs : list of (nf, nt) chunk arrays; times : list of per-chunk
-    time axes (same spacing). ``method`` is the JAX package's
+    dspecs : list of (nf, nt) chunk arrays, or a float32 (B, nf, nt)
+    tensor stack of them (the fused route searches it where it lies;
+    the others fetch it); times : list of per-chunk time axes (same
+    spacing). ``method`` is the JAX package's
     eigensolver name (:data:`.batch.METHODS`): ``"auto"`` and
     ``"pallas"`` the warm-start eigensolver, ``"square"`` the cold
     squaring start per (chunk, η), ``"warm"`` the η-scan, ``"power"``
@@ -344,6 +358,8 @@ def multi_chunk_search(dspecs, freq, times, etas, edges, fw=0.1, npad=3,
     check_method(method)
     dev = resolve_device(device)
     etas = np.asarray(unit_checks(etas, "etas"), dtype=float)
+    if len(dspecs) == 1 or not fused:
+        dspecs = _host_chunks(dspecs)
     if len(dspecs) == 1:
         return [single_search(dspecs[0], freq, times[0], etas, edges,
                               fw=fw, npad=npad, coher=coher,
@@ -414,7 +430,8 @@ def multi_chunk_search_thin(dspecs, freq, times, etas, edges, edgesArclet,
     peak fit. ``eig="svd"`` is the host oracle: per chunk and η, the
     float64 SVD of the cropped two-curve θ-θ
     (:func:`.core.singularvalue_calc`), then the scipy fit. The
-    conjugate-spectrum base is |CS|² with ``coher=False``. Returns a
+    conjugate-spectrum base is |CS|² with ``coher=False``. ``dspecs``
+    may be a tensor stack, as in :func:`multi_chunk_search`. Returns a
     list of :class:`ChunkSearchResult`."""
     if eig not in ("power", "svd"):
         raise ValueError(f"unknown eig {eig!r} (want 'power' or 'svd')")
@@ -436,6 +453,7 @@ def multi_chunk_search_thin(dspecs, freq, times, etas, edges, edgesArclet,
                               float(unit_checks(tau_mask) or 0.0), fw, dev)
         return _fused_results(fn, stack, etas, freq, times, dev)
 
+    dspecs = _host_chunks(dspecs)
     bases = []
     for dspec, time in zip(dspecs, times):
         CS, tau, fd = chunk_conjugate_spectrum(dspec, time, freq, npad=npad,

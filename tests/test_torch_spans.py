@@ -25,13 +25,13 @@ CPU = "cpu"
 NF = NT = 64
 PREP = dict(cwf=32, cwt=32, npad=1, eta_min=1e-4, eta_max=1e-2, neta=20,
             nedge=16)
-ROW = ["thth.row.chunk", "thth.row.chunk", "thth.row.upload",
-       "thth.row.search", "thth.row.fetch", "thth.row.results"]
+ROW = ["thth.row.upload", "thth.row.search", "thth.row.fetch",
+       "thth.row.results"]
 STAGES = ["thth.cs", "thth.gather", "thth.eig", "thth.peak"]
 PROGRAM_NAMES = {"dynspec.init", "dynspec.calc_sspec", "sspec.transform",
                  "sspec.fetch", "dynspec.prep_thetatheta",
-                 "dynspec.fit_thetatheta", "thth.row", "thth.global_fit",
-                 "build", *ROW, *STAGES}
+                 "dynspec.fit_thetatheta", "thth.row.chunk", "thth.row",
+                 "thth.global_fit", "build", *ROW, *STAGES}
 
 
 def observe(proc="standard", seed=0):
@@ -98,14 +98,20 @@ def test_a_traced_run_records_the_span_tree(proc):
             "sspec.transform", "sspec.fetch"]
         assert children(mine, roots[0]) == children(mine, roots[2]) == []
         fit = children(mine, roots[3])
-        assert [r.name for r in fit] == ["thth.row"] * ds.ncf_fit + [
-            "thth.global_fit"]
-        for cf, row in enumerate(fit[:-1]):
+        assert [r.name for r in fit] == ["thth.row.chunk"] + [
+            "thth.row"] * ds.ncf_fit + ["thth.global_fit"]
+        # the chunk grid: cut and centred once a call, from one float64
+        # upload of the tiled part of the spectrum
+        assert fit[0].attrs == {
+            "rows": ds.ncf_fit, "chunks": ds.ncf_fit * ds.nct_fit,
+            "bytes": ds.ncf_fit * ds.cwf * ds.nct_fit * ds.cwt * 8}
+        assert children(mine, fit[0]) == []
+        for cf, row in enumerate(fit[1:-1]):
             assert row.attrs == {"cf": cf, "chunks": ds.nct_fit,
-                                 "proc": proc}
+                                 "proc": proc, "grid": True}
             kids = children(mine, row)
             assert [r.name for r in kids] == ROW
-            search = kids[3]
+            search = kids[1]
             assert [r.name for r in children(mine, search)] == STAGES
             for r in kids + children(mine, search):
                 assert row.start_ns <= r.start_ns <= r.end_ns <= row.end_ns
